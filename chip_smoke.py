@@ -7,23 +7,30 @@ The main path is the registry autotuning loop, ``autotuned(name)(*args)``:
 shape class → TuningDB lookup → candidate space emitted from the card's
 ArchSpec → staged search (hint prescreen, then finals timed on the card)
 → ``record_best`` → zero-evaluation recall and the dispatch fast path.  It
-runs for both ported kernels at real sizes:
+runs for all five ported kernels at real sizes:
 
 * ``exb`` at the paper's GKV domain (iv, iz, mx, my) = (16, 16, 128, 65), f32;
 * ``flash_attention`` at tinyllama-1.1b's attention width (32 query heads,
-  4 KV heads, head_dim 64), B=1, S=2048, bf16.
+  4 KV heads, head_dim 64), B=1, S=2048, bf16;
+* ``stress`` on one card's Seism3D subdomain (nk, nj, ni) = (256, 256, 256), f32;
+* ``ssm_scan`` at falcon-mamba-7b width (d_inner 8192, ssm_state 16), B=1,
+  S=2048, f32;
+* ``rglru_scan`` at recurrentgemma-2b width (lru_width 2560), B=1, S=2048, f32.
 
 Phases, each of which fails the run:
 
 1. the card: name and power limit as ``nvidia-smi`` prints them;
-2. build: both CUDA sources compiled with nvcc (build time, registers);
+2. build: every CUDA source compiled with nvcc, all at once (build time,
+   registers and spills);
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32 and at a padded S=2000) and held against the plain
    PyTorch version on the card within the stated tolerance;
-4. main path, per kernel: launch counts reset, a cold tune (evaluations >
-   0), a fresh op on the same DB file recalling with 0 evaluations and two
-   fast-path calls; launches > 0 and plain-version calls unchanged;
-   for exb one exhaustive search compared with the staged winner.
+4. main path, per kernel: every launch count reset, a cold tune
+   (evaluations > 0), a fresh op on the same DB file recalling with 0
+   evaluations and two fast-path calls; the counts read at once: the
+   kernel launched, and no plain version ran; for exb one exhaustive
+   search compared with the staged winner, for the others the staged
+   winner's time beside the fastest swept point's.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -47,9 +54,12 @@ SEED = 0
 
 # (rtol, atol) per dtype: the JAX package's DEFAULT_TOL (tests/conformance.py)
 TOL = {"float32": (2e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}
-# Per output row (the last axis: one head's hd values, or one my line of
-# exb): error norm over the plain version's norm, worst row.  The element
-# check alone is loose for bf16 attention at S=2048, whose outputs are only
+# the scans' conformance tolerance (tests/conformance.py, ssm_scan/rglru_scan)
+SCAN_TOL = (1e-4, 1e-4)
+# Per output row (the last axis: one head's hd values, one my line of exb,
+# one ni line of stress, one time step's channels of a scan): error norm
+# over the plain version's norm, worst row.  The element check alone is
+# loose for bf16 attention at S=2048, whose outputs are only
 # 0.03-0.05, so a kernel that dropped one 64-key block would stay inside
 # atol 2e-2.  bf16: four ulps of the output (4 * 2**-8); f32: the rtol.
 ROW_TOL = {"float32": 2e-4, "bfloat16": 4 * 2.0**-8}
@@ -57,6 +67,11 @@ ROW_TOL = {"float32": 2e-4, "bfloat16": 4 * 2.0**-8}
 EXB_DIMS = (16, 16, 128, 65)
 # tinyllama-1.1b: 32 query heads, 4 KV heads, head_dim 64
 FLASH = dict(B=1, S=2048, H=32, KV=4, hd=64)
+# one card's subdomain of the Seism3D FDM grid: 23 fields of 64 MiB, 30x the L2
+STRESS_DIMS = (256, 256, 256)
+# falcon-mamba-7b (d_inner, ssm_state) and recurrentgemma-2b (lru_width)
+SSM = dict(B=1, S=2048, D=8192, N=16)
+RGLRU = dict(B=1, S=2048, W=2560)
 
 
 def fail(msg: str) -> int:
@@ -92,9 +107,16 @@ class Timer:
         return times[len(times) // 2] * 1e3
 
 
-def max_err(torch, out, ref, dtype: str):
+def outputs(out) -> tuple:
+    """A kernel's result as a tuple of tensors (a dict in its key order)."""
+    if isinstance(out, dict):
+        return tuple(out.values())
+    return out if isinstance(out, tuple) else (out,)
+
+
+def max_err(torch, out, ref, dtype: str, tol=None):
     """(max abs error, worst row error ratio, list of the checks failed)."""
-    rtol, atol = TOL[dtype]
+    rtol, atol = tol or TOL[dtype]
     worst, worst_row, failed = 0.0, 0.0, []
     for o, r in zip(out, ref):
         o, r = o.float(), r.float()
@@ -103,7 +125,7 @@ def max_err(torch, out, ref, dtype: str):
         diff = (o - r).abs()
         worst = max(worst, float(diff.max()))
         if not bool((diff <= atol + rtol * r.abs()).all()):
-            failed.append(f"element {TOL[dtype]}")
+            failed.append(f"element {(rtol, atol)}")
         row = diff.norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
         worst_row = max(worst_row, float(row.max()))
     if worst_row > ROW_TOL[dtype]:
@@ -111,9 +133,10 @@ def max_err(torch, out, ref, dtype: str):
     return worst, worst_row, failed
 
 
-def sweep(torch, label, region, run, plain_out, dtype, timer, counter, errors):
+def sweep(torch, label, region, run, plain_out, dtype, timer, counter, errors,
+          tol=None):
     """Launch every emitted point, compare each with the plain version,
-    time each; returns (max error, {pp_key: ms})."""
+    time each; returns (max error, worst row error, {pp_key: ms})."""
     from repro_torch.core import pp_key
 
     before = counter.launches
@@ -122,8 +145,7 @@ def sweep(torch, label, region, run, plain_out, dtype, timer, counter, errors):
     for point in points:
         out = run(point)
         torch.cuda.synchronize()
-        err, row, failed = max_err(torch, out if isinstance(out, tuple) else (out,),
-                                   plain_out, dtype)
+        err, row, failed = max_err(torch, outputs(out), plain_out, dtype, tol)
         worst, worst_row = max(worst, err), max(worst_row, row)
         if failed:
             errors.append(f"{label} {point}: max abs error {err}, row error {row}; "
@@ -133,14 +155,14 @@ def sweep(torch, label, region, run, plain_out, dtype, timer, counter, errors):
         errors.append(f"{label}: {counter.launches - before} launches for {len(points)} points")
     best = min(times, key=times.get)
     print(f"[kernel] {label}: {len(points)} candidates, max abs err {worst:.3e} "
-          f"(tol {TOL[dtype]}), row error {worst_row:.3e} (tol {ROW_TOL[dtype]}), "
+          f"(tol {tol or TOL[dtype]}), row error {worst_row:.3e} (tol {ROW_TOL[dtype]}), "
           f"fastest {best} {times[best]:.4f} ms")
     print(f"[sweep] {label}: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
     return worst, worst_row, times
 
 
-def main_path(torch, name, args, plain_out, dtype, db_path, errors):
+def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
     """Cold tune, fresh-op recall, fast path; returns the cold op's state
     and the host seconds of the cold call and of the recalling call."""
     from repro_torch.core import TuningDB, autotuned
@@ -159,8 +181,7 @@ def main_path(torch, name, args, plain_out, dtype, db_path, errors):
         print(f"[main] {name}:   measured {key} {cost * 1e3:.4f} ms")
     if state.cost_evaluations <= 0:
         errors.append(f"{name}: cold tune made no evaluations")
-    err, row, failed = max_err(torch, out if isinstance(out, tuple) else (out,),
-                               plain_out, dtype)
+    err, row, failed = max_err(torch, outputs(out), plain_out, dtype, tol)
     print(f"[main] {name}: output vs plain version: max abs err {err:.3e}, "
           f"row error {row:.3e}")
     if failed:
@@ -206,6 +227,11 @@ def run() -> int:
     from repro_torch.kernels.flash_attention import (
         flash_attention as fa_mod, ops as fa_ops, ref as fa_ref,
     )
+    from repro_torch.kernels.rglru_scan import (
+        ops as rg_ops, ref as rg_ref, rglru_scan as rg_mod,
+    )
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_mod
+    from repro_torch.kernels.stress import ops as st_ops, ref as st_ref, stress as st_mod
 
     card = card_line()
     print(card)
@@ -266,27 +292,76 @@ def run() -> int:
         )
         fa_err, fa_row = max(fa_err, err), max(fa_row, row)
         flash_cases[(dtype_name, S)] = (qkv, plain_out, times)
+
+    st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
+    st_plain_out = outputs(st_mod.stress_plain(st_inp))
+    st_region = st_ops.stress_region(dims=STRESS_DIMS, arch=arch)
+    st_err, st_row, st_times = sweep(
+        torch, "stress f32 (256,256,256)", st_region,
+        lambda p: st_mod.stress_cuda(st_inp, **p), st_plain_out, "float32",
+        timer, st_mod.counter, errors,
+    )
+
+    ssm_args = ssm_ref.make_inputs(gen, device=device, **SSM)
+    ssm_plain_out = (ssm_mod.ssm_scan_plain(*ssm_args),)
+    ssm_region = ssm_ops.ssm_region(SSM["D"], SSM["S"], SSM["N"], SSM["B"], arch=arch)
+    for point in ssm_region.space.points():
+        model = ssm_mod.smem_bytes(point["block_d"], point["chunk"], SSM["N"])
+        native = ssm_mod.smem_bytes_native(point["block_d"], point["chunk"], SSM["N"])
+        if model != native or model > optin:
+            errors.append(f"ssm_scan {point}: smem model {model}, kernel {native}, limit {optin}")
+    ssm_err, ssm_row, ssm_times = sweep(
+        torch, "ssm_scan f32 (1,2048,8192,N=16)", ssm_region,
+        lambda p: ssm_mod.ssm_scan_cuda(*ssm_args, **p), ssm_plain_out, "float32",
+        timer, ssm_mod.counter, errors, tol=SCAN_TOL,
+    )
+
+    rg_args = rg_ref.make_inputs(gen, device=device, **RGLRU)
+    rg_plain_out = (rg_mod.rglru_scan_plain(*rg_args),)
+    rg_region = rg_ops.rglru_region(RGLRU["W"], RGLRU["S"], RGLRU["B"], arch=arch)
+    for point in rg_region.space.points():
+        model = rg_mod.smem_bytes(point["block_w"], point["chunk"])
+        native = rg_mod.smem_bytes_native(point["block_w"], point["chunk"])
+        if model != native or model > optin:
+            errors.append(f"rglru_scan {point}: smem model {model}, kernel {native}, limit {optin}")
+    rg_err, rg_row, rg_times = sweep(
+        torch, "rglru_scan f32 (1,2048,2560)", rg_region,
+        lambda p: rg_mod.rglru_scan_cuda(*rg_args, **p), rg_plain_out, "float32",
+        timer, rg_mod.counter, errors, tol=SCAN_TOL,
+    )
     if errors:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
         return fail(f"{len(errors)} kernel check(s) failed")
 
-    # -- main path: the registry loop, counts read around it ---------------
+    # -- main path: the registry loop, counts reset before each kernel's ---
+    # run and read right after it
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     db_path = str(Path(tmp) / "tuning_db.json")
     qkv, flash_plain, flash_times = flash_cases[("bfloat16", 2048)]
-    for counter in (exb_mod.counter, fa_mod.counter):
-        counter.reset()
-    exb_state, exb_tune_s, exb_recall_s = main_path(
-        torch, "exb", (inp,), exb_plain_out, "float32", db_path, errors)
-    fa_state, fa_tune_s, fa_recall_s = main_path(
-        torch, "flash_attention", qkv, flash_plain, "bfloat16", db_path, errors)
-    launches = {"exb": exb_mod.counter.launches,
-                "flash_attention": fa_mod.counter.launches}
-    plain_calls = exb_mod.counter.plain_calls + fa_mod.counter.plain_calls
-    print(f"[main] launches {launches}, plain-version calls {plain_calls}")
-    if min(launches.values()) <= 0 or plain_calls != 0:
-        errors.append("main path did not run through both kernels alone")
+    counters = {"exb": exb_mod.counter, "flash_attention": fa_mod.counter,
+                "stress": st_mod.counter, "ssm_scan": ssm_mod.counter,
+                "rglru_scan": rg_mod.counter}
+    paths = (
+        ("exb", (inp,), exb_plain_out, "float32", None),
+        ("flash_attention", qkv, flash_plain, "bfloat16", None),
+        ("stress", (st_inp,), st_plain_out, "float32", None),
+        ("ssm_scan", ssm_args, ssm_plain_out, "float32", SCAN_TOL),
+        ("rglru_scan", rg_args, rg_plain_out, "float32", SCAN_TOL),
+    )
+    states, launches = {}, {}
+    for name, args, plain, dtype_name, tol in paths:
+        for counter in counters.values():
+            counter.reset()
+        states[name] = main_path(torch, name, args, plain, dtype_name, db_path,
+                                 errors, tol)
+        launches[name] = counters[name].launches
+        plain_calls = sum(c.plain_calls for c in counters.values())
+        print(f"[main] {name}: launches {launches[name]}, plain-version calls {plain_calls}")
+        if launches[name] <= 0 or plain_calls != 0:
+            errors.append(f"{name}: main path did not run through its kernel alone")
+    (exb_state, exb_tune_s, exb_recall_s), (fa_state, fa_tune_s, fa_recall_s) = (
+        states["exb"], states["flash_attention"])
 
     # exb: staged winner against one exhaustive search (25 points)
     ex_db = str(Path(tmp) / "exhaustive_db.json")
@@ -300,11 +375,17 @@ def run() -> int:
     print(f"[main] exb exhaustive: {ex_state.cost_evaluations} evaluations, winner "
           f"{ex_pt} {ex_ms:.4f} ms; staged winner {staged_pt} {staged_ms:.4f} ms; "
           f"staged within 5%: {within}")
+    swept = {"flash_attention": flash_times, "stress": st_times,
+             "ssm_scan": ssm_times, "rglru_scan": rg_times}
+    fastest = {}
+    for name, times in swept.items():
+        point = states[name][0].region.selected
+        fastest[name] = min(times, key=times.get)
+        print(f"[main] {name}: staged winner {point} "
+              f"{times[pp_key(point)]:.4f} ms in the sweep; fastest swept "
+              f"{fastest[name]} {times[fastest[name]]:.4f} ms")
     fa_pt = fa_state.region.selected
-    fa_best = min(flash_times, key=flash_times.get)
-    print(f"[main] flash: staged winner {fa_pt} "
-          f"{flash_times[pp_key(fa_pt)]:.4f} ms in the sweep; fastest swept {fa_best} "
-          f"{flash_times[fa_best]:.4f} ms")
+    fa_best = fastest["flash_attention"]
     if errors:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
@@ -355,6 +436,38 @@ def run() -> int:
             "tune_s": fa_tune_s, "recall_s": fa_recall_s,
         },
     ]
+    # the new slice: (name, source, TPU kernel, kernel, plain version, args,
+    # (flops, bytes) of the call, max errors, swept times)
+    slice_two = (
+        ("stress", "stress.cu", "stress/stress.py:19", st_mod.stress_cuda,
+         st_mod.stress_plain, (st_inp,), st_mod.traffic(*STRESS_DIMS),
+         (st_err, st_row), st_times),
+        ("ssm_scan", "ssm_scan.cu", "ssm_scan/ssm_scan.py:23", ssm_mod.ssm_scan_cuda,
+         ssm_mod.ssm_scan_plain, ssm_args, ssm_mod.traffic(**SSM),
+         (ssm_err, ssm_row), ssm_times),
+        ("rglru_scan", "rglru_scan.cu", "rglru_scan/rglru_scan.py:18",
+         rg_mod.rglru_scan_cuda, rg_mod.rglru_scan_plain, rg_args,
+         rg_mod.traffic(*(RGLRU[k] for k in ("B", "S", "W"))),
+         (rg_err, rg_row), rg_times),
+    )
+    for name, source, replaces, kernel, plain, args, (flops, bytes_), (err, row), times in slice_two:
+        state, tune_s, recall_s = states[name]
+        point = state.region.selected
+        by_bytes, by_ops = bytes_ / arch.hbm_bandwidth, flops / arch.peak_flops_fp32
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[name], "max_abs_err": err, "max_row_err": row,
+            "ms": timer.ms(lambda: kernel(*args, **point), reps=20),
+            "plain_ms": timer.ms(lambda: plain(*args), reps=5),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes it
+            "candidates": len(times), "tuned_point": point,
+            "fastest_swept_point": json.loads(fastest[name]),
+            "fastest_swept_ms": times[fastest[name]],
+            "tune_s": tune_s, "recall_s": recall_s,
+        })
     print(json.dumps({"kernels": kernels}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

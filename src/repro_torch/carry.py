@@ -6,7 +6,10 @@ the JAX side's arrays) and leave as tensors in the same layout, so both
 packages compute the same thing:
 
 * ``exb``: the dict of 13 float32 arrays (``vl`` and the 4-D/3-D fields);
-* ``flash_attention``: ``(q, k, v)`` in ``(B, S, heads, hd)``.
+* ``flash_attention``: ``(q, k, v)`` in ``(B, S, heads, hd)``;
+* ``stress``: the dict of 17 float32 ``(nk, nj, ni)`` fields;
+* ``ssm_scan``: ``(x, dt, A, Bc, Cc, D)`` in the JAX positional order;
+* ``rglru_scan``: ``(x, r, i, lam)``.
 
 The tuning record needs no conversion: the port's TuningDB writes the same
 schema v2 file the JAX package reads.  bf16 has no numpy type, so a bf16
@@ -44,6 +47,28 @@ def attention_inputs(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(q, k, v)`` as tensors in the same ``(B, S, heads, hd)`` layout."""
     return tuple(to_tensor(a, device, dtype) for a in (q, k, v))
+
+
+def stress_inputs(arrays: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """The stress input dict, field by field, as float32 tensors."""
+    return {name: to_tensor(a, device, torch.float32) for name, a in arrays.items()}
+
+
+def ssm_inputs(
+    x: Any, dt: Any, A: Any, Bc: Any, Cc: Any, D: Any, device: Any = "cuda",
+) -> Tuple[torch.Tensor, ...]:
+    """``(x, dt, A, Bc, Cc, D)`` as tensors in the same layouts; x, dt keep
+    their type, A and D are float32 as the kernel keeps them."""
+    return (to_tensor(x, device), to_tensor(dt, device),
+            to_tensor(A, device, torch.float32), to_tensor(Bc, device),
+            to_tensor(Cc, device), to_tensor(D, device, torch.float32))
+
+
+def rglru_inputs(
+    x: Any, r: Any, i: Any, lam: Any, device: Any = "cuda",
+) -> Tuple[torch.Tensor, ...]:
+    """``(x, r, i, lam)`` as tensors in the same ``(B, S, W)``/``(W,)`` layouts."""
+    return tuple(to_tensor(a, device) for a in (x, r, i, lam))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -17,6 +17,11 @@ Hopper meanings (the JAX package's floors are TPU lane/sublane shapes):
   adds no CTAs;
 * a "grid" dim only splits the CTA count (any size works).
 
+A dim's ``max_tile`` caps its ladder where the kernel maps the tile onto
+threads (at most 1024 a CTA), and a policy's ``grid_multiplier`` counts the
+CTAs a launch repeats every tile over (the batch), so the hint sees the
+whole call.
+
 The estimate charges memory time at ``bytes / (BW · min(1, CTAs / SMs))``
 — a launch with fewer CTAs than SMs leaves bandwidth idle — plus a fixed
 cost per *wave* of CTAs, not per CTA.
@@ -53,6 +58,7 @@ class TileDim:
     ``allow_padding`` marks dims the kernel can tile past the array edge
     (masking the tail), so non-dividing pow2 tiles stay candidates —
     without it a prime extent collapses to the single full-extent tile.
+    ``max_tile`` is the largest tile the kernel takes (``None``: the extent).
     """
 
     name: str
@@ -60,6 +66,7 @@ class TileDim:
     semantic: str = "lane"
     min_tile: Optional[int] = None
     allow_padding: bool = False
+    max_tile: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.semantic not in _SEMANTICS:
@@ -69,6 +76,8 @@ class TileDim:
             )
         if self.extent < 1:
             raise ValueError(f"TileDim {self.name!r}: extent must be >= 1")
+        if self.max_tile is not None and self.max_tile < 1:
+            raise ValueError(f"TileDim {self.name!r}: max_tile must be >= 1")
 
     def resolved_min(self, arch: ArchSpec) -> int:
         if self.min_tile is not None:
@@ -114,17 +123,19 @@ POLICY_VERSION = 1
 def pow2_ladder(dim: TileDim, arch: ArchSpec, cap: int = MAX_PER_DIM) -> Tuple[int, ...]:
     """Candidate tile sizes for one dim: pow2 multiples of the semantic
     minimum up to the extent, clipped to divisibility (unless the dim
-    allows padded tails), plus the full extent itself.  At most ``cap``
-    values survive — the largest ones, since the shared-memory constraint prunes
-    from above anyway."""
-    lo = min(dim.resolved_min(arch), dim.extent)
+    allows padded tails), plus the full extent itself; none above
+    ``dim.max_tile``.  At most ``cap`` values survive — the largest ones,
+    since the shared-memory constraint prunes from above anyway."""
+    hi = dim.extent if dim.max_tile is None else min(dim.extent, dim.max_tile)
+    lo = min(dim.resolved_min(arch), hi)
     out = []
     v = lo
-    while v < dim.extent:
+    while v < dim.extent and v <= hi:
         if dim.extent % v == 0 or dim.allow_padding:
             out.append(v)
         v *= 2
-    out.append(dim.extent)
+    if dim.extent <= hi:
+        out.append(dim.extent)
     out = sorted(set(out))
     return tuple(out[-cap:])
 
@@ -161,6 +172,8 @@ class TilePolicy:
       one whole call, used for the roofline part of the per-point hint;
       the flops are charged at the float32 CUDA-core rate, where the port's
       kernels do them.
+    * ``grid_multiplier(bp)`` (optional) is how many times the launch
+      repeats the tile grid (the batch); the hint's CTA count includes it.
     """
 
     def __init__(
@@ -171,12 +184,14 @@ class TilePolicy:
         traffic_model: Optional[
             Callable[[Mapping[str, Any], Mapping[str, Any]], Tuple[float, float]]
         ] = None,
+        grid_multiplier: Optional[Callable[[Mapping[str, Any]], int]] = None,
     ) -> None:
         self.kernel = kernel
         self.name = "tile_pow2_hopper"
         self.dims = dims
         self.vmem_model = vmem_model
         self.traffic_model = traffic_model
+        self.grid_multiplier = grid_multiplier
 
     # -- hints -----------------------------------------------------------
 
@@ -189,6 +204,8 @@ class TilePolicy:
     ) -> Dict[str, Any]:
         vmem = int(self.vmem_model(bp, point))
         programs = _programs(dims, point)
+        if self.grid_multiplier is not None:
+            programs *= int(self.grid_multiplier(bp))
         waves = -(-programs // arch.sm_count)
         fill = min(1.0, programs / arch.sm_count)
         pad = _pad_factor(dims, point)
@@ -285,6 +302,9 @@ def space_signature(
             {
                 "name": d.name, "extent": d.extent, "semantic": d.semantic,
                 "min_tile": d.min_tile, "allow_padding": d.allow_padding,
+                # only when set, so the spaces of dims without it keep
+                # the signatures they had before it existed
+                **({} if d.max_tile is None else {"max_tile": d.max_tile}),
             }
             for d in dims
         ],

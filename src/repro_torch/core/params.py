@@ -178,6 +178,9 @@ class ParamSpace:
         return tuple(p.name for p in self.params)
 
     def size(self) -> int:
+        """Points a subset enumerates; else the cartesian product's size."""
+        if self._members is not None:
+            return len(self._members)
         n = 1
         for p in self.params:
             n *= len(p.domain)

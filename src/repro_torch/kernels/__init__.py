@@ -2,6 +2,9 @@
 
 * exb             — GKV exb_realspcal (the paper's §III tuning target)
 * flash_attention — causal GQA flash attention, forward
+* stress          — Seism3D update_stress (the paper's §IV tuning target)
+* ssm_scan        — Mamba-1 selective scan
+* rglru_scan      — RG-LRU recurrence (recurrentgemma)
 
 Each package: <name>.py (the wrapper: CUDA launch on CUDA tensors, the
 plain PyTorch version on CPU tensors, a launch counter), ops.py (emit
@@ -13,4 +16,4 @@ nvcc at first use.
 # Importing the subpackages registers each kernel's KernelSpec with the
 # port's registry (repro_torch.core.registry), which also lazy-imports
 # this module on a name miss — so `autotuned("exb")` works either way.
-from . import exb, flash_attention  # noqa: E402,F401
+from . import exb, flash_attention, rglru_scan, ssm_scan, stress  # noqa: E402,F401

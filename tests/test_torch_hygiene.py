@@ -57,7 +57,9 @@ def test_no_source_line_imports_jax_or_the_jax_package():
 
 def test_every_kernel_source_names_what_it_replaces():
     sources = sorted((PORT / "csrc").glob("*.cu"))
-    assert {p.stem for p in sources} == {"exb", "flash_attention"}
+    assert {p.stem for p in sources} == {
+        "exb", "flash_attention", "stress", "ssm_scan", "rglru_scan",
+    }
     for src in sources:
         text = src.read_text()
         assert "Replaces: src/repro/kernels/" in text

@@ -10,6 +10,7 @@ fingerprint under two space signatures).
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -21,11 +22,18 @@ from repro_torch import carry
 from repro_torch.kernels.exb import ops as exb_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from test_torch_kernels import assert_close, exb_numpy, qkv_numpy
+from test_torch_scans import TOL as SCAN_TOL, rglru_numpy, ssm_numpy
+from test_torch_stress import stress_numpy
+
+NAMES = ["exb", "flash_attention", "stress", "ssm_scan", "rglru_scan"]
 
 
 def _cases():
     arrays = exb_numpy(seed=21)
     q, k, v = qkv_numpy(seed=22, S=128)
+    fields = stress_numpy(seed=23)
+    ssm = ssm_numpy(seed=24)
+    rglru = rglru_numpy(seed=25)
     return {
         "exb": (
             ({k_: jnp.asarray(a) for k_, a in arrays.items()},),
@@ -35,7 +43,25 @@ def _cases():
             tuple(jnp.asarray(a) for a in (q, k, v)),
             carry.attention_inputs(q, k, v, device="cpu"),
         ),
+        "stress": (
+            ({k_: jnp.asarray(a) for k_, a in fields.items()},),
+            (carry.stress_inputs(fields, device="cpu"),),
+        ),
+        "ssm_scan": (
+            tuple(jnp.asarray(a) for a in ssm),
+            carry.ssm_inputs(*ssm, device="cpu"),
+        ),
+        "rglru_scan": (
+            tuple(jnp.asarray(a) for a in rglru),
+            carry.rglru_inputs(*rglru, device="cpu"),
+        ),
     }
+
+
+def _outputs(out):
+    if isinstance(out, dict):
+        return tuple(out[k] for k in sorted(out))
+    return out if isinstance(out, tuple) else (out,)
 
 
 def _jax_op(name, path):
@@ -45,21 +71,24 @@ def _jax_op(name, path):
                            trial_budget=2, warm=False)
 
 
-@pytest.mark.parametrize("name", ["exb", "flash_attention"])
+@pytest.mark.parametrize("name", NAMES)
 def test_registry_loops_agree(name, tmp_path):
     jax_args, torch_args = _cases()[name]
     ref = _jax_op(name, str(tmp_path / "jax.json"))(*jax_args)
     out = tcore.autotuned(name, db=tcore.TuningDB(str(tmp_path / "torch.json")))(
         *torch_args
     )
-    refs = ref if isinstance(ref, tuple) else (ref,)
-    outs = out if isinstance(out, tuple) else (out,)
+    refs, outs = _outputs(ref), _outputs(out)
     assert len(outs) == len(refs)
     for o, r in zip(outs, refs):
-        assert_close(o, r, "float32", name)
+        if name in ("ssm_scan", "rglru_scan"):  # their conformance tolerance
+            np.testing.assert_allclose(carry.to_numpy(o), np.asarray(r, np.float32),
+                                       rtol=SCAN_TOL[0], atol=SCAN_TOL[1], err_msg=name)
+        else:
+            assert_close(o, r, "float32", name)
 
 
-@pytest.mark.parametrize("name", ["exb", "flash_attention"])
+@pytest.mark.parametrize("name", NAMES)
 def test_cold_tune_then_zero_evaluation_recall(name, tmp_path):
     _, args = _cases()[name]
     path = str(tmp_path / "db.json")
@@ -80,7 +109,7 @@ def test_cold_tune_then_zero_evaluation_recall(name, tmp_path):
     assert fresh.slow_resolutions == slow and len(fresh._fast) == 1
 
 
-@pytest.mark.parametrize("name", ["exb", "flash_attention"])
+@pytest.mark.parametrize("name", NAMES)
 def test_port_db_file_loads_in_the_jax_tuningdb(name, tmp_path):
     _, args = _cases()[name]
     path = str(tmp_path / "db.json")
@@ -123,6 +152,6 @@ def test_fast_dispatch_keys_on_the_device():
 
 def test_one_registry_per_package():
     assert tcore.REGISTRY is not jcore.REGISTRY
-    assert set(tcore.kernel_names()) == {"exb", "flash_attention"}
+    assert set(tcore.kernel_names()) == set(NAMES)
     assert "exb" in jcore.kernel_names()
     assert tcore.get_kernel("exb").make_region is not jcore.get_kernel("exb").make_region
