@@ -11,7 +11,8 @@ runs for all five ported kernels at real sizes:
 
 * ``exb`` at the paper's GKV domain (iv, iz, mx, my) = (16, 16, 128, 65), f32;
 * ``flash_attention`` at tinyllama-1.1b's attention width (32 query heads,
-  4 KV heads, head_dim 64), B=1, S=2048, bf16;
+  4 KV heads, head_dim 64), B=1, S=2048, bf16 (the wgmma kernel), then
+  again at B=4 (B·H = 128, its own shape class);
 * ``stress`` on one card's Seism3D subdomain (nk, nj, ni) = (256, 256, 256), f32;
 * ``ssm_scan`` at falcon-mamba-7b width (d_inner 8192, ssm_state 16), B=1,
   S=2048, f32;
@@ -21,16 +22,18 @@ Phases, each of which fails the run:
 
 1. the card: name and power limit as ``nvidia-smi`` prints them;
 2. build: every CUDA source compiled with nvcc, all at once (build time,
-   registers and spills);
+   registers and spills; the bf16 flash instantiations must not spill);
 3. kernels: every point of each emitted space launched at the slice shapes
-   (flash also in f32 and at a padded S=2000) and held against the plain
-   PyTorch version on the card within the stated tolerance;
+   (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
+   width, 16 query heads, 8 KV heads, head_dim 128) and held against the
+   plain PyTorch version on the card within the stated tolerance;
 4. main path, per kernel: every launch count reset, a cold tune
    (evaluations > 0), a fresh op on the same DB file recalling with 0
    evaluations and two fast-path calls; the counts read at once: the
    kernel launched, and no plain version ran; for exb one exhaustive
    search compared with the staged winner, for the others the staged
-   winner's time beside the fastest swept point's.
+   winner's time beside the fastest swept point's; flash once more at
+   B=4, which must tune a shape class of its own and recall it.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -67,6 +71,9 @@ ROW_TOL = {"float32": 2e-4, "bfloat16": 4 * 2.0**-8}
 EXB_DIMS = (16, 16, 128, 65)
 # tinyllama-1.1b: 32 query heads, 4 KV heads, head_dim 64
 FLASH = dict(B=1, S=2048, H=32, KV=4, hd=64)
+# qwen3-0.6b: 16 query heads, 8 KV heads, head_dim 128 (two TMA boxes a row)
+FLASH_HD128 = dict(B=1, S=2048, H=16, KV=8, hd=128)
+FLASH_B = 4  # the B·H phase: B·H = 128
 # one card's subdomain of the Seism3D FDM grid: 23 fields of 64 MiB, 30x the L2
 STRESS_DIMS = (256, 256, 256)
 # falcon-mamba-7b (d_inner, ssm_state) and recurrentgemma-2b (lru_width)
@@ -105,6 +112,24 @@ class Timer:
         self.torch.cuda.synchronize()
         times = sorted(_timed(fn, self.flush) for _ in range(reps))
         return times[len(times) // 2] * 1e3
+
+
+def ptxas_entries(log: str) -> dict:
+    """{kernel entry: (registers, spill store + load bytes)} from a
+    ``-Xptxas -v`` log."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            entries[name] = (entries[name][0], int(m.group(1)) + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries[name] = (int(m.group(1)), entries[name][1])
+    return entries
 
 
 def outputs(out) -> tuple:
@@ -221,7 +246,9 @@ def run() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.core import ExhaustiveSearch, TuningDB, autotuned, detect, pp_key
+    from repro_torch.core import (
+        ExhaustiveSearch, TuningDB, autotuned, bucket_pow2, detect, pp_key,
+    )
     from repro_torch.kernels import _build
     from repro_torch.kernels.exb import exb as exb_mod, ops as exb_ops, ref as exb_ref
     from repro_torch.kernels.flash_attention import (
@@ -246,9 +273,27 @@ def run() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)")
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
+        if log.stem == "flash_attention_sm90":
+            continue  # per tile below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {log.stem}: {line.strip()}")
+    sm90_log = (_build.build_dir() / _build._digest() / "flash_attention_sm90.log").read_text()
+    sm90 = {}
+    for name, entry in ptxas_entries(sm90_log).items():
+        tile = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if tile:
+            sm90[tuple(map(int, tile.groups()))] = entry
+    for (hd, bq, bkv), (regs, spill) in sorted(sm90.items()):
+        print(f"[ptxas] flash bf16 (hd={hd}, {bq}, {bkv}): {regs} registers, "
+              f"{spill} B spilled, {fa_mod.sm90_ctas_per_sm(hd, bq, bkv)} CTAs/SM")
+    fa_spill = max((spill for _, spill in sm90.values()), default=0)
+    print(f"[build] flash bf16: {len(sm90)} instantiations, registers "
+          f"{min(r for r, _ in sm90.values())}-{max(r for r, _ in sm90.values())}, "
+          f"max spill {fa_spill} B")
+    if len(sm90) != len(fa_mod.SM90_TILES) or fa_spill:
+        return fail(f"flash bf16: {len(sm90)} instantiations for {len(fa_mod.SM90_TILES)} "
+                    f"tiles, spill {fa_spill} B")
     optin = fa_mod.smem_optin(device)
     if optin < arch.smem_per_block:
         return fail(f"arch plans {arch.smem_per_block} B of shared memory, card allows {optin}")
@@ -269,14 +314,16 @@ def run() -> int:
 
     flash_cases = {}
     fa_err = fa_row = 0.0
-    for dtype_name, dtype, S in (("bfloat16", torch.bfloat16, 2048),
-                                 ("float32", torch.float32, 2048),
-                                 ("bfloat16", torch.bfloat16, 2000),
-                                 ("float32", torch.float32, 2000)):
-        shape = dict(FLASH, S=S)
+    for dtype_name, dtype, shape in (("bfloat16", torch.bfloat16, FLASH),
+                                     ("float32", torch.float32, FLASH),
+                                     ("bfloat16", torch.bfloat16, dict(FLASH, S=2000)),
+                                     ("float32", torch.float32, dict(FLASH, S=2000)),
+                                     ("bfloat16", torch.bfloat16, FLASH_HD128)):
+        S = shape["S"]
         qkv = fa_ref.make_inputs(gen, dtype=dtype, device=device, **shape)
         plain_out = (fa_mod.attention_plain(*qkv),)
-        region = fa_ops.flash_region(S, shape["hd"], dtype_name, arch=arch)
+        region = fa_ops.flash_region(S, shape["hd"], dtype_name, arch=arch,
+                                     heads=bucket_pow2(shape["B"] * shape["H"]))
         for point in region.space.points():
             model = fa_mod.smem_bytes(point["block_q"], point["block_kv"],
                                       shape["hd"], qkv[0].element_size())
@@ -284,14 +331,20 @@ def run() -> int:
                                               shape["hd"], dtype)
             if model != native or model > optin:
                 errors.append(f"flash {point}: smem model {model}, kernel {native}, limit {optin}")
-        label = f"flash {dtype_name} (1,{S},32|4,64)"
+        label = (f"flash {dtype_name} ({shape['B']},{S},{shape['H']}|{shape['KV']},"
+                 f"{shape['hd']})")
         err, row, times = sweep(
             torch, label, region,
             lambda p, qkv=qkv: fa_mod.flash_attention_cuda(*qkv, **p),
             plain_out, dtype_name, timer, fa_mod.counter, errors,
         )
         fa_err, fa_row = max(fa_err, err), max(fa_row, row)
-        flash_cases[(dtype_name, S)] = (qkv, plain_out, times)
+        for point in region.space.points():  # the hint's rank beside the card's
+            hint = region.hints[pp_key(point)]
+            print(f"[hint] {label} {pp_key(point)}: est {hint['est_s'] * 1e3:.4f} ms "
+                  f"(latency {hint['latency_s'] * 1e3:.4f}), measured "
+                  f"{times[pp_key(point)]:.4f} ms")
+        flash_cases[(dtype_name, S, shape["hd"])] = (qkv, plain_out, times)
 
     st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
     st_plain_out = outputs(st_mod.stress_plain(st_inp))
@@ -338,7 +391,7 @@ def run() -> int:
     # run and read right after it
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     db_path = str(Path(tmp) / "tuning_db.json")
-    qkv, flash_plain, flash_times = flash_cases[("bfloat16", 2048)]
+    qkv, flash_plain, flash_times = flash_cases[("bfloat16", 2048, 64)]
     counters = {"exb": exb_mod.counter, "flash_attention": fa_mod.counter,
                 "stress": st_mod.counter, "ssm_scan": ssm_mod.counter,
                 "rglru_scan": rg_mod.counter}
@@ -362,6 +415,25 @@ def run() -> int:
             errors.append(f"{name}: main path did not run through its kernel alone")
     (exb_state, exb_tune_s, exb_recall_s), (fa_state, fa_tune_s, fa_recall_s) = (
         states["exb"], states["flash_attention"])
+
+    # flash at B=4: B·H = 128 is a shape class of its own, tuned and recalled
+    qkv4 = fa_ref.make_inputs(gen, dtype=torch.bfloat16, device=device,
+                              **dict(FLASH, B=FLASH_B))
+    plain4 = (fa_mod.attention_plain(*qkv4),)
+    for counter in counters.values():
+        counter.reset()
+    b4_state, b4_tune_s, b4_recall_s = main_path(
+        torch, "flash_attention", qkv4, plain4, "bfloat16", db_path, errors)
+    b4_launches = fa_mod.counter.launches
+    b4_plain = sum(c.plain_calls for c in counters.values())
+    b4_pt = b4_state.region.selected
+    print(f"[main] flash_attention B={FLASH_B}: launches {b4_launches}, plain-version calls "
+          f"{b4_plain}; heads bucket {fa_state.bp['heads']} -> {b4_state.bp['heads']}; "
+          f"tuned point B=1 {fa_state.region.selected} | B={FLASH_B} {b4_pt}")
+    if b4_launches <= 0 or b4_plain != 0:
+        errors.append(f"flash_attention B={FLASH_B}: main path did not run through its kernel alone")
+    if b4_state.bp.fingerprint() == fa_state.bp.fingerprint():
+        errors.append(f"flash_attention B={FLASH_B}: same shape class as B=1")
 
     # exb: staged winner against one exhaustive search (25 points)
     ex_db = str(Path(tmp) / "exhaustive_db.json")
@@ -419,7 +491,8 @@ def run() -> int:
         },
         {
             "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+            "f32_source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:29",
             "launches": launches["flash_attention"], "max_abs_err": fa_err,
             "max_row_err": fa_row,
@@ -433,7 +506,11 @@ def run() -> int:
             "candidates": sum(len(c[2]) for c in flash_cases.values()),
             "tuned_point": fa_pt, "fastest_swept_point": json.loads(fa_best),
             "fastest_swept_ms": flash_times[fa_best],
+            "instantiations": len(sm90), "spill_bytes": fa_spill,
             "tune_s": fa_tune_s, "recall_s": fa_recall_s,
+            f"b{FLASH_B}_tuned_point": b4_pt, f"b{FLASH_B}_launches": b4_launches,
+            f"b{FLASH_B}_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(*qkv4, **b4_pt)),
+            f"b{FLASH_B}_tune_s": b4_tune_s, f"b{FLASH_B}_recall_s": b4_recall_s,
         },
     ]
     # the new slice: (name, source, TPU kernel, kernel, plain version, args,

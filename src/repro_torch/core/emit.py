@@ -18,9 +18,10 @@ Hopper meanings (the JAX package's floors are TPU lane/sublane shapes):
 * a "grid" dim only splits the CTA count (any size works).
 
 A dim's ``max_tile`` caps its ladder where the kernel maps the tile onto
-threads (at most 1024 a CTA), and a policy's ``grid_multiplier`` counts the
-CTAs a launch repeats every tile over (the batch), so the hint sees the
-whole call.
+threads (at most 1024 a CTA), a dim with ``pow2_only`` ladders over
+powers of two alone (a kernel whose tiles are compile-time instantiations),
+and a policy's ``grid_multiplier`` counts the CTAs a launch repeats every
+tile over (the batch, the heads), so the hint sees the whole call.
 
 The estimate charges memory time at ``bytes / (BW · min(1, CTAs / SMs))``
 — a launch with fewer CTAs than SMs leaves bandwidth idle — plus a fixed
@@ -59,6 +60,9 @@ class TileDim:
     (masking the tail), so non-dividing pow2 tiles stay candidates —
     without it a prime extent collapses to the single full-extent tile.
     ``max_tile`` is the largest tile the kernel takes (``None``: the extent).
+    ``pow2_only`` marks a kernel that takes power-of-two tiles alone: the
+    ladder never falls back to the full extent, and with ``allow_padding``
+    it runs up to the first power of two at or past the extent.
     """
 
     name: str
@@ -67,6 +71,7 @@ class TileDim:
     min_tile: Optional[int] = None
     allow_padding: bool = False
     max_tile: Optional[int] = None
+    pow2_only: bool = False
 
     def __post_init__(self) -> None:
         if self.semantic not in _SEMANTICS:
@@ -126,6 +131,16 @@ def pow2_ladder(dim: TileDim, arch: ArchSpec, cap: int = MAX_PER_DIM) -> Tuple[i
     allows padded tails), plus the full extent itself; none above
     ``dim.max_tile``.  At most ``cap`` values survive — the largest ones,
     since the shared-memory constraint prunes from above anyway."""
+    if dim.pow2_only:
+        out = []
+        v = max(1, dim.resolved_min(arch))
+        while dim.max_tile is None or v <= dim.max_tile:
+            if dim.extent % v == 0 or dim.allow_padding:
+                out.append(v)
+            if v >= dim.extent:
+                break
+            v *= 2
+        return tuple(out[-cap:])
     hi = dim.extent if dim.max_tile is None else min(dim.extent, dim.max_tile)
     lo = min(dim.resolved_min(arch), hi)
     out = []
@@ -169,11 +184,17 @@ class TilePolicy:
       per CTA — the constraint is ``vmem_model <= arch.vmem_budget()``, so
       every emitted point launches.
     * ``traffic_model(bp, point)`` (optional) returns ``(flops, bytes)`` of
-      one whole call, used for the roofline part of the per-point hint;
-      the flops are charged at the float32 CUDA-core rate, where the port's
-      kernels do them.
+      one whole call, used for the roofline part of the per-point hint.
+    * ``flop_rate(arch, bp)`` (optional) is the peak rate of the units that
+      do those flops; without it they are charged at the float32 CUDA-core
+      rate (``arch.peak_flops_fp32``).
+    * ``latency_model(arch, bp, point)`` (optional) is the least time the
+      call's chains of dependent steps take on the card, for a kernel that
+      latency, not flops or bytes, bounds; the hint takes the largest of
+      the three.
     * ``grid_multiplier(bp)`` (optional) is how many times the launch
-      repeats the tile grid (the batch); the hint's CTA count includes it.
+      repeats the tile grid (the batch, the heads); the hint's CTA count
+      includes it.
     """
 
     def __init__(
@@ -185,6 +206,10 @@ class TilePolicy:
             Callable[[Mapping[str, Any], Mapping[str, Any]], Tuple[float, float]]
         ] = None,
         grid_multiplier: Optional[Callable[[Mapping[str, Any]], int]] = None,
+        flop_rate: Optional[Callable[[ArchSpec, Mapping[str, Any]], float]] = None,
+        latency_model: Optional[
+            Callable[[ArchSpec, Mapping[str, Any], Mapping[str, Any]], float]
+        ] = None,
     ) -> None:
         self.kernel = kernel
         self.name = "tile_pow2_hopper"
@@ -192,6 +217,8 @@ class TilePolicy:
         self.vmem_model = vmem_model
         self.traffic_model = traffic_model
         self.grid_multiplier = grid_multiplier
+        self.flop_rate = flop_rate
+        self.latency_model = latency_model
 
     # -- hints -----------------------------------------------------------
 
@@ -210,14 +237,18 @@ class TilePolicy:
         fill = min(1.0, programs / arch.sm_count)
         pad = _pad_factor(dims, point)
         est = waves * arch.wave_overhead_s
-        flops = bytes_ = 0.0
+        flops = bytes_ = latency = 0.0
         if self.traffic_model is not None:
             flops, bytes_ = self.traffic_model(bp, point)
             flops *= pad
             bytes_ *= pad
+            rate = (arch.peak_flops_fp32 if self.flop_rate is None
+                    else self.flop_rate(arch, bp))
+            if self.latency_model is not None:
+                latency = self.latency_model(arch, bp, point)
             # idle SMs neither stream bytes nor issue flops
-            est += max(flops / (arch.peak_flops_fp32 * fill),
-                       bytes_ / (arch.hbm_bandwidth * fill))
+            est += max(flops / (rate * fill),
+                       bytes_ / (arch.hbm_bandwidth * fill), latency)
         return {
             "est_s": est,
             "vmem_bytes": vmem,
@@ -227,6 +258,7 @@ class TilePolicy:
             "pad_factor": pad,
             "flops": flops,
             "bytes": bytes_,
+            "latency_s": latency,
         }
 
     # -- emit ------------------------------------------------------------
@@ -302,9 +334,10 @@ def space_signature(
             {
                 "name": d.name, "extent": d.extent, "semantic": d.semantic,
                 "min_tile": d.min_tile, "allow_padding": d.allow_padding,
-                # only when set, so the spaces of dims without it keep
-                # the signatures they had before it existed
+                # only when set, so the spaces of dims without them keep
+                # the signatures they had before they existed
                 **({} if d.max_tile is None else {"max_tile": d.max_tile}),
+                **({"pow2_only": True} if d.pow2_only else {}),
             }
             for d in dims
         ],

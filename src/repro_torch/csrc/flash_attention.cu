@@ -1,18 +1,17 @@
-// Causal GQA flash attention, forward, for Hopper.
+// Causal GQA flash attention, forward, float32, on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py,
-// _flash_kernel (launched by flash_attention through pl.pallas_call).
+// _flash_kernel (launched by flash_attention through pl.pallas_call), for
+// float32 inputs; bf16 runs on the tensor cores (flash_attention_sm90.cu).
 //
-// q (B,S,H,hd), k/v (B,S,KV,hd), f32 or bf16; KV head = h / (H/KV).
-// Online softmax with float32 m, l and acc; p is rounded to v's type
-// before p.V (as the TPU kernel does); keys >= S score NEG_INF = -0.7*FLT_MAX;
-// the output is written in q's type, rows >= S never.
+// q (B,S,H,hd), k/v (B,S,KV,hd) float32; KV head = h / (H/KV).  Online
+// softmax with float32 m, l and acc; keys >= S score NEG_INF = -0.7*FLT_MAX;
+// rows >= S are never stored.
 //
 // What bounds it: operations.  At tinyllama width (S=2048, H=32, hd=64)
-// causal attention is ~17.2 GFLOP against ~18.9 MB of traffic.  This first
-// kernel does its products on the CUDA cores in float32 (plain FMAs, no
-// TF32, so float32 inputs keep their tolerance), so it runs far from the
-// bf16 tensor-core roof; wgmma, TMA and warp specialisation are later work.
+// causal attention is ~17.2 GFLOP.  The products run on the CUDA cores in
+// float32 (plain FMAs): TF32 tensor cores keep a 10-bit mantissa, which
+// would not hold the float32 tolerance.
 //
 // Design.  One CTA per (q block, head, batch).  The TPU carried m/l/acc
 // from one grid step to the next along the KV axis; Hopper runs CTAs in no
@@ -26,7 +25,6 @@
 // padded in HBM.  Tile rows are padded by one 32-bit word so the column
 // walks of the score product fall in distinct banks.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <cfloat>
 
 namespace {
@@ -36,15 +34,9 @@ constexpr float kNegInf = -0.7f * FLT_MAX;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Row stride of a q/k/v tile in elements: one extra 32-bit word per row.
 template <typename T, int HD> __host__ __device__ constexpr int tile_ld() {
@@ -210,7 +202,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaGetLastError()
+// dtype: 0 = float32 (bf16 has its own entry, flash_attention_sm90_launch).
+// Returns the launch's cudaGetLastError()
 // code, cudaErrorInvalidValue for a head_dim, dtype or tile it does not take.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
@@ -221,9 +214,6 @@ extern "C" int flash_attention_launch(
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_hd<float>(hd, q, k, v, o, B, S, H, KV, bq, bkv, scale, causal, s);
-  if (dtype == 1) {
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, KV, bq, bkv, scale, causal, s);
-  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -247,13 +237,6 @@ extern "C" long long flash_attention_smem_bytes(int dtype, int hd, int bq, int b
       case 32: return smem_bytes<float, 32>(bq, bkv);
       case 64: return smem_bytes<float, 64>(bq, bkv);
       case 128: return smem_bytes<float, 128>(bq, bkv);
-    }
-  } else if (dtype == 1) {
-    switch (hd) {
-      case 16: return smem_bytes<__nv_bfloat16, 16>(bq, bkv);
-      case 32: return smem_bytes<__nv_bfloat16, 32>(bq, bkv);
-      case 64: return smem_bytes<__nv_bfloat16, 64>(bq, bkv);
-      case 128: return smem_bytes<__nv_bfloat16, 128>(bq, bkv);
     }
   }
   return -1;

@@ -1,15 +1,19 @@
-"""Wrapper of the hand-written CUDA flash attention kernel
-(``csrc/flash_attention.cu``).
+"""Wrappers of the hand-written CUDA flash attention kernels.
 
-``flash_attention(q, k, v, block_q, block_kv)`` launches the kernel on CUDA
+``flash_attention(q, k, v, block_q, block_kv)`` launches a kernel on CUDA
 tensors and runs the plain version (:func:`attention_plain`, the module's
 copy of ``ref.attention_ref``) on CPU tensors; there is no fallback from
 one to the other.  ``counter`` counts both.
 
-One CTA per (q block, head, batch); ``block_kv`` is a loop inside the CTA.
-Any positive tile is accepted as long as its shared memory
-(:func:`smem_bytes`) fits the card's opt-in limit; a sequence that the
-tiles do not divide is masked in the kernel, not padded in memory.
+Two kernels, by dtype, both one CTA per (q block, head, batch) with
+``block_kv`` a loop inside the CTA, both masking a sequence the tiles do
+not divide instead of padding it in memory:
+
+* bfloat16: ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores
+  with TMA loads into a 2-stage ring.  Its tiles are compile-time: only
+  the (hd, block_q, block_kv) in :data:`SM90_TILES` launch.
+* float32: ``csrc/flash_attention.cu``, FMAs on the CUDA cores.  Any
+  positive tile whose shared memory fits the card's opt-in limit.
 """
 from __future__ import annotations
 
@@ -30,12 +34,37 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p]
 )
+_SM90_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                                 ctypes.c_void_p]
+)
+
+# The bf16 kernel's instantiations (FLASH_SM90_TILES in the source): a
+# warpgroup owns 64 query rows, so block_q is 64 or 128; block_kv is the n
+# of the S = Q.K^T wgmma, at most 128 at hd 128, where S, O and P of 64 rows
+# would not fit 255 registers otherwise.
+SM90_BLOCK_Q = (64, 128)
+SM90_BLOCK_KV = (32, 64, 128, 256)
+
+
+def sm90_max_block_kv(hd: int) -> int:
+    return 128 if hd == 128 else 256
+
+
+SM90_TILES = frozenset(
+    (hd, bq, bkv) for hd in HEAD_DIMS for bq in SM90_BLOCK_Q for bkv in SM90_BLOCK_KV
+    if bkv <= sm90_max_block_kv(hd)
+)
 
 
 def smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
-    """Dynamic shared memory of one CTA (``smem_bytes`` in the source):
-    f32 scores, accumulator and m/l/alpha, then the q, k and v tiles with
-    one extra 32-bit word per row."""
+    """Dynamic shared memory of one CTA (``smem_bytes``/``Tile::kSmem`` in
+    the sources).  float32: f32 scores, accumulator and m/l/alpha, then the
+    q, k and v tiles with one extra 32-bit word per row.  bf16: 1 KiB to
+    align the swizzled tiles, the q tile, two stages of k and v tiles, and
+    64 bytes of barriers."""
+    if elt == 2:
+        return 1024 + 2 * hd * (block_q + 4 * block_kv) + 64
     floats = block_q * block_kv + block_q * hd + 3 * block_q
     ld = hd + 4 // elt
     return 4 * floats + elt * (block_q + 2 * block_kv) * ld
@@ -74,6 +103,14 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        if (hd, block_q, block_kv) not in SM90_TILES:
+            raise ValueError(
+                f"flash_attention_cuda: bf16 tile (hd={hd}, {block_q}, {block_kv}) "
+                f"is not instantiated"
+            )
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention_cuda: TMA needs 16-byte aligned q, k, v")
     smem = smem_bytes(block_q, block_kv, hd, q.element_size())
     limit = smem_optin(q.device)
     if smem > limit:
@@ -82,12 +119,20 @@ def flash_attention_cuda(
             f"of shared memory, the card allows {limit} B"
         )
     o = torch.empty_like(q)
-    code = _build.function("flash_attention", "flash_attention_launch", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-        B, S, H, KV, hd, block_q, block_kv, 1.0 / math.sqrt(hd), int(causal),
-        _build.stream_of(o),
-    )
-    _build.check(code, f"flash_attention_launch(block_q={block_q}, block_kv={block_kv})")
+    scale = 1.0 / math.sqrt(hd)
+    if q.dtype == torch.bfloat16:
+        what = "flash_attention_sm90_launch"
+        code = _build.function("flash_attention_sm90", what, _SM90_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, H, KV, hd, block_q, block_kv, scale, int(causal), _build.stream_of(o),
+        )
+    else:
+        what = "flash_attention_launch"
+        code = _build.function("flash_attention", what, _ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+            B, S, H, KV, hd, block_q, block_kv, scale, int(causal), _build.stream_of(o),
+        )
+    _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
     counter.launches += 1
     return o
 
@@ -120,9 +165,35 @@ def smem_optin(device="cuda") -> int:
     return _OPTIN[index]
 
 
+_CTAS = {}
+
+
+def sm90_ctas_per_sm(hd: int, block_q: int, block_kv: int) -> int:
+    """CTAs of a bf16 tile one SM of the current card holds at once, as
+    CUDA's occupancy calculator counts them from the compiled kernel's
+    registers, shared memory and threads
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; builds the
+    kernels)."""
+    key = (torch.cuda.current_device(), hd, block_q, block_kv)
+    if key not in _CTAS:
+        fn = _build.function("flash_attention_sm90", "flash_attention_sm90_ctas_per_sm",
+                             [ctypes.c_int] * 3)
+        n = int(fn(hd, block_q, block_kv))
+        if n < 1:
+            raise RuntimeError(f"flash_attention_sm90_ctas_per_sm({hd}, {block_q}, "
+                               f"{block_kv}) returned {n}")
+        _CTAS[key] = n
+    return _CTAS[key]
+
+
 def smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
     """What the compiled source computes for :func:`smem_bytes` (a check
-    that the Python model is the kernel's real footprint)."""
+    that the Python model is the kernel's real footprint); -1 for a bf16
+    tile that is not instantiated."""
+    if dtype == torch.bfloat16:
+        fn = _build.function("flash_attention_sm90", "flash_attention_sm90_smem_bytes",
+                             [ctypes.c_int] * 3, ctypes.c_longlong)
+        return int(fn(hd, block_q, block_kv))
     fn = _build.function("flash_attention", "flash_attention_smem_bytes",
                          [ctypes.c_int] * 4, ctypes.c_longlong)
     return int(fn(_DTYPES[dtype], hd, block_q, block_kv))

@@ -1,19 +1,42 @@
-"""AT region and KernelSpec for the flash attention kernel.
+"""AT region and KernelSpec for the flash attention kernels.
 
-The emitted space is exactly what the kernel takes: ``block_q`` ladders
-from the tensor-core fragment edge (a "lane" dim, one CTA per q block),
-``block_kv`` is a "sequential" dim (a loop inside the CTA, adding no CTAs),
-both tile past a sequence they do not divide, and a point survives only
-if its real shared-memory bytes fit the card's opt-in limit.
+The emitted space is exactly what the kernel of the dtype takes.
+``block_q`` is a "lane" dim (one CTA per q block), ``block_kv`` a
+"sequential" dim (a loop inside the CTA, adding no CTAs); both tile past a
+sequence they do not divide, and a point survives only if its real
+shared-memory bytes fit the card's opt-in limit.
+
+* bfloat16 (the wgmma kernel): the instantiated tiles and no others,
+  powers of two with ``block_q`` from a warpgroup's 64 rows to 128 and
+  ``block_kv`` from 32 to 256 (128 at hd 128).  Its flops are charged at
+  the bf16 tensor-core rate, and its hint also has a latency term: the
+  kernel waits on every product, so each warpgroup's KV trip is a chain of
+  dependent steps (:data:`TRIP_S` long), which an SM overlaps only across
+  the warpgroups it holds at once (CUDA's occupancy of the compiled tile
+  on the card; without the card, the bound shared memory and threads
+  give).
+* float32 (the CUDA-core kernel): ``block_q`` ladders from the tensor-core
+  fragment edge, ``block_kv`` from 16, any size that fits; flops at the
+  float32 CUDA-core rate.
+
+The shape class keeps a power-of-two bucket of B·H (the JAX package drops
+it): the card runs one CTA per (q block, head, batch), so the hint's CTA
+count and traffic cover the whole call, and a call with many heads does
+not recall the winner of one with few.
 """
 from __future__ import annotations
 
 from typing import Any, Mapping, Optional
 
-from ...core import ATRegion, BasicParams, KernelSpec, register_kernel
+import torch
+
+from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_kernel
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
-from .flash_attention import flash_attention, smem_bytes
+from .flash_attention import (
+    SM90_BLOCK_KV, SM90_BLOCK_Q, flash_attention, sm90_ctas_per_sm, sm90_max_block_kv,
+    smem_bytes,
+)
 from .ref import attention_ref
 
 _ELT = {"float32": 4, "bfloat16": 2}
@@ -29,37 +52,104 @@ def _keys_visited(seq: int, bq: int, bkv: int) -> int:
 
 
 def _traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
-    """(flops, bytes) of one (batch, head) — ranking only.  K and V are
-    re-read once per q block; flops count the causal blocks the kernel
-    visits, tail padding included."""
+    """(flops, bytes) of the whole call, all ``heads`` (batch × query
+    heads) — ranking only.  Flops count the causal blocks the kernel
+    visits, tail padding included.  bf16 bytes count q and o once, and K
+    and V once per query head: the CTAs of one head run together (q blocks
+    are the grid's fastest axis), so later q blocks re-read its K and V
+    from the L2, not device memory.  float32 bytes still count a K and V
+    read from device memory per q block, as the float32 kernel's first
+    model did, which keeps its space in the order it was measured in."""
     s, hd, elt = bp["seq"], bp["hd"], _ELT.get(bp["dtype"], 4)
     bq, bkv = point["block_q"], point["block_kv"]
     keys = _keys_visited(s, bq, bkv)
     flops = 4.0 * hd * bq * keys
-    bytes_ = elt * (2.0 * s * hd + 2.0 * keys * hd)
-    return flops, bytes_
+    kv_reads = s if bp["dtype"] == "bfloat16" else keys
+    bytes_ = elt * (2.0 * s * hd + 2.0 * kv_reads * hd)
+    return bp["heads"] * flops, bp["heads"] * bytes_
+
+
+# One warpgroup's KV trip in the bf16 kernel (wait for the tile, S = Q.K^T
+# and its wait, the softmax, O += P.V and its wait, the block barrier): the
+# sweeps of chip_smoke.py at tinyllama and qwen3-0.6b widths on an H100 SXM
+# imply 1.9-4.9 us a trip across the tiles, 2.7 us at the median.
+TRIP_S = 2.8e-6
+
+
+def _warpgroup_trips(seq: int, bq: int, bkv: int):
+    """(KV trips of all warpgroups, trips of the longest CTA) for one head:
+    a warpgroup skips the blocks wholly above its 64 rows' diagonal."""
+    total = longest = 0
+    for q0 in range(0, seq, bq):
+        nkv = -(-min(seq, q0 + bq) // bkv)
+        longest = max(longest, nkv)
+        for row0 in range(q0, q0 + bq, 64):
+            total += min(nkv, (row0 + 63) // bkv + 1)
+    return total, longest
+
+
+def _ctas_per_sm(arch: ArchSpec, hd: int, bq: int, bkv: int) -> int:
+    if arch.backend == "cuda" and torch.cuda.is_available():
+        return sm90_ctas_per_sm(hd, bq, bkv)
+    # without the card: the bound the SM's 228 KiB of shared memory (1 KiB
+    # reserved a CTA) and its 2048 threads give; registers, which the
+    # compiled tile alone knows, may bind first
+    smem = smem_bytes(bq, bkv, hd, 2)
+    return max(1, min((arch.smem_per_block + 1024) // (smem + 1024), 2048 // (2 * bq)))
+
+
+def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
+    """Least time of the bf16 kernel's dependent chains: all warpgroups'
+    trips spread over the warpgroups the SMs hold at once, and no less than
+    the longest CTA's trips."""
+    if bp["dtype"] != "bfloat16":
+        return 0.0
+    bq, bkv = point["block_q"], point["block_kv"]
+    total, longest = _warpgroup_trips(bp["seq"], bq, bkv)
+    resident = _ctas_per_sm(arch, bp["hd"], bq, bkv) * (bq // 64)
+    return TRIP_S * max(bp["heads"] * total / (arch.sm_count * resident), longest)
+
+
+def _dims(bp: Mapping[str, Any]):
+    if bp["dtype"] == "bfloat16":
+        return (
+            TileDim("block_q", bp["seq"], semantic="lane", min_tile=SM90_BLOCK_Q[0],
+                    max_tile=SM90_BLOCK_Q[-1], allow_padding=True, pow2_only=True),
+            TileDim("block_kv", bp["seq"], semantic="sequential",
+                    min_tile=SM90_BLOCK_KV[0], max_tile=sm90_max_block_kv(bp["hd"]),
+                    allow_padding=True, pow2_only=True),
+        )
+    return (
+        TileDim("block_q", bp["seq"], semantic="lane", allow_padding=True),
+        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=16,
+                allow_padding=True),
+    )
 
 
 FLASH_POLICY = TilePolicy(
     kernel="flash_attention",
-    dims=lambda bp: (
-        TileDim("block_q", bp["seq"], semantic="lane", allow_padding=True),
-        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=16,
-                allow_padding=True),
-    ),
+    dims=_dims,
     vmem_model=lambda bp, p: smem_bytes(
         p["block_q"], p["block_kv"], bp["hd"], _ELT.get(bp["dtype"], 4)
     ),
     traffic_model=_traffic,
+    grid_multiplier=lambda bp: bp["heads"],
+    flop_rate=lambda arch, bp: (
+        arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_fp32
+    ),
+    latency_model=_latency,
 )
 
 
 def flash_region(
     seq_len: int, head_dim: int, dtype: str = "float32",
-    arch: Optional[ArchSpec] = None,
+    arch: Optional[ArchSpec] = None, heads: int = 1,
 ) -> ATRegion:
+    """``heads`` is batch × query heads (its bucket, from the shape class)."""
     arch = arch or local_arch()
-    emitted = FLASH_POLICY.emit(arch, {"seq": seq_len, "hd": head_dim, "dtype": dtype})
+    emitted = FLASH_POLICY.emit(
+        arch, {"seq": seq_len, "hd": head_dim, "dtype": dtype, "heads": heads}
+    )
 
     def instantiate(point: Mapping[str, Any]):
         bq, bkv = point["block_q"], point["block_kv"]
@@ -73,14 +163,15 @@ def flash_region(
 
 
 def shape_class(q, k, v) -> BasicParams:
-    """Bucket a call: block candidates depend on (seq, head_dim, dtype), not
-    on batch size or head counts, so those are dropped from the DB key.
-    ``framework`` and a ``backend`` of ``cuda``/``cpu`` keep the port's keys
-    apart from the JAX package's in a shared file."""
+    """(seq, head_dim, dtype) fix the candidate family; B·H enters as a
+    power-of-two bucket, which sets the CTA count.  ``framework`` and a
+    ``backend`` of ``cuda``/``cpu`` keep the port's keys apart from the JAX
+    package's in a shared file."""
     return BasicParams.make(
         kernel="flash_attention",
         seq=int(q.shape[1]),
         hd=int(q.shape[3]),
+        heads=bucket_pow2(int(q.shape[0]) * int(q.shape[2])),
         dtype=str(q.dtype).replace("torch.", ""),
         backend=q.device.type,
         framework="torch",
@@ -89,7 +180,7 @@ def shape_class(q, k, v) -> BasicParams:
 
 def _make_region(bp: BasicParams) -> ATRegion:
     arch = local_arch() if bp["backend"] == "cuda" else CPU_HOST
-    return flash_region(bp["seq"], bp["hd"], bp["dtype"], arch=arch)
+    return flash_region(bp["seq"], bp["hd"], bp["dtype"], arch=arch, heads=bp["heads"])
 
 
 register_kernel(

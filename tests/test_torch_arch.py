@@ -16,6 +16,7 @@ from repro_torch.core import arch as arch_mod
 from repro_torch.core import default_prescreen_k, pp_key
 from repro_torch.core.arch import ArchSpec, from_properties
 from repro_torch.kernels.exb import ops as exb_ops
+from repro_torch.kernels.flash_attention import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 
@@ -57,6 +58,7 @@ SPACES = {
     "flash_bf16": lambda a: fa_ops.flash_region(2048, 64, "bfloat16", arch=a),
     "flash_f32": lambda a: fa_ops.flash_region(2048, 64, "float32", arch=a),
     "flash_padded": lambda a: fa_ops.flash_region(2000, 64, "bfloat16", arch=a),
+    "flash_padded_f32": lambda a: fa_ops.flash_region(2000, 64, "float32", arch=a),
 }
 
 
@@ -77,18 +79,30 @@ def test_signature_names_the_arch():
 
 
 def test_flash_space_is_what_the_kernel_takes():
-    """Tiles ladder from the tensor-core edge, block_kv adds no CTAs, and a
-    padded sequence keeps its non-dividing pow2 tiles."""
-    region = SPACES["flash_padded"](SXM)
+    """float32: tiles ladder from the tensor-core edge, block_kv adds no
+    CTAs, and a padded sequence keeps its non-dividing pow2 tiles.  bf16:
+    the wgmma kernel's instantiated tiles, block_q from a warpgroup's 64
+    rows, also past a sequence they do not divide."""
+    region = SPACES["flash_padded_f32"](SXM)
     pts = list(region.space.points())
     assert min(p["block_q"] for p in pts) == 16
     assert {p["block_kv"] for p in pts} >= {16, 32, 64}
     for p in pts:
         h = region.hints[pp_key(p)]
         assert h["programs"] == -(-2000 // p["block_q"])
-        assert h["vmem_bytes"] == fa_ops.smem_bytes(p["block_q"], p["block_kv"], 64, 2)
+        assert h["vmem_bytes"] == fa_ops.smem_bytes(p["block_q"], p["block_kv"], 64, 4)
     # the full extents are too large for one CTA's shared memory
     assert all(p["block_q"] < 2000 and p["block_kv"] < 2000 for p in pts)
+
+    region = SPACES["flash_padded"](SXM)
+    pts = list(region.space.points())
+    assert {p["block_q"] for p in pts} == {64, 128}
+    assert {p["block_kv"] for p in pts} == {32, 64, 128, 256}
+    for p in pts:
+        h = region.hints[pp_key(p)]
+        assert h["programs"] == -(-2000 // p["block_q"])
+        assert h["vmem_bytes"] == fa_ops.smem_bytes(p["block_q"], p["block_kv"], 64, 2)
+        assert (64, p["block_q"], p["block_kv"]) in fa_mod.SM90_TILES
 
 
 @pytest.mark.parametrize("arch", [SXM, PCIE], ids=["sxm", "pcie"])

@@ -58,7 +58,7 @@ def test_no_source_line_imports_jax_or_the_jax_package():
 def test_every_kernel_source_names_what_it_replaces():
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} == {
-        "exb", "flash_attention", "stress", "ssm_scan", "rglru_scan",
+        "exb", "flash_attention", "flash_attention_sm90", "stress", "ssm_scan", "rglru_scan",
     }
     for src in sources:
         text = src.read_text()
