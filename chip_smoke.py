@@ -15,30 +15,42 @@ runs for all five ported kernels at real sizes:
   again at B=4 (B·H = 128, its own shape class);
 * ``stress`` on one card's Seism3D subdomain (nk, nj, ni) = (256, 256, 256), f32;
 * ``ssm_scan`` at falcon-mamba-7b width (d_inner 8192, ssm_state 16), B=1,
-  S=2048, f32;
-* ``rglru_scan`` at recurrentgemma-2b width (lru_width 2560), B=1, S=2048, f32.
+  S=2048, f32, then bf16 (its own shape class), then f32 at B=4, S=2047;
+* ``rglru_scan`` at recurrentgemma-2b width (lru_width 2560), B=1, S=2048,
+  f32, then bf16 (its own shape class), then f32 at B=4, S=2047.
 
 Phases, each of which fails the run:
 
 1. the card: name and power limit as ``nvidia-smi`` prints them;
 2. build: every CUDA source compiled with nvcc, all at once (build time,
-   registers and spills; the bf16 flash instantiations must not spill);
+   registers and spills; the bf16 flash instantiations and every scan
+   instantiation must not spill);
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
-   width, 16 query heads, 8 KV heads, head_dim 128) and held against the
-   plain PyTorch version on the card within the stated tolerance;
+   width, 16 query heads, 8 KV heads, head_dim 128; both scans also in
+   bf16, their f32 inputs cast, and in f32 at B=4, S=2047, whose last trip
+   is short) and held against the plain PyTorch version on the card within
+   the stated tolerance; the scans also at S=1 and S=7 on narrow widths,
+   every emitted point and a few more (a CTA of less than a warp, bf16 rows
+   of an odd length), in f32 and bf16;
 4. main path, per kernel: every launch count reset, a cold tune
    (evaluations > 0), a fresh op on the same DB file recalling with 0
    evaluations and two fast-path calls; the counts read at once: the
    kernel launched, and no plain version ran; for exb one exhaustive
    search compared with the staged winner, for the others the staged
    winner's time beside the fastest swept point's; flash once more at
-   B=4, which must tune a shape class of its own and recall it.
+   B=4, and each scan once more in bf16 and in f32 at B=4, S=2047, each of
+   which must tune a shape class of its own and recall it (at B=4, S=2047
+   the staged winner's time is set beside the fastest swept point's: a
+   check of the hint away from the shape its constants were fitted at).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
 plain version's time, the bound (bytes over memory rate or operations over
-peak rate, the larger) and the library call's time.  The last line is
+peak rate, the larger) and the library call's time; the scans' entries
+also give their bf16 time, bound and tuned point, their B=4, S=2047
+tuned point and time beside the fastest swept one (``b4_s2047_*``), and
+``ssm_scan`` its SFU floor (one exp per (t, d, n) at 16 a clock per SM).  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -79,6 +91,17 @@ STRESS_DIMS = (256, 256, 256)
 # falcon-mamba-7b (d_inner, ssm_state) and recurrentgemma-2b (lru_width)
 SSM = dict(B=1, S=2048, D=8192, N=16)
 RGLRU = dict(B=1, S=2048, W=2560)
+# the scans' second shape: a batch, and a length that no chunk divides
+ODD = dict(B=4, S=2047)
+# narrow shapes at S = 1 (decode) and 7, with points the emitted spaces
+# leave out: a CTA of 16 threads, 6-byte bf16 rows, a chunk past S
+SSM_SHORT = [(dict(B=2, S=7, D=64, N=16), [dict(block_d=2, chunk=7, states=1)]),
+             (dict(B=1, S=1, D=64, N=16), []),
+             (dict(B=1, S=40, D=64, N=4), [dict(block_d=8, chunk=32, states=1)])]
+RGLRU_SHORT = [(dict(B=2, S=7, W=24), [dict(block_w=8, chunk=7, split=2),
+                                       dict(block_w=3, chunk=7, split=1)]),
+               (dict(B=1, S=1, W=24), [dict(block_w=3, chunk=1, split=1)]),
+               (dict(B=1, S=64, W=128), [dict(block_w=8, chunk=24, split=2)])]
 
 
 def fail(msg: str) -> int:
@@ -187,6 +210,26 @@ def sweep(torch, label, region, run, plain_out, dtype, timer, counter, errors,
     return worst, worst_row, times
 
 
+def check_points(torch, label, points, run, plain_out, dtype, counter, errors, tol=None):
+    """Launch each point once and hold it against the plain version;
+    returns (max error, worst row error)."""
+    before = counter.launches
+    worst, worst_row = 0.0, 0.0
+    for point in points:
+        out = run(point)
+        torch.cuda.synchronize()
+        err, row, failed = max_err(torch, outputs(out), plain_out, dtype, tol)
+        worst, worst_row = max(worst, err), max(worst_row, row)
+        if failed:
+            errors.append(f"{label} {point}: max abs error {err}, row error {row}; "
+                          f"failed {failed}")
+    if counter.launches - before < len(points):
+        errors.append(f"{label}: {counter.launches - before} launches for {len(points)} points")
+    print(f"[kernel] {label}: {len(points)} points, max abs err {worst:.3e}, "
+          f"row error {worst_row:.3e}")
+    return worst, worst_row
+
+
 def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
     """Cold tune, fresh-op recall, fast path; returns the cold op's state
     and the host seconds of the cold call and of the recalling call."""
@@ -273,8 +316,8 @@ def run() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)")
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
-        if log.stem == "flash_attention_sm90":
-            continue  # per tile below
+        if log.stem in ("flash_attention_sm90", "ssm_scan", "rglru_scan"):
+            continue  # per instantiation below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {log.stem}: {line.strip()}")
@@ -294,6 +337,21 @@ def run() -> int:
     if len(sm90) != len(fa_mod.SM90_TILES) or fa_spill:
         return fail(f"flash bf16: {len(sm90)} instantiations for {len(fa_mod.SM90_TILES)} "
                     f"tiles, spill {fa_spill} B")
+    scan_spill, scan_count = 0, 0
+    for stem, kernel, knob in (("ssm_scan", "ssm_kernel", "states"),
+                               ("rglru_scan", "rglru_kernel", "chunk/split")):
+        log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
+        for name, (regs, spill) in sorted(ptxas_entries(log).items()):
+            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", name)
+            if not inst:
+                continue
+            dtype_name = "f32" if inst.group(1) == "f" else "bf16"
+            print(f"[ptxas] {stem} {dtype_name} ({knob} {inst.group(2)}): {regs} registers, "
+                  f"{spill} B spilled")
+            scan_spill, scan_count = max(scan_spill, spill), scan_count + 1
+    print(f"[build] scans: {scan_count} instantiations, max spill {scan_spill} B")
+    if scan_count != 2 * (len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
+        return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
     optin = fa_mod.smem_optin(device)
     if optin < arch.smem_per_block:
         return fail(f"arch plans {arch.smem_per_block} B of shared memory, card allows {optin}")
@@ -355,33 +413,109 @@ def run() -> int:
         timer, st_mod.counter, errors,
     )
 
-    ssm_args = ssm_ref.make_inputs(gen, device=device, **SSM)
-    ssm_plain_out = (ssm_mod.ssm_scan_plain(*ssm_args),)
-    ssm_region = ssm_ops.ssm_region(SSM["D"], SSM["S"], SSM["N"], SSM["B"], arch=arch)
-    for point in ssm_region.space.points():
-        model = ssm_mod.smem_bytes(point["block_d"], point["chunk"], SSM["N"])
-        native = ssm_mod.smem_bytes_native(point["block_d"], point["chunk"], SSM["N"])
-        if model != native or model > optin:
-            errors.append(f"ssm_scan {point}: smem model {model}, kernel {native}, limit {optin}")
-    ssm_err, ssm_row, ssm_times = sweep(
-        torch, "ssm_scan f32 (1,2048,8192,N=16)", ssm_region,
-        lambda p: ssm_mod.ssm_scan_cuda(*ssm_args, **p), ssm_plain_out, "float32",
+    # the scans, f32 then bf16 (the f32 inputs cast; A, D and lam stay f32)
+    ssm_f32 = ssm_ref.make_inputs(gen, device=device, **SSM)
+    rg_f32 = rg_ref.make_inputs(gen, device=device, **RGLRU)
+    scans = {}  # (name, dtype) -> (args, plain out, region, max err, row err, times)
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tol = SCAN_TOL if dtype == torch.float32 else None
+        elt = ssm_mod.DTYPES[dtype]
+        x, dt, A, Bc, Cc, Dp = ssm_f32
+        args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp)
+        region = ssm_ops.ssm_region(SSM["D"], SSM["S"], SSM["N"], SSM["B"], arch=arch,
+                                    dtype=dtype_name)
+        for point in region.space.points():
+            model = ssm_mod.smem_bytes(point["block_d"], point["chunk"], SSM["N"], elt)
+            native = ssm_mod.smem_bytes_native(point["block_d"], point["chunk"], SSM["N"], elt)
+            threads = point["block_d"] * SSM["N"] // point["states"]
+            if (model != native or model > optin
+                    or threads > ssm_mod.max_threads_native(point["states"])):
+                errors.append(f"ssm_scan {tag} {point}: smem model {model}, kernel {native}, "
+                              f"limit {optin}; {threads} threads")
+        plain_out = (ssm_mod.ssm_scan_plain(*args),)
+        label = f"ssm_scan {tag} (1,2048,8192,N=16)"
+        err, row, times = sweep(
+            torch, label, region,
+            lambda p, args=args: ssm_mod.ssm_scan_cuda(*args, **p), plain_out, dtype_name,
+            timer, ssm_mod.counter, errors, tol=tol,
+        )
+        scans[("ssm_scan", dtype_name)] = (args, plain_out, region, err, row, times)
+
+        x, r, i, lam = rg_f32
+        args = (x.to(dtype), r.to(dtype), i.to(dtype), lam)
+        region = rg_ops.rglru_region(RGLRU["W"], RGLRU["S"], RGLRU["B"], arch=arch,
+                                     dtype=dtype_name)
+        for point in region.space.points():
+            model = rg_mod.smem_bytes(point["block_w"], point["chunk"], point["split"], elt)
+            native = rg_mod.smem_bytes_native(point["block_w"], point["chunk"],
+                                              point["split"], elt)
+            if model != native or model > optin:
+                errors.append(f"rglru_scan {tag} {point}: smem model {model}, kernel {native}, "
+                              f"limit {optin}")
+        plain_out = (rg_mod.rglru_scan_plain(*args),)
+        label = f"rglru_scan {tag} (1,2048,2560)"
+        err, row, times = sweep(
+            torch, label, region,
+            lambda p, args=args: rg_mod.rglru_scan_cuda(*args, **p), plain_out, dtype_name,
+            timer, rg_mod.counter, errors, tol=tol,
+        )
+        scans[("rglru_scan", dtype_name)] = (args, plain_out, region, err, row, times)
+
+    # the second shape, f32: every point, with a short last trip
+    x, dt, A, Bc, Cc, Dp = ssm_ref.make_inputs(gen, device=device, **dict(SSM, **ODD))
+    args = (x, dt, A, Bc, Cc, Dp)
+    region = ssm_ops.ssm_region(SSM["D"], ODD["S"], SSM["N"], ODD["B"], arch=arch)
+    plain_out = (ssm_mod.ssm_scan_plain(*args),)
+    err, row, times = sweep(
+        torch, f"ssm_scan f32 ({ODD['B']},{ODD['S']},8192,N=16)", region,
+        lambda p, args=args: ssm_mod.ssm_scan_cuda(*args, **p), plain_out, "float32",
         timer, ssm_mod.counter, errors, tol=SCAN_TOL,
     )
-
-    rg_args = rg_ref.make_inputs(gen, device=device, **RGLRU)
-    rg_plain_out = (rg_mod.rglru_scan_plain(*rg_args),)
-    rg_region = rg_ops.rglru_region(RGLRU["W"], RGLRU["S"], RGLRU["B"], arch=arch)
-    for point in rg_region.space.points():
-        model = rg_mod.smem_bytes(point["block_w"], point["chunk"])
-        native = rg_mod.smem_bytes_native(point["block_w"], point["chunk"])
-        if model != native or model > optin:
-            errors.append(f"rglru_scan {point}: smem model {model}, kernel {native}, limit {optin}")
-    rg_err, rg_row, rg_times = sweep(
-        torch, "rglru_scan f32 (1,2048,2560)", rg_region,
-        lambda p: rg_mod.rglru_scan_cuda(*rg_args, **p), rg_plain_out, "float32",
+    scans[("ssm_scan", "odd")] = (args, plain_out, region, err, row, times)
+    args = rg_ref.make_inputs(gen, device=device, **dict(RGLRU, **ODD))
+    region = rg_ops.rglru_region(RGLRU["W"], ODD["S"], ODD["B"], arch=arch)
+    plain_out = (rg_mod.rglru_scan_plain(*args),)
+    err, row, times = sweep(
+        torch, f"rglru_scan f32 ({ODD['B']},{ODD['S']},2560)", region,
+        lambda p, args=args: rg_mod.rglru_scan_cuda(*args, **p), plain_out, "float32",
         timer, rg_mod.counter, errors, tol=SCAN_TOL,
     )
+    scans[("rglru_scan", "odd")] = (args, plain_out, region, err, row, times)
+
+    # short sequences and narrow widths: every emitted point and the extras
+    short_err = {"ssm_scan": (0.0, 0.0), "rglru_scan": (0.0, 0.0)}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = SCAN_TOL if dtype == torch.float32 else None
+        for shape, extra in SSM_SHORT:
+            x, dt, A, Bc, Cc, Dp = ssm_ref.make_inputs(gen, device=device, **shape)
+            args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp)
+            region = ssm_ops.ssm_region(shape["D"], shape["S"], shape["N"], shape["B"],
+                                        arch=arch, dtype=dtype_name)
+            got = check_points(
+                torch, f"ssm_scan {dtype_name} {tuple(shape.values())}",
+                list(region.space.points()) + extra,
+                lambda p, args=args: ssm_mod.ssm_scan_cuda(*args, **p),
+                (ssm_mod.ssm_scan_plain(*args),), dtype_name, ssm_mod.counter, errors, tol)
+            short_err["ssm_scan"] = tuple(map(max, short_err["ssm_scan"], got))
+        for shape, extra in RGLRU_SHORT:
+            x, r, i, lam = rg_ref.make_inputs(gen, device=device, **shape)
+            args = (x.to(dtype), r.to(dtype), i.to(dtype), lam)
+            region = rg_ops.rglru_region(shape["W"], shape["S"], shape["B"], arch=arch,
+                                         dtype=dtype_name)
+            got = check_points(
+                torch, f"rglru_scan {dtype_name} {tuple(shape.values())}",
+                list(region.space.points()) + extra,
+                lambda p, args=args: rg_mod.rglru_scan_cuda(*args, **p),
+                (rg_mod.rglru_scan_plain(*args),), dtype_name, rg_mod.counter, errors, tol)
+            short_err["rglru_scan"] = tuple(map(max, short_err["rglru_scan"], got))
+
+    for (name, dtype_name), (_, _, region, _, _, times) in scans.items():
+        for point in region.space.points():  # the hint's rank beside the card's
+            hint = region.hints[pp_key(point)]
+            print(f"[hint] {name} {dtype_name} {pp_key(point)}: est {hint['est_s'] * 1e3:.4f} ms "
+                  f"(latency {hint['latency_s'] * 1e3:.4f}), measured "
+                  f"{times[pp_key(point)]:.4f} ms")
     if errors:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
@@ -395,24 +529,39 @@ def run() -> int:
     counters = {"exb": exb_mod.counter, "flash_attention": fa_mod.counter,
                 "stress": st_mod.counter, "ssm_scan": ssm_mod.counter,
                 "rglru_scan": rg_mod.counter}
-    paths = (
-        ("exb", (inp,), exb_plain_out, "float32", None),
-        ("flash_attention", qkv, flash_plain, "bfloat16", None),
-        ("stress", (st_inp,), st_plain_out, "float32", None),
-        ("ssm_scan", ssm_args, ssm_plain_out, "float32", SCAN_TOL),
-        ("rglru_scan", rg_args, rg_plain_out, "float32", SCAN_TOL),
-    )
+    # (key, kernel, args, plain out, dtype, tolerance): the scans' bf16 runs
+    # after their f32 ones, each in a shape class of its own
+    paths = [
+        ("exb", "exb", (inp,), exb_plain_out, "float32", None),
+        ("flash_attention", "flash_attention", qkv, flash_plain, "bfloat16", None),
+        ("stress", "stress", (st_inp,), st_plain_out, "float32", None),
+    ]
+    for name in ("ssm_scan", "rglru_scan"):
+        for case, key, tol in (("float32", name, SCAN_TOL),
+                               ("bfloat16", f"{name} bf16", None),
+                               ("odd", f"{name} b4_s2047", SCAN_TOL)):
+            args, plain_out = scans[(name, case)][:2]
+            dtype_name = "bfloat16" if case == "bfloat16" else "float32"
+            paths.append((key, name, args, plain_out, dtype_name, tol))
     states, launches = {}, {}
-    for name, args, plain, dtype_name, tol in paths:
+    for key, name, args, plain, dtype_name, tol in paths:
         for counter in counters.values():
             counter.reset()
-        states[name] = main_path(torch, name, args, plain, dtype_name, db_path,
-                                 errors, tol)
-        launches[name] = counters[name].launches
+        states[key] = main_path(torch, name, args, plain, dtype_name, db_path,
+                                errors, tol)
+        launches[key] = counters[name].launches
         plain_calls = sum(c.plain_calls for c in counters.values())
-        print(f"[main] {name}: launches {launches[name]}, plain-version calls {plain_calls}")
-        if launches[name] <= 0 or plain_calls != 0:
-            errors.append(f"{name}: main path did not run through its kernel alone")
+        print(f"[main] {key}: launches {launches[key]}, plain-version calls {plain_calls}")
+        if launches[key] <= 0 or plain_calls != 0:
+            errors.append(f"{key}: main path did not run through its kernel alone")
+    for name in ("ssm_scan", "rglru_scan"):
+        f32_bp, bf16_bp = states[name][0].bp, states[f"{name} bf16"][0].bp
+        print(f"[main] {name}: tuned point f32 {states[name][0].region.selected} | bf16 "
+              f"{states[f'{name} bf16'][0].region.selected}")
+        if f32_bp.fingerprint() == bf16_bp.fingerprint():
+            errors.append(f"{name} bf16: same shape class as f32")
+        if states[f"{name} b4_s2047"][0].bp.fingerprint() == f32_bp.fingerprint():
+            errors.append(f"{name} B={ODD['B']}, S={ODD['S']}: same shape class as B=1")
     (exb_state, exb_tune_s, exb_recall_s), (fa_state, fa_tune_s, fa_recall_s) = (
         states["exb"], states["flash_attention"])
 
@@ -447,15 +596,19 @@ def run() -> int:
     print(f"[main] exb exhaustive: {ex_state.cost_evaluations} evaluations, winner "
           f"{ex_pt} {ex_ms:.4f} ms; staged winner {staged_pt} {staged_ms:.4f} ms; "
           f"staged within 5%: {within}")
-    swept = {"flash_attention": flash_times, "stress": st_times,
-             "ssm_scan": ssm_times, "rglru_scan": rg_times}
+    swept = {"flash_attention": flash_times, "stress": st_times}
+    for name in ("ssm_scan", "rglru_scan"):
+        swept[name] = scans[(name, "float32")][5]
+        swept[f"{name} bf16"] = scans[(name, "bfloat16")][5]
+        swept[f"{name} b4_s2047"] = scans[(name, "odd")][5]
     fastest = {}
     for name, times in swept.items():
         point = states[name][0].region.selected
         fastest[name] = min(times, key=times.get)
         print(f"[main] {name}: staged winner {point} "
               f"{times[pp_key(point)]:.4f} ms in the sweep; fastest swept "
-              f"{fastest[name]} {times[fastest[name]]:.4f} ms")
+              f"{fastest[name]} {times[fastest[name]]:.4f} ms; within 10%: "
+              f"{times[pp_key(point)] <= 1.1 * times[fastest[name]]}")
     fa_pt = fa_state.region.selected
     fa_best = fastest["flash_attention"]
     if errors:
@@ -513,8 +666,10 @@ def run() -> int:
             f"b{FLASH_B}_tune_s": b4_tune_s, f"b{FLASH_B}_recall_s": b4_recall_s,
         },
     ]
-    # the new slice: (name, source, TPU kernel, kernel, plain version, args,
+    # stress and the scans: (name, source, TPU kernel, kernel, plain version, args,
     # (flops, bytes) of the call, max errors, swept times)
+    ssm_args, _, _, ssm_err, ssm_row, ssm_times = scans[("ssm_scan", "float32")]
+    rg_args, _, _, rg_err, rg_row, rg_times = scans[("rglru_scan", "float32")]
     slice_two = (
         ("stress", "stress.cu", "stress/stress.py:19", st_mod.stress_cuda,
          st_mod.stress_plain, (st_inp,), st_mod.traffic(*STRESS_DIMS),
@@ -545,6 +700,47 @@ def run() -> int:
             "fastest_swept_ms": times[fastest[name]],
             "tune_s": tune_s, "recall_s": recall_s,
         })
+    # the scans in bf16: the bf16 main path's tuned point, time and bound
+    bf16_traffic = {"ssm_scan": ssm_mod.traffic(**SSM, elt=2),
+                    "rglru_scan": rg_mod.traffic(*(RGLRU[k] for k in ("B", "S", "W")), elt=2)}
+    for entry in kernels:
+        name = entry["name"]
+        if name not in bf16_traffic:
+            continue
+        key = f"{name} bf16"
+        args, _, _, err, row, times = scans[(name, "bfloat16")]
+        state, tune_s, recall_s = states[key]
+        point = state.region.selected
+        kernel = ssm_mod.ssm_scan_cuda if name == "ssm_scan" else rg_mod.rglru_scan_cuda
+        flops, bytes_ = bf16_traffic[name]
+        entry.update({
+            "bf16_ms": timer.ms(lambda: kernel(*args, **point), reps=20),
+            "bf16_bound_ms": max(bytes_ / arch.hbm_bandwidth,
+                                 flops / arch.peak_flops_fp32) * 1e3,
+            "bf16_tuned_point": point, "bf16_launches": launches[key],
+            "bf16_max_abs_err": err, "bf16_max_row_err": row,
+            "bf16_candidates": len(times),
+            "bf16_fastest_swept_point": json.loads(fastest[key]),
+            "bf16_fastest_swept_ms": times[fastest[key]],
+            "bf16_tune_s": tune_s, "bf16_recall_s": recall_s,
+        })
+        key = f"{name} b4_s2047"
+        args, _, _, err, row, times = scans[(name, "odd")]
+        state, tune_s, recall_s = states[key]
+        point = state.region.selected
+        entry.update({
+            "b4_s2047_ms": timer.ms(lambda: kernel(*args, **point), reps=20),
+            "b4_s2047_tuned_point": point, "b4_s2047_launches": launches[key],
+            "b4_s2047_max_abs_err": err, "b4_s2047_max_row_err": row,
+            "b4_s2047_candidates": len(times),
+            "b4_s2047_staged_swept_ms": times[pp_key(point)],
+            "b4_s2047_fastest_swept_point": json.loads(fastest[key]),
+            "b4_s2047_fastest_swept_ms": times[fastest[key]],
+            "short_max_abs_err": short_err[name][0], "short_max_row_err": short_err[name][1],
+        })
+        if name == "ssm_scan":
+            entry["sfu_floor_ms"] = ssm_mod.sfu_seconds(
+                SSM["B"], SSM["S"], SSM["D"], SSM["N"], arch.peak_flops_fp32) * 1e3
     print(json.dumps({"kernels": kernels}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

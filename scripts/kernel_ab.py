@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Compare versions of the port's kernels on one CUDA card.
+
+    python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|ssm_scan|rglru_scan ...]
+
+Builds the ``repro_torch`` package under ``<src dir>`` (a copy of ``src/``
+whose ``csrc/*.cu`` may differ) into ``build/ab_<label>/``, prints each
+named kernel's instantiations with their registers and spills, then runs
+``chip_smoke.py``'s sweep over every point of the kernel's emitted space
+at its A/B shapes: each point held against the plain version (the
+tolerances of ``chip_smoke.py``) and timed with its timer (L2 flushed,
+median of 5).
+
+* ``flash_attention``: bf16 at tinyllama-1.1b width (B=1 and B=4, S=2048,
+  32|4 heads, hd 64), with SDPA's time beside it, and at qwen3-0.6b width
+  (B=1, S=2048, 16|8 heads, hd 128);
+* ``ssm_scan``: falcon-mamba-7b width (B=1, S=2048, D=8192, N=16), f32 and
+  bf16;
+* ``rglru_scan``: recurrentgemma-2b width (B=1, S=2048, W=2560), f32 and
+  bf16.
+
+With no kernel named, all three.  Run it once per version in one call on
+the card, in turns (A, B, B, A), and compare only within that call.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+KERNELS = ("flash_attention", "ssm_scan", "rglru_scan")
+SOURCES = {"flash_attention": "flash_attention_sm90", "ssm_scan": "ssm_scan",
+           "rglru_scan": "rglru_scan"}
+
+
+def cases(torch, name, arch, gen, dev):
+    """(label, region, run, plain out, dtype, tolerance, counter) per shape."""
+    from chip_smoke import FLASH, FLASH_B, FLASH_HD128, RGLRU, SCAN_TOL, SSM
+    from repro_torch.core import bucket_pow2
+
+    if name == "flash_attention":
+        from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref
+
+        for shape in (FLASH, dict(FLASH, B=FLASH_B), FLASH_HD128):
+            qkv = ref.make_inputs(gen, dtype=torch.bfloat16, device=dev, **shape)
+            region = ops.flash_region(shape["S"], shape["hd"], "bfloat16", arch=arch,
+                                      heads=bucket_pow2(shape["B"] * shape["H"]))
+            label = (f"flash bf16 ({shape['B']},{shape['S']},{shape['H']}|{shape['KV']},"
+                     f"{shape['hd']})")
+            yield (label, region, lambda p, qkv=qkv: fa.flash_attention_cuda(*qkv, **p),
+                   (fa.attention_plain(*qkv),), "bfloat16", None, fa.counter)
+        return
+    if name == "ssm_scan":
+        from repro_torch.kernels.ssm_scan import ops, ref, ssm_scan as mod
+
+        x, dt, A, Bc, Cc, D = ref.make_inputs(gen, device=dev, **SSM)
+        cast = lambda t: (t[0], t[1], A, t[2], t[3], D)  # noqa: E731
+        f32 = (x, dt, Bc, Cc)
+        region_of = lambda dt_name: ops.ssm_region(  # noqa: E731
+            SSM["D"], SSM["S"], SSM["N"], SSM["B"], arch=arch, dtype=dt_name)
+        kernel, plain, shape = mod.ssm_scan_cuda, mod.ssm_scan_plain, "(1,2048,8192,N=16)"
+    else:
+        from repro_torch.kernels.rglru_scan import ops, ref, rglru_scan as mod
+
+        x, r, i, lam = ref.make_inputs(gen, device=dev, **RGLRU)
+        cast = lambda t: (*t, lam)  # noqa: E731
+        f32 = (x, r, i)
+        region_of = lambda dt_name: ops.rglru_region(  # noqa: E731
+            RGLRU["W"], RGLRU["S"], RGLRU["B"], arch=arch, dtype=dt_name)
+        kernel, plain, shape = mod.rglru_scan_cuda, mod.rglru_scan_plain, "(1,2048,2560)"
+    for dt_name, dtype, tol in (("float32", torch.float32, SCAN_TOL),
+                                ("bfloat16", torch.bfloat16, None)):
+        args = cast(tuple(t.to(dtype) for t in f32))
+        yield (f"{name} {dt_name} {shape}", region_of(dt_name),
+               lambda p, args=args: kernel(*args, **p), (plain(*args),), dt_name, tol,
+               mod.counter)
+
+
+def main(src: str, label: str, names) -> int:
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(ROOT / "build" / f"ab_{label}")
+    sys.path[:0] = [str(Path(src).resolve()), str(ROOT)]
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import Timer, card_line, ptxas_entries, sweep
+    from repro_torch.core import detect
+    from repro_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line())
+    dev = torch.device("cuda")
+    arch = detect(dev)
+    t0 = time.perf_counter()
+    for name in names:
+        _build.library(SOURCES[name])
+    print(f"{label} build {time.perf_counter() - t0:.1f} s")
+    for name in names:
+        log = (_build.build_dir() / _build._digest() / f"{SOURCES[name]}.log").read_text()
+        for entry, (regs, spill) in sorted(ptxas_entries(log).items()):
+            print(f"{label} [ptxas] {entry}: {regs} registers, {spill} B spilled")
+    timer = Timer(torch, dev, arch.l2_bytes)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errors: list = []
+    for name in names:
+        for case_label, region, run, plain_out, dtype, tol, counter in cases(
+                torch, name, arch, gen, dev):
+            sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype, timer,
+                  counter, errors, tol=tol)
+            if case_label.startswith("flash") and case_label.endswith(",64)"):
+                q, k, v = (t.transpose(1, 2) for t in run.__defaults__[0])
+                ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+                print(f"{label} {case_label} sdpa {ms:.4f} ms")
+    for e in errors:
+        print(f"{label} WRONG {e}")
+    print(f"{label} points off the plain version: {len(errors)}")
+    return 1 if errors else 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 3 or any(n not in KERNELS for n in sys.argv[3:]):
+        sys.exit(__doc__)
+    sys.exit(main(sys.argv[1], sys.argv[2], sys.argv[3:] or list(KERNELS)))

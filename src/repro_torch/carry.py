@@ -13,7 +13,8 @@ packages compute the same thing:
 
 The tuning record needs no conversion: the port's TuningDB writes the same
 schema v2 file the JAX package reads.  bf16 has no numpy type, so a bf16
-array is carried as float32 and cast on the device.  Tensors land on the
+array is carried as float32 and cast on the device; the scans' inputs keep
+their bf16 (or take the ``dtype`` the caller names).  Tensors land on the
 card unless the caller passes ``device="cpu"`` (as the CPU tests do), where
 the kernels' plain versions run.
 """
@@ -54,21 +55,36 @@ def stress_inputs(arrays: Mapping[str, Any], device: Any = "cuda") -> Dict[str, 
     return {name: to_tensor(a, device, torch.float32) for name, a in arrays.items()}
 
 
+def _scan_dtype(a: Any, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype a scan's inputs take: ``dtype`` if given, else bfloat16
+    for a bf16 array and float32 for anything else."""
+    if dtype is not None:
+        return dtype
+    return torch.bfloat16 if np.asarray(a).dtype.name == "bfloat16" else torch.float32
+
+
 def ssm_inputs(
     x: Any, dt: Any, A: Any, Bc: Any, Cc: Any, D: Any, device: Any = "cuda",
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """``(x, dt, A, Bc, Cc, D)`` as tensors in the same layouts; x, dt keep
-    their type, A and D are float32 as the kernel keeps them."""
-    return (to_tensor(x, device), to_tensor(dt, device),
-            to_tensor(A, device, torch.float32), to_tensor(Bc, device),
-            to_tensor(Cc, device), to_tensor(D, device, torch.float32))
+    """``(x, dt, A, Bc, Cc, D)`` as tensors in the same layouts: x, dt, Bc
+    and Cc in one dtype (x's, or ``dtype``), A and D in float32 as the
+    kernel keeps them."""
+    dt_ = _scan_dtype(x, dtype)
+    return (to_tensor(x, device, dt_), to_tensor(dt, device, dt_),
+            to_tensor(A, device, torch.float32), to_tensor(Bc, device, dt_),
+            to_tensor(Cc, device, dt_), to_tensor(D, device, torch.float32))
 
 
 def rglru_inputs(
     x: Any, r: Any, i: Any, lam: Any, device: Any = "cuda",
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """``(x, r, i, lam)`` as tensors in the same ``(B, S, W)``/``(W,)`` layouts."""
-    return tuple(to_tensor(a, device) for a in (x, r, i, lam))
+    """``(x, r, i, lam)`` as tensors in the same ``(B, S, W)``/``(W,)``
+    layouts: x, r and i in one dtype (x's, or ``dtype``), lam in float32."""
+    dt_ = _scan_dtype(x, dtype)
+    return (to_tensor(x, device, dt_), to_tensor(r, device, dt_), to_tensor(i, device, dt_),
+            to_tensor(lam, device, torch.float32))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -195,6 +195,9 @@ class TilePolicy:
     * ``grid_multiplier(bp)`` (optional) is how many times the launch
       repeats the tile grid (the batch, the heads); the hint's CTA count
       includes it.
+    * ``point_filter(bp, point)`` (optional) keeps only the points the
+      kernel takes where the dims' ladders alone do not say so (a thread
+      count that must be whole warps, a ratio of two tiles).
     """
 
     def __init__(
@@ -210,6 +213,9 @@ class TilePolicy:
         latency_model: Optional[
             Callable[[ArchSpec, Mapping[str, Any], Mapping[str, Any]], float]
         ] = None,
+        point_filter: Optional[
+            Callable[[Mapping[str, Any], Mapping[str, Any]], bool]
+        ] = None,
     ) -> None:
         self.kernel = kernel
         self.name = "tile_pow2_hopper"
@@ -219,6 +225,7 @@ class TilePolicy:
         self.grid_multiplier = grid_multiplier
         self.flop_rate = flop_rate
         self.latency_model = latency_model
+        self.point_filter = point_filter
 
     # -- hints -----------------------------------------------------------
 
@@ -275,6 +282,8 @@ class TilePolicy:
         params = [PerfParam(d.name, pow2_ladder(d, arch)) for d in dims]
 
         def fits(point: Mapping[str, Any]) -> bool:
+            if self.point_filter is not None and not self.point_filter(bp, point):
+                return False
             return int(self.vmem_model(bp, point)) <= budget
 
         context = {

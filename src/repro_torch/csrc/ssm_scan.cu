@@ -1,4 +1,4 @@
-// Mamba-1 selective scan on float32 inputs, for Hopper.
+// Mamba-1 selective scan on float32 or bf16 inputs, for Hopper.
 //
 // Replaces: src/repro/kernels/ssm_scan/ssm_scan.py, _ssm_kernel (launched
 // by ssm_scan through pl.pallas_call).
@@ -6,168 +6,314 @@
 //   h_t = exp(dt_t (x) A) . h_{t-1} + (dt_t x_t) (x) B_t      h: (D, N) per batch
 //   y_t = h_t C_t + D . x_t
 //
-// x, dt and y are (B, S, D); A is (D, N); Bc and Cc are (B, S, N); the skip
-// vector D is (D,).  The state is float32 and the (S, D, N) decay is never
-// stored.
+// x, dt, Bc, Cc and y share one element type, float32 or bf16 (y takes
+// x's, as in the JAX kernel); A (D, N) and the skip vector D (D,) are
+// float32; x, dt, y are (B, S, D) and Bc, Cc (B, S, N).  The state and all
+// arithmetic are float32 and the (S, D, N) decay is never stored.
 //
-// What bounds it: on paper, memory (x, dt, y at 12 bytes per (t, d) against
-// about 7 N operations, one an exp, so the bytes bind at N = 16).  Each
-// channel's S steps depend on each other, so how much of the card the
-// B*D*N independent states keep busy decides how close it comes.
+// What bounds it: on paper, one exp per (t, d, n) on the SFU (16 a clock
+// per SM, 0.064 ms at falcon-mamba-7b width on an H100 SXM), about as long
+// as the bytes (x, dt, y at 12 bytes per (t, d) in float32: 0.060 ms; half
+// that in bf16).  On the card, the chain of one warp's step: its time
+// follows the warp-steps (N / K threads a channel), hardly the exps or the
+// B/C loads, as long as an SM holds about 8 warps to overlap the chains
+// (at B = 1, K = 4 is the most states that still gives them).
 //
 // Design.  The TPU kernel carried h in VMEM scratch across an ordered grid
-// axis of time chunks.  Blocks on the card run in no order, so a CTA never
-// splits S with another: it loops over the whole sequence.  One thread per
-// (d, n) pair keeps h[d, n] in a register (B*D*N = 131,072 threads at
-// falcon-mamba-7b width, where one thread per channel would give only 8192
-// threads, each with a 16-wide exp chain a step).  A CTA holds block_d
-// channels, block_d*N threads; the N threads of a channel are an aligned
-// segment of one warp, and y_t[d] is summed over n with __shfl_xor_sync
-// inside the segment.  Per loop trip the CTA stages `chunk` steps of B_t
-// and C_t (shared by all its channels) and of its own x and dt into shared
-// memory with cp.async, all copies in flight at once, steps the recurrence
-// out of shared memory, collects y in shared memory and stores it with
-// neighbouring threads on neighbouring addresses.  expf is the exact
-// library version; products and sums are explicit round-to-nearest ops in
-// the plain version's order (the n-sum is a butterfly, the plain version's
-// a sequential reduction).
-#include <cuda_runtime.h>
+// axis of time chunks.  Blocks on the card run in no order, so a CTA loops
+// over the whole sequence for its channels.  One thread keeps K = `states`
+// consecutive states of one channel in registers (K in 1..16, dividing N),
+// so a channel takes N / K consecutive lanes.  Per (step, state) the update
+// is one FMUL and one MUFU.EX2 for the decay (A * log2 e is formed once per
+// state, outside the loop), one FMUL for (dt x) B_t[n] (dt x formed once
+// per step) and two FMAs: h = fma(decay, h, u B), y = fma(h, C, y).  B_t
+// and C_t are read as 16-byte vectors; x and dt once per step.
+//
+// A warp runs its instructions in order, so a step done alone waits on its
+// loads, its exps and its shuffles in turn, and the first version of this
+// kernel ran at one step per ~330 cycles whatever K was.  Steps are taken in
+// groups of U = 32 / K: first every decay and input of the group (nothing
+// there waits on h), then the recurrence, then the y sums over the
+// channel's N / K lanes as a reduce-scatter: each of log2(N / K) levels
+// sends half the group's partial sums to the partner lane and adds the
+// half it keeps, so U (1 - K / N) shuffles finish all U sums (a butterfly
+// per step takes U log2(N / K)) and lane g ends with U K / N whole sums,
+// whose y it stores.
+//
+// Per loop trip the CTA stages `chunk` steps of x and dt for its block_d
+// channels and of B_t and C_t into one of two shared-memory stages with
+// cp.async (16-byte pieces where the tile allows), so the loads of trip
+// k + 1 fly while trip k is scanned; one barrier a trip.  y goes straight
+// to global memory: a warp's stores cover 32 K / N neighbouring channels of
+// N / K steps.  A trip that ends short of a whole group (the last trip of
+// a sequence that is no multiple of chunk, or a chunk that is no multiple
+// of U) has the rows up to its last group's end set to 0 in shared memory:
+// dt = 0 is decay 1 and input 0, so h passes through them unchanged, and
+// they store nothing.  So any S runs, and the loop over groups is the same
+// for every trip.
+#include "scan_staging.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-
 struct SsmArgs {
-  const float* x;
-  const float* dt;
+  const void* x;
+  const void* dt;
   const float* A;
-  const float* Bc;
-  const float* Cc;
+  const void* Bc;
+  const void* Cc;
   const float* skip;
-  float* y;
-  int S, D, block_d, chunk;
+  void* y;
+  int S, D, N, block_d, chunk;
+  int g_xd, g_bc;  // staging piece sizes in bytes (scan::copy_bytes)
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+// The most threads a CTA of K states a thread takes: ssm_kernel's launch
+// bound (one CTA an SM at the least), which leaves 128 registers a thread
+// for a group's 2 U K decays and inputs, and 255 at K >= 8, whose 2 K
+// states and coefficients come on top.
+constexpr int max_threads(int K) { return K >= 8 ? 256 : 512; }
+
+// Rows of one stage: the chunk rounded up to a whole group at any states
+// (U = 32 / K divides 32), so a short trip's last group stays inside it.
+__host__ __device__ constexpr int stage_rows(int chunk) { return (chunk + 31) / 32 * 32; }
+
+// Bytes of one stage: x, dt as [rows][block_d], Bc, Cc as [rows][N],
+// each region 16-byte aligned.
+long long stage_bytes(int block_d, int chunk, int n_state, int elt) {
+  const long long rows = stage_rows(chunk);
+  return 2 * scan::align16(rows * block_d * elt) + 2 * scan::align16(rows * n_state * elt);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+long long smem_bytes(int block_d, int chunk, int n_state, int elt) {
+  return 2 * stage_bytes(block_d, chunk, n_state, elt);
 }
 
-template <int N>
-__global__ void __launch_bounds__(kMaxThreads) ssm_kernel(const SsmArgs a) {
-  extern __shared__ float smem[];
-  const int bd = a.block_d;
-  const int ck = a.chunk;
-  float* sx = smem;           // [chunk][block_d]
-  float* sdt = sx + ck * bd;  // [chunk][block_d]
-  float* sy = sdt + ck * bd;  // [chunk][block_d]
-  float* sb = sy + ck * bd;   // [chunk][N]
-  float* sc = sb + ck * N;    // [chunk][N]
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;  // block_d * N
-  const int dl = tid / N;
-  const int n = tid % N;
-  const int tiles = a.D / bd;
+template <typename T, int K>
+__global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArgs a) {
+  constexpr int U = 32 / K;  // steps of a group: at least the threads of a channel
+  constexpr int kLevels = K == 1 ? 5 : K == 2 ? 4 : K == 4 ? 3 : K == 8 ? 2 : 1;  // log2(U)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bd = a.block_d, ck = a.chunk, N = a.N, D = a.D;
+  const int tpc = N / K;   // threads of one channel
+  const int m = U / tpc;   // steps of a group whose y this thread stores
+  const int xd_bytes = static_cast<int>(scan::align16(1LL * stage_rows(ck) * bd * sizeof(T)));
+  const int bc_bytes = static_cast<int>(scan::align16(1LL * stage_rows(ck) * N * sizeof(T)));
+  const int stage = 2 * xd_bytes + 2 * bc_bytes;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int dl = tid / tpc;
+  const int g = tid - dl * tpc;
+  const int tiles = D / bd;
   const int b = blockIdx.x / tiles;
   const int d0 = (blockIdx.x % tiles) * bd;
-  const float A = a.A[static_cast<size_t>(d0 + dl) * N + n];
-  const float skip = a.skip[d0 + dl];
-  const size_t row0 = static_cast<size_t>(b) * a.S;  // (b, t = 0)
-  float h = 0.0f;
-  for (int t0 = 0; t0 < a.S; t0 += ck) {
-    for (int e = tid; e < ck * bd; e += nthreads) {
-      const int t = e / bd;
-      const size_t g = (row0 + t0 + t) * a.D + d0 + (e - t * bd);
-      cp_async4(sx + e, a.x + g);
-      cp_async4(sdt + e, a.dt + g);
-    }
-    const size_t gbn = (row0 + t0) * N;  // chunk * N contiguous values
-    for (int e = tid; e < ck * N; e += nthreads) {
-      cp_async4(sb + e, a.Bc + gbn + e);
-      cp_async4(sc + e, a.Cc + gbn + e);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < ck; ++t) {
-      const float xv = sx[t * bd + dl];
-      const float dtv = sdt[t * bd + dl];
-      const float decay = expf(__fmul_rn(dtv, A));
-      h = __fadd_rn(__fmul_rn(decay, h), __fmul_rn(__fmul_rn(dtv, xv), sb[t * N + n]));
-      float p = __fmul_rn(h, sc[t * N + n]);
+  const int d = d0 + dl;
+
+  float a2[K], h[K];
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1) {
-        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off));
-      }
-      if (n == 0) sy[t * bd + dl] = __fadd_rn(p, __fmul_rn(xv, skip));
+  for (int j = 0; j < K; ++j) {
+    a2[j] = a.A[static_cast<size_t>(d) * N + g * K + j] * scan::kLog2e;
+    h[j] = 0.0f;
+  }
+  const float skip = a.skip[d];
+  const size_t row0 = static_cast<size_t>(b) * a.S;  // (b, t = 0)
+  const T* x = static_cast<const T*>(a.x);
+  const T* dt = static_cast<const T*>(a.dt);
+  const T* Bc = static_cast<const T*>(a.Bc);
+  const T* Cc = static_cast<const T*>(a.Cc);
+  T* y = static_cast<T*>(a.y) + row0 * D + d;
+
+  // the steps of trip k inside the sequence
+  auto rows_of = [&](int k) { return min(ck, a.S - k * ck); };
+
+  // cp.async trip `trip` into stage `s`: x, dt rows of block_d elements
+  // (row stride D), then the trip's contiguous N values a step of Bc and
+  // Cc; a short trip's rows up to its last group's end are set to 0.
+  auto load_trip = [&](int trip, int s) {
+    unsigned char* base = smem + s * stage;
+    const size_t r = row0 + static_cast<size_t>(trip) * ck;
+    const int n = rows_of(trip);
+    const int gx = a.g_xd, row_pieces = bd * static_cast<int>(sizeof(T)) / gx;
+    const char* xs = reinterpret_cast<const char*>(x + r * D + d0);
+    const char* dts = reinterpret_cast<const char*>(dt + r * D + d0);
+    const size_t stride = static_cast<size_t>(D) * sizeof(T);
+    for (int e = tid; e < n * row_pieces; e += nthreads) {
+      const int t = e / row_pieces;
+      const int off = t * bd * static_cast<int>(sizeof(T)) + (e - t * row_pieces) * gx;
+      const size_t src = t * stride + (e - t * row_pieces) * gx;
+      scan::copy_piece(base + off, xs + src, gx);
+      scan::copy_piece(base + xd_bytes + off, dts + src, gx);
     }
-    __syncthreads();  // sy complete; sx, sdt, sb, sc free for the next trip
-    for (int e = tid; e < ck * bd; e += nthreads) {
-      const int t = e / bd;
-      a.y[(row0 + t0 + t) * a.D + d0 + (e - t * bd)] = sy[e];
+    const int gb = a.g_bc, bc_pieces = n * N * static_cast<int>(sizeof(T)) / gb;
+    const char* bs = reinterpret_cast<const char*>(Bc + r * N);
+    const char* cs = reinterpret_cast<const char*>(Cc + r * N);
+    for (int e = tid; e < bc_pieces; e += nthreads) {
+      scan::copy_piece(base + 2 * xd_bytes + e * gb, bs + e * gb, gb);
+      scan::copy_piece(base + 2 * xd_bytes + bc_bytes + e * gb, cs + e * gb, gb);
+    }
+    const int dead = (n + U - 1) / U * U - n;
+    T* zx = reinterpret_cast<T*>(base) + n * bd;
+    T* zdt = reinterpret_cast<T*>(base + xd_bytes) + n * bd;
+    T* zb = reinterpret_cast<T*>(base + 2 * xd_bytes) + n * N;
+    for (int e = tid; e < dead * bd; e += nthreads) {
+      zx[e] = scan::from_f32<T>(0.0f);
+      zdt[e] = scan::from_f32<T>(0.0f);
+    }
+    for (int e = tid; e < dead * N; e += nthreads) zb[e] = scan::from_f32<T>(0.0f);
+    scan::cp_async_commit();
+  };
+
+  const int trips = (a.S + ck - 1) / ck;
+  load_trip(0, 0);
+  for (int k = 0; k < trips; ++k) {
+    scan::cp_async_wait_all();
+    __syncthreads();  // trip k landed for all; trip k - 1's stage is free
+    if (k + 1 < trips) load_trip(k + 1, (k + 1) & 1);
+    const unsigned char* base = smem + (k & 1) * stage;
+    const T* sx = reinterpret_cast<const T*>(base);
+    const T* sdt = reinterpret_cast<const T*>(base + xd_bytes);
+    const T* sb = reinterpret_cast<const T*>(base + 2 * xd_bytes) + g * K;
+    const T* sc = reinterpret_cast<const T*>(base + 2 * xd_bytes + bc_bytes) + g * K;
+    T* yk = y + static_cast<size_t>(k) * ck * D;
+    const int n = rows_of(k);
+    for (int t0 = 0; t0 < n; t0 += U) {
+      // the group's decays and inputs first: nothing here waits on h
+      float dec[U][K], ub[U][K];
+      const T* px = sx + t0 * bd + dl;
+      const T* pdt = sdt + t0 * bd + dl;
+      const T* pb = sb + t0 * N;
+#pragma unroll
+      for (int s = 0; s < U; ++s) {
+        const float dtv = scan::to_f32(*pdt);
+        const float u = dtv * scan::to_f32(*px);
+        float bv[K];
+        scan::load_vec<T, K>(pb, bv);
+        px += bd;
+        pdt += bd;
+        pb += N;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          dec[s][j] = scan::ex2(dtv * a2[j]);
+          ub[s][j] = u * bv[j];
+        }
+      }
+      // the recurrence, and each step's partial y over this thread's states
+      float p[U];
+      const T* pc = sc + t0 * N;
+#pragma unroll
+      for (int s = 0; s < U; ++s) {
+        float cv[K];
+        scan::load_vec<T, K>(pc, cv);
+        pc += N;
+        float ps = 0.0f;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          h[j] = fmaf(dec[s][j], h[j], ub[s][j]);
+          ps = fmaf(h[j], cv[j], ps);
+        }
+        p[s] = ps;
+      }
+      // reduce-scatter over the channel's lanes: each level halves the
+      // steps a lane holds, sending the half its partner keeps, so lane g
+      // ends with the sums of steps [g m, g m + m) in p[0..m)
+#pragma unroll
+      for (int l = 0; l < kLevels; ++l) {
+        if ((tpc >> l) > 1) {
+          const int o = tpc >> (l + 1);
+          const bool upper = (g & o) != 0;
+#pragma unroll
+          for (int i = 0; i < (U >> (l + 1)); ++i) {
+            const float lo = p[i], hi = p[i + (U >> (l + 1))];
+            p[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, o);
+          }
+        }
+      }
+      T* py = yk + static_cast<size_t>(t0 + g * m) * D;
+      const T* pxs = sx + (t0 + g * m) * bd + dl;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (i < m && t0 + g * m + i < n) {
+          *py = scan::from_f32<T>(fmaf(scan::to_f32(*pxs), skip, p[i]));
+          py += D;
+          pxs += bd;
+        }
+      }
     }
   }
 }
 
-long long smem_bytes(int block_d, int chunk, int n_state) {
-  return static_cast<long long>(sizeof(float)) * chunk * (3LL * block_d + 2LL * n_state);
+template <typename T, int K>
+int launch(SsmArgs a, int B, cudaStream_t stream) {
+  const int elt = static_cast<int>(sizeof(T));
+  const long long smem = smem_bytes(a.block_d, a.chunk, a.N, elt);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssm_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
+  a.g_xd = scan::copy_bytes(elt, {1ULL * a.block_d * elt, 1ULL * a.D * elt, addr(a.x),
+                                  addr(a.dt)});
+  a.g_bc = scan::copy_bytes(elt, {1ULL * a.N * elt, addr(a.Bc), addr(a.Cc)});
+  const unsigned grid = static_cast<unsigned>(B * (a.D / a.block_d));
+  ssm_kernel<T, K><<<grid, a.block_d * a.N / K, static_cast<size_t>(smem), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
-int launch(const SsmArgs& a, int B, cudaStream_t stream) {
-  const long long smem = smem_bytes(a.block_d, a.chunk, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssm_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>(B * (a.D / a.block_d));
-  ssm_kernel<N><<<grid, a.block_d * N, static_cast<size_t>(smem), stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+template <typename T>
+int launch_states(const SsmArgs& a, int B, int states, cudaStream_t s) {
+  switch (states) {
+    case 1: return launch<T, 1>(a, B, s);
+    case 2: return launch<T, 2>(a, B, s);
+    case 4: return launch<T, 4>(a, B, s);
+    case 8: return launch<T, 8>(a, B, s);
+    case 16: return launch<T, 16>(a, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// The dynamic shared memory one CTA of (block_d, chunk) takes at n_state.
-extern "C" long long ssm_scan_smem_bytes(int block_d, int chunk, int n_state) {
-  return smem_bytes(block_d, chunk, n_state);
+// The dynamic shared memory one CTA of (block_d, chunk) takes at n_state
+// and an element size of elt bytes.
+extern "C" long long ssm_scan_smem_bytes(int block_d, int chunk, int n_state, int elt) {
+  return smem_bytes(block_d, chunk, n_state, elt);
 }
 
-// x, dt, y: (B, S, D); A: (D, N); Bc, Cc: (B, S, N); skip: (D,); all
-// float32.  N must be a power of two up to 32 and block_d * N a multiple of
-// 32 up to 1024.  Returns the launch's cudaGetLastError() code
-// (cudaErrorInvalidValue for what the kernel does not take).
+// The most threads a CTA may have at `states` states a thread.
+extern "C" int ssm_scan_max_threads(int states) { return max_threads(states); }
+
+// x, dt, Bc, Cc, y: elements of elt bytes (4: float32, 2: bf16); A, skip
+// float32.  Any S >= 1 and chunk >= 1; N must be a power of two up to 32,
+// states a power of two up to 16 that divides N, and block_d * N / states
+// a multiple of 32 up to max_threads(states).  Returns the
+// launch's cudaGetLastError() code (cudaErrorInvalidValue for what the
+// kernel does not take).
 extern "C" int ssm_scan_launch(
     const void* x, const void* dt, const void* A, const void* Bc, const void* Cc,
     const void* skip, void* y, int B, int S, int D, int N, int block_d, int chunk,
-    void* stream) {
-  const long long threads = static_cast<long long>(block_d) * N;
-  if (B < 1 || block_d < 1 || chunk < 1 || D % block_d || S % chunk ||
-      threads > kMaxThreads || threads % 32) {
+    int states, int elt, void* stream) {
+  const bool pow2 = N > 0 && N <= 32 && (N & (N - 1)) == 0 && states > 0 && states <= 16 &&
+                    (states & (states - 1)) == 0;
+  if (!pow2 || N % states || B < 1 || S < 1 || block_d < 1 || chunk < 1 || D % block_d ||
+      (elt != 4 && elt != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long threads = 1LL * block_d * N / states;
+  if (threads > max_threads(states) || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SsmArgs a;
-  a.x = static_cast<const float*>(x);
-  a.dt = static_cast<const float*>(dt);
+  a.x = x;
+  a.dt = dt;
   a.A = static_cast<const float*>(A);
-  a.Bc = static_cast<const float*>(Bc);
-  a.Cc = static_cast<const float*>(Cc);
+  a.Bc = Bc;
+  a.Cc = Cc;
   a.skip = static_cast<const float*>(skip);
-  a.y = static_cast<float*>(y);
+  a.y = y;
   a.S = S;
   a.D = D;
+  a.N = N;
   a.block_d = block_d;
   a.chunk = chunk;
+  a.g_xd = a.g_bc = elt;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 1: return launch<1>(a, B, s);
-    case 2: return launch<2>(a, B, s);
-    case 4: return launch<4>(a, B, s);
-    case 8: return launch<8>(a, B, s);
-    case 16: return launch<16>(a, B, s);
-    case 32: return launch<32>(a, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return elt == 4 ? launch_states<float>(a, B, states, s)
+                  : launch_states<__nv_bfloat16>(a, B, states, s);
 }

@@ -1,10 +1,26 @@
 """AT region and KernelSpec for the RG-LRU scan kernel.
 
-The emitted space is exactly what the kernel takes.  ``block_w`` is the
-channels of one CTA, one thread each: a "grid" dim from a warp (32) up to
-the 1024 threads a CTA may have.  ``chunk`` is the time steps staged per
-loop trip: a "sequential" dim (a loop inside the CTA, adding no CTAs).  A
-point survives only if its shared memory fits the card's opt-in limit.
+The emitted space is what the kernel takes, in float32 and bf16, less
+the points that waste a warp's lanes.  ``split`` is the threads that
+share one channel's sequence (1 to 32, a power of two): it adds threads,
+not CTAs.  ``block_w`` is the channels of one CTA: a "grid" dim from a
+16-byte row (4 float32 or 8 bf16 channels; narrower rows read a 64-byte
+atom for a few bytes) up to 128 (wider CTAs leave most SMs idle at these
+widths).  ``chunk`` is the time steps staged per loop trip, ``split``
+segments of 4 to 32 steps: a "sequential" dim (a loop inside the CTA)
+that need not divide the sequence.  A point survives only if the kernel
+takes its ``split`` at its ``chunk`` (:func:`~.rglru_scan.takes_split`),
+its ``block_w * split`` threads are whole warps (or the CTA holds the
+whole width) within the launch bound, and its two stages of shared memory
+fit the card's opt-in limit.
+
+The hint is the larger of the bytes' time and the chain's.  The bytes
+count a row narrower than a 64-byte memory atom as the whole atom (a
+CTA's rows are ``block_w`` elements at a stride of W).  Each CTA runs
+:func:`~.rglru_scan.chain_steps` dependent steps plus a fixed cost a tile
+(the wait for its loads, two barriers, the store), and CTAs that share
+the busiest SM share its instruction throughput; the constants are fitted
+to the sweeps of ``chip_smoke.py`` on an H100.
 
 The shape class keeps a power-of-two bucket of the batch (the JAX package
 drops it): the card runs ``batch`` times the CTAs of one sequence, so the
@@ -19,33 +35,81 @@ from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_ker
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .ref import rglru_scan_ref
-from .rglru_scan import MAX_THREADS, rglru_scan, smem_bytes, traffic
+from .rglru_scan import (
+    DTYPES, MAX_SPLIT, MAX_THREADS, SEGMENTS, WARP, chain_steps, rglru_scan, smem_bytes,
+    takes_split, traffic,
+)
+
+_ELT = {str(dt).replace("torch.", ""): elt for dt, elt in DTYPES.items()}
+BLOCK_W_MAX = 128
+
+# The chain's costs on an H100 SXM, fitted to the sweeps of chip_smoke.py
+# at recurrentgemma-2b width (f32 and bf16, 206 points): one step of a
+# thread's segment (phase A or C), and a tile's fixed part.  With them the
+# hint's finals hold a point within 6% of the fastest swept one in both
+# dtypes.
+STEP_S = 10e-9
+TILE_S = 0.6e-6
+ATOM = 64  # bytes the memory reads for any part of an aligned 64-byte run
+ROW_MIN = 16  # bytes of the narrowest emitted row: one 16-byte cp.async piece
+
+
+def _elt(bp: Mapping[str, Any]) -> int:
+    return _ELT.get(bp.get("dtype", "float32"), 4)
+
+
+def _takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
+    threads = point["block_w"] * point["split"]
+    whole = threads % WARP == 0 or point["block_w"] == bp["width"]
+    return takes_split(point["chunk"], point["split"]) and whole and threads <= MAX_THREADS
+
+
+def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
+    """One CTA's chain, times the CTAs that share the busiest SM."""
+    chunk = point["chunk"]
+    chain = (chain_steps(bp["seq"], chunk, point["split"]) * STEP_S
+             + -(-bp["seq"] // chunk) * TILE_S)
+    ctas = bp["batch"] * (bp["width"] // point["block_w"])
+    return chain * -(-ctas // arch.sm_count)
+
+
+def _traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
+    """(flops, bytes) of the call, a row narrower than an ATOM counted as
+    the whole atom (the bytes the memory moves, for ranking)."""
+    row = point["block_w"] * _elt(bp)
+    flops, bytes_ = traffic(bp["batch"], bp["seq"], bp["width"], _elt(bp))
+    return flops, bytes_ * ATOM * -(-row // ATOM) / row
+
 
 RGLRU_POLICY = TilePolicy(
     kernel="rglru_scan",
     dims=lambda bp: (
-        TileDim("block_w", bp["width"], semantic="grid", min_tile=32,
-                max_tile=MAX_THREADS),
-        TileDim("chunk", bp["seq"], semantic="sequential"),
+        TileDim("block_w", bp["width"], semantic="grid", min_tile=ROW_MIN // _elt(bp),
+                max_tile=BLOCK_W_MAX),
+        TileDim("chunk", bp["seq"], semantic="sequential", min_tile=SEGMENTS[0],
+                max_tile=SEGMENTS[-1] * MAX_SPLIT, allow_padding=True),
+        TileDim("split", MAX_SPLIT, semantic="sequential", min_tile=1, pow2_only=True),
     ),
-    vmem_model=lambda bp, p: smem_bytes(p["block_w"], p["chunk"]),
-    traffic_model=lambda bp, p: traffic(bp["batch"], bp["seq"], bp["width"]),
+    vmem_model=lambda bp, p: smem_bytes(p["block_w"], p["chunk"], p["split"], _elt(bp)),
+    traffic_model=_traffic,
     grid_multiplier=lambda bp: bp["batch"],
+    latency_model=_latency,
+    point_filter=_takes,
 )
 
 
 def rglru_region(
     width: int, seq_len: int, batch: int = 1,
-    arch: Optional[ArchSpec] = None,
+    arch: Optional[ArchSpec] = None, dtype: str = "float32",
 ) -> ATRegion:
     arch = arch or local_arch()
     emitted = RGLRU_POLICY.emit(
-        arch, {"width": width, "seq": seq_len, "batch": batch}
+        arch, {"width": width, "seq": seq_len, "batch": batch, "dtype": dtype}
     )
 
     def instantiate(point: Mapping[str, Any]):
-        bw, ck = point["block_w"], point["chunk"]
-        return lambda x, r, i, lam: rglru_scan(x, r, i, lam, block_w=bw, chunk=ck)
+        bw, ck, sp = point["block_w"], point["chunk"], point["split"]
+        return lambda x, r, i, lam: rglru_scan(x, r, i, lam, block_w=bw, chunk=ck, split=sp)
 
     return ATRegion(
         "rglru_scan_cuda", emitted.space, instantiate,
@@ -55,7 +119,7 @@ def rglru_region(
 
 
 def shape_class(x, r, i, lam) -> BasicParams:
-    """(width, seq) fix the candidate family; the batch enters as a
+    """(width, seq, dtype) fix the candidate family; the batch enters as a
     power-of-two bucket, which sets the CTA count.  ``framework`` and a
     ``backend`` of ``cuda``/``cpu`` keep the port's keys apart from the JAX
     package's in a shared file."""
@@ -72,7 +136,7 @@ def shape_class(x, r, i, lam) -> BasicParams:
 
 def _make_region(bp: BasicParams) -> ATRegion:
     arch = local_arch() if bp["backend"] == "cuda" else CPU_HOST
-    return rglru_region(bp["width"], bp["seq"], bp["batch"], arch=arch)
+    return rglru_region(bp["width"], bp["seq"], bp["batch"], arch=arch, dtype=bp["dtype"])
 
 
 register_kernel(

@@ -1,16 +1,21 @@
 """Wrapper of the hand-written CUDA selective-scan kernel (``csrc/ssm_scan.cu``).
 
-``ssm_scan(x, dt, A, Bc, Cc, D, block_d, chunk)`` launches the kernel on
-CUDA tensors and runs the plain version (:func:`ssm_scan_plain`, the
-module's copy of ``ref.ssm_scan_ref``) on CPU tensors; there is no fallback
-from one to the other.  ``counter`` counts both.  The positional order is
-the JAX package's; ``D`` is the skip vector, not the width.
+``ssm_scan(x, dt, A, Bc, Cc, D, block_d, chunk, states)`` launches the
+kernel on CUDA tensors and runs the plain version (:func:`ssm_scan_plain`,
+the module's copy of ``ref.ssm_scan_ref``) on CPU tensors; there is no
+fallback from one to the other.  ``counter`` counts both.  The positional
+order is the JAX package's; ``D`` is the skip vector, not the width.
 
-One thread per (channel, state) pair carries h over the whole sequence; a
-CTA holds ``block_d`` channels (``block_d * N`` threads) and stages
-``chunk`` time steps per loop trip in shared memory.  As in the JAX
-kernel, each tile is first ``min``'d to its extent and must then divide
-it.  The kernel takes float32 and an N that is a power of two up to 32.
+x, dt, Bc and Cc share one dtype, float32 or bfloat16, and y takes it (as
+the JAX kernel casts them to float32 and y to ``x.dtype``); A and D are
+float32.  One thread carries ``states`` consecutive states of a channel
+over the whole sequence, so a channel takes ``N / states`` threads and a
+CTA of ``block_d`` channels ``block_d * N / states``; it stages ``chunk``
+time steps per loop trip in one of two shared-memory stages.  As in the
+JAX kernel, each tile is first ``min``'d to its extent (``states`` to N);
+``block_d`` must then divide D, while ``chunk`` need not divide S: the
+kernel sets the steps past the sequence's end to dt = 0 (decay 1, input
+0) in shared memory, so every S runs.  N is a power of two up to 32.
 """
 from __future__ import annotations
 
@@ -25,21 +30,44 @@ from .ref import ssm_scan_ref
 ssm_scan_plain = ssm_scan_ref
 counter = _build.Counter()
 
-MAX_THREADS = 1024   # threads of one CTA: block_d * N
-WARP = 32            # block_d * N is a whole number of warps
+WARP = 32            # block_d * N / states is a whole number of warps
 N_STATES = (1, 2, 4, 8, 16, 32)
+STATES = (1, 2, 4, 8, 16)  # states a thread carries: compile-time in the kernel
+DTYPES = {torch.float32: 4, torch.bfloat16: 2}  # input dtype -> element bytes
 SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def smem_bytes(block_d: int, chunk: int, n_state: int) -> int:
+def max_threads(states: int) -> int:
+    """The most threads a CTA may have at ``states`` states a thread (the
+    kernel's launch bound: 128 registers a thread, 255 at 8 and 16)."""
+    return 256 if states >= 8 else 512
+
+
+def group(states: int) -> int:
+    """Steps the kernel takes together (``U``): their decays first, then the
+    recurrence, then one reduce-scatter of their y sums; ``chunk`` is a
+    multiple of it unless it is the whole sequence (a shorter group costs
+    a whole one)."""
+    return 32 // states
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(block_d: int, chunk: int, n_state: int, elt: int = 4) -> int:
     """Dynamic shared memory of one CTA (``smem_bytes`` in the source):
-    ``chunk`` steps of x, dt and y for ``block_d`` channels and of B_t, C_t."""
-    return 4 * chunk * (3 * block_d + 2 * n_state)
+    two stages, each ``chunk`` steps rounded up to 32 (a whole group at any
+    ``states``) of x and dt for ``block_d`` channels and of B_t, C_t, at
+    ``elt`` bytes an element, each array 16-byte aligned."""
+    rows = -(-chunk // WARP) * WARP
+    stage = 2 * _align16(rows * block_d * elt) + 2 * _align16(rows * n_state * elt)
+    return 2 * stage
 
 
-def _check(x, dt, A, Bc, Cc, D, block_d: int, chunk: int):
+def _check(x, dt, A, Bc, Cc, D, block_d: int, chunk: int, states: int):
     if x.dim() != 3 or A.dim() != 2:
         raise ValueError(
             f"ssm_scan: x must be (B, S, D) and A (D, N), got {tuple(x.shape)}, "
@@ -54,36 +82,50 @@ def _check(x, dt, A, Bc, Cc, D, block_d: int, chunk: int):
             raise ValueError(
                 f"ssm_scan: {name} must be {expected[name]}, got {tuple(t.shape)}"
             )
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc), ("D", D)):
+    dtypes = {name: t.dtype for name, t in (("x", x), ("dt", dt), ("Bc", Bc), ("Cc", Cc))}
+    if len(set(dtypes.values())) != 1:
+        raise ValueError(f"ssm_scan: x, dt, Bc, Cc must share one dtype, got mixed {dtypes}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"ssm_scan: x, dt, Bc, Cc must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("A", A), ("D", D)):
         if t.dtype != torch.float32:
             raise ValueError(f"ssm_scan: {name} must be float32, got {t.dtype}")
     if N not in N_STATES:
         raise ValueError(f"ssm_scan: state size N={N} not in {N_STATES}")
     if block_d < 1 or chunk < 1:
         raise ValueError(f"ssm_scan: tiles ({block_d},{chunk}) must be >= 1")
-    bd, ck = min(block_d, Dd), min(chunk, S)
-    if Dd % bd or S % ck:
-        raise ValueError(f"blocks ({bd},{ck}) must divide (D={Dd}, S={S})")
-    threads = bd * N
-    if threads > MAX_THREADS or threads % WARP:
+    bd, ck, k = min(block_d, Dd), min(chunk, S), min(states, N)
+    if Dd % bd:
+        raise ValueError(f"blocks ({bd},{ck}): block_d must divide D={Dd}")
+    if k not in STATES or N % k:
+        raise ValueError(f"ssm_scan: states {states} not in {STATES} or does not divide N={N}")
+    if ck % group(k) and ck != S:
         raise ValueError(
-            f"ssm_scan: block_d {bd} x N {N} = {threads} threads; a CTA takes "
-            f"a multiple of {WARP} up to {MAX_THREADS}"
+            f"ssm_scan: chunk {ck} is not a multiple of the {group(k)} steps taken together "
+            f"at states {k}, nor the whole sequence S={S}"
         )
-    if smem_bytes(bd, ck, N) > SMEM_LIMIT:
+    threads = bd * N // k
+    if threads > max_threads(k) or threads % WARP:
         raise ValueError(
-            f"ssm_scan: tiles ({bd},{ck}) need {smem_bytes(bd, ck, N)} B of shared "
+            f"ssm_scan: block_d {bd} x N {N} / states {k} = {threads} threads; a CTA "
+            f"takes a multiple of {WARP} up to {max_threads(k)}"
+        )
+    elt = DTYPES[x.dtype]
+    if smem_bytes(bd, ck, N, elt) > SMEM_LIMIT:
+        raise ValueError(
+            f"ssm_scan: tiles ({bd},{ck}) need {smem_bytes(bd, ck, N, elt)} B of shared "
             f"memory, over {SMEM_LIMIT} B"
         )
-    return Bsz, S, Dd, N, bd, ck
+    return Bsz, S, Dd, N, bd, ck, k
 
 
 def ssm_scan_cuda(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
     Cc: torch.Tensor, D: torch.Tensor, block_d: int = 32, chunk: int = 128,
+    states: int = 1,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous float32 CUDA tensors."""
-    Bsz, S, Dd, N, bd, ck = _check(x, dt, A, Bc, Cc, D, block_d, chunk)
+    """Launch the CUDA kernel on contiguous CUDA tensors."""
+    Bsz, S, Dd, N, bd, ck, k = _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
     tensors = (x, dt, A, Bc, Cc, D)
     if _build.route(tensors, "ssm_scan") != "cuda":
         raise ValueError("ssm_scan_cuda: inputs must be CUDA tensors")
@@ -92,9 +134,9 @@ def ssm_scan_cuda(
     y = torch.empty_like(x)
     code = _build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)(
         *[t.data_ptr() for t in tensors], y.data_ptr(),
-        Bsz, S, Dd, N, bd, ck, _build.stream_of(y),
+        Bsz, S, Dd, N, bd, ck, k, DTYPES[x.dtype], _build.stream_of(y),
     )
-    _build.check(code, f"ssm_scan_launch(block_d={bd}, chunk={ck}, N={N})")
+    _build.check(code, f"ssm_scan_launch(block_d={bd}, chunk={ck}, states={k}, N={N})")
     counter.launches += 1
     return y
 
@@ -102,29 +144,42 @@ def ssm_scan_cuda(
 def ssm_scan(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
     Cc: torch.Tensor, D: torch.Tensor, block_d: int = 32, chunk: int = 128,
+    states: int = 1,
 ) -> torch.Tensor:
     """The selective scan: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors (tiles are checked either way, so both accept
     one space)."""
     if _build.route((x, dt, A, Bc, Cc, D), "ssm_scan") == "cuda":
-        return ssm_scan_cuda(x, dt, A, Bc, Cc, D, block_d, chunk)
-    _check(x, dt, A, Bc, Cc, D, block_d, chunk)
+        return ssm_scan_cuda(x, dt, A, Bc, Cc, D, block_d, chunk, states)
+    _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
     counter.plain_calls += 1
     return ssm_scan_plain(x, dt, A, Bc, Cc, D)
 
 
-def smem_bytes_native(block_d: int, chunk: int, n_state: int) -> int:
+def smem_bytes_native(block_d: int, chunk: int, n_state: int, elt: int = 4) -> int:
     """What the compiled source computes for :func:`smem_bytes` (a check
     that the Python model is the kernel's real footprint)."""
     fn = _build.function("ssm_scan", "ssm_scan_smem_bytes",
-                         [ctypes.c_int] * 3, ctypes.c_longlong)
-    return int(fn(block_d, chunk, n_state))
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    return int(fn(block_d, chunk, n_state, elt))
 
 
-def traffic(B: int, S: int, D: int, N: int) -> Tuple[float, float]:
+def max_threads_native(states: int) -> int:
+    """What the compiled source takes for :func:`max_threads`."""
+    return int(_build.function("ssm_scan", "ssm_scan_max_threads", [ctypes.c_int])(states))
+
+
+def traffic(B: int, S: int, D: int, N: int, elt: int = 4) -> Tuple[float, float]:
     """(flops, bytes) of one call: 7 operations a step and state (the exp
-    counted as one) and 3 a step and channel; x, dt, Bc, Cc read once, y
-    written once, A and D."""
+    counted as one) and 3 a step and channel; x, dt, Bc, Cc read once and
+    y written once at ``elt`` bytes an element, A and D in float32."""
     flops = 7.0 * B * S * D * N + 3.0 * B * S * D
-    bytes_ = 4.0 * (3.0 * B * S * D + 2.0 * B * S * N + D * N + D)
+    bytes_ = elt * (3.0 * B * S * D + 2.0 * B * S * N) + 4.0 * (D * N + D)
     return flops, bytes_
+
+
+def sfu_seconds(B: int, S: int, D: int, N: int, peak_flops_fp32: float) -> float:
+    """Least time of the call's exps: one MUFU.EX2 per (t, d, n), at the
+    SFU's 16 a clock per SM, which is ``peak_flops_fp32 / 16`` (an SM's
+    128 float32 lanes do 2 operations a clock each)."""
+    return B * S * D * N / (peak_flops_fp32 / 16.0)

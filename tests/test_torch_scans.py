@@ -71,12 +71,14 @@ def test_tolerance_is_the_conformance_one():
     assert CASES["rglru_scan"].tol["float32"] == TOL
 
 
-@pytest.mark.parametrize("point", [(8, 32), (32, 64), (128, 64)])
+# (block_d, chunk, states): N = 4, so 32, 64 and 128 threads
+@pytest.mark.parametrize("point", [(8, 32, 1), (32, 64, 2), (128, 64, 4)])
 def test_ssm_scan_matches_jax_kernel(point):
     arrays = ssm_numpy(seed=41)
-    bd, ck = point
+    bd, ck, k = point
     ref = jax_ssm_ops.scan(*(jnp.asarray(a) for a in arrays), block_d=bd, chunk=ck)
-    out = ssm_mod.ssm_scan(*carry.ssm_inputs(*arrays, device="cpu"), block_d=bd, chunk=ck)
+    out = ssm_mod.ssm_scan(*carry.ssm_inputs(*arrays, device="cpu"), block_d=bd, chunk=ck,
+                           states=k)
     assert out.dtype == torch.float32 and tuple(out.shape) == arrays[0].shape
     assert_close(out, ref, f"ssm_scan {point}")
 
@@ -118,14 +120,25 @@ def test_ssm_wrapper_rejects_what_the_kernel_does_not_take():
     x, dt, A, Bc, Cc, D = args
     with pytest.raises(ValueError, match="must divide"):
         ssm_mod.ssm_scan(*args, block_d=48, chunk=32)
-    with pytest.raises(ValueError, match="must divide"):
+    with pytest.raises(ValueError, match="not a multiple of the 32 steps"):
         ssm_mod.ssm_scan(*args, block_d=8, chunk=48)
     with pytest.raises(ValueError, match="threads"):
         ssm_mod.ssm_scan(*args, block_d=4, chunk=32)     # 16 threads: half a warp
     with pytest.raises(ValueError, match="Bc"):
         ssm_mod.ssm_scan(x, dt, A, Bc[:, :32], Cc, D)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="mixed"):
         ssm_mod.ssm_scan(x.to(torch.bfloat16), dt, A, Bc, Cc, D)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssm_mod.ssm_scan(x.double(), dt.double(), A, Bc.double(), Cc.double(), D)
+    with pytest.raises(ValueError, match="A must be float32"):
+        ssm_mod.ssm_scan(x, dt, A.to(torch.bfloat16), Bc, Cc, D)
+    with pytest.raises(ValueError, match="states 3"):
+        ssm_mod.ssm_scan(*args, block_d=32, chunk=32, states=3)
+    with pytest.raises(ValueError, match="threads"):
+        ssm_mod.ssm_scan(*args, block_d=16, chunk=32, states=4)  # 16 threads
+    n16 = carry.ssm_inputs(*ssm_numpy(seed=47, S=32, D=512, N=16), device="cpu")
+    with pytest.raises(ValueError, match="up to 256"):
+        ssm_mod.ssm_scan(*n16, block_d=256, chunk=32, states=8)  # 512 threads
     with pytest.raises(ValueError, match="N=3"):
         s3 = carry.ssm_inputs(*ssm_numpy(seed=46, N=3), device="cpu")
         ssm_mod.ssm_scan(*s3, block_d=32, chunk=32)
@@ -137,7 +150,7 @@ def test_ssm_wrapper_rejects_what_the_kernel_does_not_take():
         ssm_mod.ssm_scan(*big, block_d=512, chunk=32)   # 2048 threads
     with pytest.raises(ValueError, match="shared"):
         wide = carry.ssm_inputs(*ssm_numpy(seed=48, S=2048, D=128, N=8), device="cpu")
-        ssm_mod.ssm_scan(*wide, block_d=128, chunk=2048)
+        ssm_mod.ssm_scan(*wide, block_d=128, chunk=2048, states=8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssm_mod.ssm_scan_cuda(*args, block_d=8, chunk=32)
 
@@ -147,62 +160,120 @@ def test_rglru_wrapper_rejects_what_the_kernel_does_not_take():
     x, r, i, lam = args
     with pytest.raises(ValueError, match="must divide"):
         rg_mod.rglru_scan(*args, block_w=48, chunk=32)
-    with pytest.raises(ValueError, match="must divide"):
-        rg_mod.rglru_scan(*args, block_w=32, chunk=24)
     with pytest.raises(ValueError, match="lam"):
         rg_mod.rglru_scan(x, r, i, lam[:64])
     with pytest.raises(ValueError, match=r"\br \("):
         rg_mod.rglru_scan(x, r[:, :32], i, lam)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="mixed"):
         rg_mod.rglru_scan(x, r, i.double(), lam)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rg_mod.rglru_scan(x.double(), r.double(), i.double(), lam)
+    with pytest.raises(ValueError, match="lam must be float32"):
+        rg_mod.rglru_scan(x, r, i, lam.to(torch.bfloat16))
+    # not a power of two, a 2-step segment, over a warp, a 64-step segment
+    for split, chunk in ((3, 64), (16, 32), (64, 64), (1, 64)):
+        with pytest.raises(ValueError, match="split"):
+            rg_mod.rglru_scan(*args, block_w=32, chunk=chunk, split=split)
     wide = carry.rglru_inputs(*rglru_numpy(seed=50, S=32, W=2048), device="cpu")
     with pytest.raises(ValueError, match="threads"):
         rg_mod.rglru_scan(*wide, block_w=2048, chunk=32)
     with pytest.raises(ValueError, match="shared"):
-        rg_mod.rglru_scan(*carry.rglru_inputs(*rglru_numpy(seed=51, S=512, W=256),
-                                              device="cpu"), block_w=256, chunk=512)
+        rg_mod.rglru_scan(*carry.rglru_inputs(*rglru_numpy(seed=51, S=1024, W=256),
+                                              device="cpu"),
+                          block_w=16, chunk=1024, split=32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         rg_mod.rglru_scan_cuda(*args, block_w=32, chunk=32)
 
 
-def _meta(*shape):
-    return torch.empty(shape, dtype=torch.float32, device="meta")
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("shape", ["slice", "conformance"])
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the slice shapes' emitted ladders, the same in both dtypes: block_d per
+# states (16 / states threads a channel, whole warps up to the launch
+# bound: 512 threads, 256 at 8 and 16 states) and the chunks
+SSM_SLICE_BLOCK_D = {1: {2, 4, 8, 16, 32}, 2: {4, 8, 16, 32, 64}, 4: {8, 16, 32, 64, 128},
+                     8: {16, 32, 64, 128}, 16: {32, 64, 128, 256}}
+# block_w and chunk per split: chunk / split in 4..32, block_w * split
+# whole warps up to 512, block_w from a 16-byte row (4 float32 or 8 bf16
+# channels) up to 128
+RGLRU_SLICE_BLOCK_W = {
+    "float32": {1: {32, 64, 128}, 2: {16, 32, 64, 128}, 4: {8, 16, 32, 64, 128},
+                8: {4, 8, 16, 32, 64}, 16: {4, 8, 16, 32}, 32: {4, 8, 16}},
+    "bfloat16": {1: {32, 64, 128}, 2: {16, 32, 64, 128}, 4: {8, 16, 32, 64, 128},
+                 8: {8, 16, 32, 64}, 16: {8, 16, 32}, 32: {8, 16}},
+}
+RGLRU_SLICE_CHUNK = {1: {8, 16, 32}, 2: {8, 16, 32, 64}, 4: {16, 32, 64, 128},
+                     8: {32, 64, 128, 256}, 16: {64, 128, 256, 512},
+                     32: {128, 256, 512, 1024}}
+
+
+# the slice widths at an odd length (a ragged last trip), and at S = 7
+# (one chunk shorter than the groups of 32 / states steps)
+SHAPES = {"ssm_scan": {"slice": SSM_SLICE, "conformance": dict(B=1, S=64, D=128, N=4),
+                       "odd": dict(SSM_SLICE, B=4, S=2047), "short": dict(B=2, S=7, D=64, N=16)},
+          "rglru_scan": {"slice": RGLRU_SLICE, "conformance": dict(B=1, S=64, W=128),
+                         "odd": dict(RGLRU_SLICE, B=4, S=2047), "short": dict(B=2, S=7, W=24)}}
+
+
+@pytest.mark.parametrize("shape", ["slice", "conformance", "odd", "short"])
 def test_every_emitted_ssm_point_fits_the_kernel(shape):
-    s = SSM_SLICE if shape == "slice" else dict(B=1, S=64, D=128, N=4)
+    s = SHAPES["ssm_scan"][shape]
     B, S, D, N = s["B"], s["S"], s["D"], s["N"]
-    region = ssm_ops.ssm_region(D, S, N, B, arch=CPU_HOST)
-    args = (_meta(B, S, D), _meta(B, S, D), _meta(D, N), _meta(B, S, N),
-            _meta(B, S, N), _meta(D))
-    points = list(region.space.points())
-    assert len(points) > 1
-    for p in points:
-        _, _, _, _, bd, ck = ssm_mod._check(*args, p["block_d"], p["chunk"])
-        assert (bd, ck) == (p["block_d"], p["chunk"])  # no point is min'd
-        threads = bd * N
-        assert threads % 32 == 0 and threads <= ssm_mod.MAX_THREADS
-        assert ssm_mod.smem_bytes(bd, ck, N) <= region.arch.smem_per_block
-    if shape == "slice":
-        assert {p["block_d"] for p in points} == {2, 4, 8, 16, 32, 64}
+    for dtype_name, dtype in DTYPES.items():
+        region = ssm_ops.ssm_region(D, S, N, B, arch=CPU_HOST, dtype=dtype_name)
+        m = lambda *shape: _meta(*shape, dtype=dtype)  # noqa: E731
+        args = (m(B, S, D), m(B, S, D), _meta(D, N), m(B, S, N), m(B, S, N), _meta(D))
+        points = list(region.space.points())
+        assert 1 < len(points) < 150
+        for p in points:
+            _, _, _, _, bd, ck, k = ssm_mod._check(*args, p["block_d"], p["chunk"],
+                                                   p["states"])
+            # no point is min'd
+            assert (bd, ck, k) == (p["block_d"], p["chunk"], p["states"])
+            threads = bd * N // k
+            assert threads % 32 == 0 and threads <= ssm_mod.max_threads(k)
+            elt = ssm_mod.DTYPES[dtype]
+            assert ssm_mod.smem_bytes(bd, ck, N, elt) <= region.arch.smem_per_block
+        if shape == "slice":
+            ladders = {}
+            for p in points:
+                ladders.setdefault(p["states"], set()).add(p["block_d"])
+            assert ladders == SSM_SLICE_BLOCK_D
+        if shape in ("slice", "odd"):
+            assert {p["chunk"] for p in points} == {32, 64, 128, 256}
+        if shape == "short":
+            assert {p["chunk"] for p in points} == {7}
 
 
-@pytest.mark.parametrize("shape", ["slice", "conformance"])
+@pytest.mark.parametrize("shape", ["slice", "conformance", "odd", "short"])
 def test_every_emitted_rglru_point_fits_the_kernel(shape):
-    s = RGLRU_SLICE if shape == "slice" else dict(B=1, S=64, W=128)
+    s = SHAPES["rglru_scan"][shape]
     B, S, W = s["B"], s["S"], s["W"]
-    region = rg_ops.rglru_region(W, S, B, arch=CPU_HOST)
-    args = (_meta(B, S, W), _meta(B, S, W), _meta(B, S, W), _meta(W))
-    points = list(region.space.points())
-    assert len(points) > 1
-    for p in points:
-        _, _, _, bw, ck = rg_mod._check(*args, p["block_w"], p["chunk"])
-        assert (bw, ck) == (p["block_w"], p["chunk"])
-        assert bw <= rg_mod.MAX_THREADS
-        assert rg_mod.smem_bytes(bw, ck) <= region.arch.smem_per_block
-    if shape == "slice":
-        assert {p["block_w"] for p in points} == {32, 64, 128, 256, 512}
+    for dtype_name, dtype in DTYPES.items():
+        region = rg_ops.rglru_region(W, S, B, arch=CPU_HOST, dtype=dtype_name)
+        args = (_meta(B, S, W, dtype=dtype), _meta(B, S, W, dtype=dtype),
+                _meta(B, S, W, dtype=dtype), _meta(W))
+        points = list(region.space.points())
+        assert 1 < len(points) < 150
+        for p in points:
+            _, _, _, bw, ck, sp = rg_mod._check(*args, p["block_w"], p["chunk"], p["split"])
+            assert (bw, ck, sp) == (p["block_w"], p["chunk"], p["split"])
+            assert (bw * sp % 32 == 0 or bw == W) and bw * sp <= rg_mod.MAX_THREADS
+            assert rg_mod.seg_len(ck, sp) in rg_mod.SEGMENTS
+            assert bw * rg_mod.DTYPES[dtype] >= min(16, W * rg_mod.DTYPES[dtype])
+            elt = rg_mod.DTYPES[dtype]
+            assert rg_mod.smem_bytes(bw, ck, sp, elt) <= region.arch.smem_per_block
+        if shape == "slice":
+            block_w, chunk = {}, {}
+            for p in points:
+                block_w.setdefault(p["split"], set()).add(p["block_w"])
+                chunk.setdefault(p["split"], set()).add(p["chunk"])
+            assert block_w == RGLRU_SLICE_BLOCK_W[dtype_name]
+            assert chunk == RGLRU_SLICE_CHUNK
+        if shape == "short":
+            assert {p["chunk"] for p in points} == {4, 7}
 
 
 def test_batch_bucket_splits_shape_classes_and_counts_ctas():
@@ -248,8 +319,12 @@ def test_traffic_counts_the_whole_call():
     B, S, D, N = (SSM_SLICE[k] for k in ("B", "S", "D", "N"))
     assert bytes_ == 4 * (3 * B * S * D + 2 * B * S * N + D * N + D)
     assert flops == 7 * B * S * D * N + 3 * B * S * D
+    _, bf16_bytes = ssm_mod.traffic(**SSM_SLICE, elt=2)
+    assert bf16_bytes == 2 * (3 * B * S * D + 2 * B * S * N) + 4 * (D * N + D)
     flops, bytes_ = rg_mod.traffic(*(RGLRU_SLICE[k] for k in ("B", "S", "W")))
     assert bytes_ == 4 * (4 * 2048 * 2560 + 2560)
+    _, bf16_bytes = rg_mod.traffic(*(RGLRU_SLICE[k] for k in ("B", "S", "W")), elt=2)
+    assert bf16_bytes == 2 * 4 * 2048 * 2560 + 4 * 2560
 
 
 def test_carry_keeps_layout_and_values():
@@ -261,3 +336,17 @@ def test_carry_keeps_layout_and_values():
     for t, a in zip(carry.rglru_inputs(*arrays, device="cpu"), arrays):
         assert tuple(t.shape) == a.shape and t.is_contiguous()
         np.testing.assert_array_equal(carry.to_numpy(t), a)
+    # bf16 arrays stay bf16 (values exact); A, D and lam stay float32
+    bf16 = jnp.bfloat16
+    for make, carrier, f32_slots in ((ssm_numpy, carry.ssm_inputs, (2, 5)),
+                                     (rglru_numpy, carry.rglru_inputs, (3,))):
+        arrays = [np.asarray(jnp.asarray(a, jnp.float32 if n in f32_slots else bf16))
+                  for n, a in enumerate(make(seed=58))]
+        for n, (t, a) in enumerate(zip(carrier(*arrays, device="cpu"), arrays)):
+            want = torch.float32 if n in f32_slots else torch.bfloat16
+            assert t.dtype == want and tuple(t.shape) == a.shape and t.is_contiguous()
+            np.testing.assert_array_equal(carry.to_numpy(t), a.astype(np.float32))
+        # a named dtype casts the scan inputs, never A, D or lam
+        named = carrier(*make(seed=59), device="cpu", dtype=torch.bfloat16)
+        assert [t.dtype for t in named] == [
+            torch.float32 if n in f32_slots else torch.bfloat16 for n in range(len(named))]
