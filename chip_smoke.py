@@ -9,10 +9,12 @@ ArchSpec → staged search (hint prescreen, then finals timed on the card)
 → ``record_best`` → zero-evaluation recall and the dispatch fast path.  It
 runs for all five ported kernels at real sizes:
 
-* ``exb`` at the paper's GKV domain (iv, iz, mx, my) = (16, 16, 128, 65), f32;
+* ``exb`` at the paper's GKV domain (iv, iz, mx, my) = (16, 16, 128, 65), f32
+  (tunables block_iv, block_iz and split);
 * ``flash_attention`` at tinyllama-1.1b's attention width (32 query heads,
-  4 KV heads, head_dim 64), B=1, S=2048, bf16 (the wgmma kernel), then
-  again at B=4 (B·H = 128, its own shape class);
+  4 KV heads, head_dim 64), B=1, S=2048, bf16 (the wgmma kernel), then in
+  f32 (the 3xTF32 mma.sync kernel, its own shape class), then bf16 again
+  at B=4 (B·H = 128, its own shape class);
 * ``stress`` on one card's Seism3D subdomain (nk, nj, ni) = (256, 256, 256), f32;
 * ``ssm_scan`` at falcon-mamba-7b width (d_inner 8192, ssm_state 16), B=1,
   S=2048, f32, then bf16 (its own shape class), then f32 at B=4, S=2047;
@@ -23,8 +25,8 @@ Phases, each of which fails the run:
 
 1. the card: name and power limit as ``nvidia-smi`` prints them;
 2. build: every CUDA source compiled with nvcc, all at once (build time,
-   registers and spills; the bf16 flash instantiations and every scan
-   instantiation must not spill);
+   registers and spills; every flash instantiation, bf16 and f32, and
+   every scan instantiation must not spill);
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
    width, 16 query heads, 8 KV heads, head_dim 128; both scans also in
@@ -38,16 +40,19 @@ Phases, each of which fails the run:
    evaluations and two fast-path calls; the counts read at once: the
    kernel launched, and no plain version ran; for exb one exhaustive
    search compared with the staged winner, for the others the staged
-   winner's time beside the fastest swept point's; flash once more at
-   B=4, and each scan once more in bf16 and in f32 at B=4, S=2047, each of
-   which must tune a shape class of its own and recall it (at B=4, S=2047
-   the staged winner's time is set beside the fastest swept point's: a
-   check of the hint away from the shape its constants were fitted at).
+   winner's time beside the fastest swept point's (flash f32's within 10%
+   of it, or the run fails); flash once more in f32 and at B=4, and each
+   scan once more in bf16 and in f32 at B=4, S=2047, each of which must
+   tune a shape class of its own and recall it (at B=4, S=2047 the staged
+   winner's time is set beside the fastest swept point's: a check of the
+   hint away from the shape its constants were fitted at).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
 plain version's time, the bound (bytes over memory rate or operations over
-peak rate, the larger) and the library call's time; the scans' entries
+peak rate, the larger) and the library call's time; flash's also gives
+the f32 kernel's (``f32_*``: 3xTF32 operations over the TF32 rate, SDPA's
+memory-efficient kernel in f32 as the library call); the scans' entries
 also give their bf16 time, bound and tuned point, their B=4, S=2047
 tuned point and time beside the fastest swept one (``b4_s2047_*``), and
 ``ssm_scan`` its SFU floor (one exp per (t, d, n) at 16 a clock per SM).  The last line is
@@ -316,27 +321,34 @@ def run() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)")
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
-        if log.stem in ("flash_attention_sm90", "ssm_scan", "rglru_scan"):
+        if log.stem in ("flash_attention", "flash_attention_sm90", "ssm_scan", "rglru_scan"):
             continue  # per instantiation below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {log.stem}: {line.strip()}")
-    sm90_log = (_build.build_dir() / _build._digest() / "flash_attention_sm90.log").read_text()
-    sm90 = {}
-    for name, entry in ptxas_entries(sm90_log).items():
-        tile = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)E", name)
-        if tile:
-            sm90[tuple(map(int, tile.groups()))] = entry
-    for (hd, bq, bkv), (regs, spill) in sorted(sm90.items()):
-        print(f"[ptxas] flash bf16 (hd={hd}, {bq}, {bkv}): {regs} registers, "
-              f"{spill} B spilled, {fa_mod.sm90_ctas_per_sm(hd, bq, bkv)} CTAs/SM")
-    fa_spill = max((spill for _, spill in sm90.values()), default=0)
-    print(f"[build] flash bf16: {len(sm90)} instantiations, registers "
-          f"{min(r for r, _ in sm90.values())}-{max(r for r, _ in sm90.values())}, "
-          f"max spill {fa_spill} B")
-    if len(sm90) != len(fa_mod.SM90_TILES) or fa_spill:
-        return fail(f"flash bf16: {len(sm90)} instantiations for {len(fa_mod.SM90_TILES)} "
-                    f"tiles, spill {fa_spill} B")
+    flash_tiles = {}  # dtype -> {(hd, block_q, block_kv): (registers, spill bytes)}
+    for dtype_name, stem, kernel, table in (
+            ("bf16", "flash_attention_sm90", "flash_fwd_sm90", fa_mod.SM90_TILES),
+            ("f32", "flash_attention", "flash_fwd_tf32x3", fa_mod.F32_TILES)):
+        log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
+        tiles = flash_tiles[dtype_name] = {}
+        for name, entry in ptxas_entries(log).items():
+            tile = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            if tile:
+                tiles[tuple(map(int, tile.groups()))] = entry
+        long_name = "bfloat16" if dtype_name == "bf16" else "float32"
+        for (hd, bq, bkv), (regs, spill) in sorted(tiles.items()):
+            print(f"[ptxas] flash {dtype_name} (hd={hd}, {bq}, {bkv}): {regs} registers, "
+                  f"{spill} B spilled, {fa_mod.ctas_per_sm(hd, bq, bkv, long_name)} CTAs/SM")
+        spill = max((s for _, s in tiles.values()), default=0)
+        print(f"[build] flash {dtype_name}: {len(tiles)} instantiations, registers "
+              f"{min(r for r, _ in tiles.values())}-{max(r for r, _ in tiles.values())}, "
+              f"max spill {spill} B")
+        if set(tiles) != set(table) or spill:
+            return fail(f"flash {dtype_name}: {len(tiles)} instantiations for {len(table)} "
+                        f"tiles, spill {spill} B")
+    sm90 = flash_tiles["bf16"]
+    fa_spill = max(s for tiles in flash_tiles.values() for _, s in tiles.values())
     scan_spill, scan_count = 0, 0
     for stem, kernel, knob in (("ssm_scan", "ssm_kernel", "states"),
                                ("rglru_scan", "rglru_kernel", "chunk/split")):
@@ -531,9 +543,11 @@ def run() -> int:
                 "rglru_scan": rg_mod.counter}
     # (key, kernel, args, plain out, dtype, tolerance): the scans' bf16 runs
     # after their f32 ones, each in a shape class of its own
+    qkv32, flash32_plain, flash32_times = flash_cases[("float32", 2048, 64)]
     paths = [
         ("exb", "exb", (inp,), exb_plain_out, "float32", None),
         ("flash_attention", "flash_attention", qkv, flash_plain, "bfloat16", None),
+        ("flash_attention f32", "flash_attention", qkv32, flash32_plain, "float32", None),
         ("stress", "stress", (st_inp,), st_plain_out, "float32", None),
     ]
     for name in ("ssm_scan", "rglru_scan"):
@@ -564,6 +578,9 @@ def run() -> int:
             errors.append(f"{name} B={ODD['B']}, S={ODD['S']}: same shape class as B=1")
     (exb_state, exb_tune_s, exb_recall_s), (fa_state, fa_tune_s, fa_recall_s) = (
         states["exb"], states["flash_attention"])
+    f32_state, f32_tune_s, f32_recall_s = states["flash_attention f32"]
+    if f32_state.bp.fingerprint() == fa_state.bp.fingerprint():
+        errors.append("flash_attention f32: same shape class as bf16")
 
     # flash at B=4: B·H = 128 is a shape class of its own, tuned and recalled
     qkv4 = fa_ref.make_inputs(gen, dtype=torch.bfloat16, device=device,
@@ -584,7 +601,7 @@ def run() -> int:
     if b4_state.bp.fingerprint() == fa_state.bp.fingerprint():
         errors.append(f"flash_attention B={FLASH_B}: same shape class as B=1")
 
-    # exb: staged winner against one exhaustive search (25 points)
+    # exb: staged winner against one exhaustive search (every emitted point)
     ex_db = str(Path(tmp) / "exhaustive_db.json")
     ex_op = autotuned("exb", db=TuningDB(ex_db), search=ExhaustiveSearch())
     ex_op(inp)
@@ -596,7 +613,8 @@ def run() -> int:
     print(f"[main] exb exhaustive: {ex_state.cost_evaluations} evaluations, winner "
           f"{ex_pt} {ex_ms:.4f} ms; staged winner {staged_pt} {staged_ms:.4f} ms; "
           f"staged within 5%: {within}")
-    swept = {"flash_attention": flash_times, "stress": st_times}
+    swept = {"flash_attention": flash_times, "flash_attention f32": flash32_times,
+             "stress": st_times}
     for name in ("ssm_scan", "rglru_scan"):
         swept[name] = scans[(name, "float32")][5]
         swept[f"{name} bf16"] = scans[(name, "bfloat16")][5]
@@ -611,6 +629,11 @@ def run() -> int:
               f"{times[pp_key(point)] <= 1.1 * times[fastest[name]]}")
     fa_pt = fa_state.region.selected
     fa_best = fastest["flash_attention"]
+    f32_pt, f32_best = f32_state.region.selected, fastest["flash_attention f32"]
+    if flash32_times[pp_key(f32_pt)] > 1.1 * flash32_times[f32_best]:
+        errors.append(f"flash_attention f32: staged winner {f32_pt} "
+                      f"{flash32_times[pp_key(f32_pt)]:.4f} ms, more than 10% over the "
+                      f"fastest swept {f32_best} {flash32_times[f32_best]:.4f} ms")
     if errors:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
@@ -625,8 +648,22 @@ def run() -> int:
     fa_flops = 4.0 * B * H * S * S * hd / 2  # causal: half the square
     fa_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     fa_bound = max(fa_flops / arch.peak_flops, fa_bytes / arch.hbm_bandwidth)
+    # f32: three TF32 products a multiply-add on the tensor cores
+    f32_ops, f32_bytes = 3 * fa_flops / arch.peak_flops_tf32, 2 * fa_bytes / arch.hbm_bandwidth
     q, k, v = qkv
     qt, kt, vt = (t.transpose(1, 2) for t in qkv)
+    # SDPA in f32 on its memory-efficient kernel (3xTF32 on sm80+), K and V
+    # expanded to the query heads before the timed call (enable_gqa may
+    # steer it to the math backend)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q32t = qkv32[0].transpose(1, 2)
+    k32t, v32t = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in qkv32[1:])
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        f32_library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            q32t, k32t, v32t, is_causal=True))
+    print(f"[library] flash f32: scaled_dot_product_attention on "
+          f"{SDPBackend.EFFICIENT_ATTENTION.name} {f32_library_ms:.4f} ms")
     kernels = [
         {
             "name": "exb", "route": "cuda", "source": "src/repro_torch/csrc/exb.cu",
@@ -664,6 +701,18 @@ def run() -> int:
             f"b{FLASH_B}_tuned_point": b4_pt, f"b{FLASH_B}_launches": b4_launches,
             f"b{FLASH_B}_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(*qkv4, **b4_pt)),
             f"b{FLASH_B}_tune_s": b4_tune_s, f"b{FLASH_B}_recall_s": b4_recall_s,
+            "f32_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(*qkv32, **f32_pt), reps=20),
+            "f32_bound_ms": max(f32_ops, f32_bytes) * 1e3,
+            "f32_bound_by": "operations (3xTF32)" if f32_ops >= f32_bytes else "bytes",
+            "f32_cuda_core_floor_ms": fa_flops / arch.peak_flops_fp32 * 1e3,
+            "f32_plain_ms": timer.ms(lambda: fa_mod.attention_plain(*qkv32), reps=5),
+            "f32_library_ms": f32_library_ms,
+            "f32_tuned_point": f32_pt, "f32_launches": launches["flash_attention f32"],
+            "f32_fastest_swept_point": json.loads(f32_best),
+            "f32_fastest_swept_ms": flash32_times[f32_best],
+            "f32_candidates": len(flash32_times),
+            "f32_instantiations": len(flash_tiles["f32"]),
+            "f32_tune_s": f32_tune_s, "f32_recall_s": f32_recall_s,
         },
     ]
     # stress and the scans: (name, source, TPU kernel, kernel, plain version, args,

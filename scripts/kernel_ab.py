@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare versions of the port's kernels on one CUDA card.
 
-    python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|ssm_scan|rglru_scan ...]
+    python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|flash_attention_f32|
+                                                     exb|ssm_scan|rglru_scan ...]
 
 Builds the ``repro_torch`` package under ``<src dir>`` (a copy of ``src/``
 whose ``csrc/*.cu`` may differ) into ``build/ab_<label>/``, prints each
@@ -14,12 +15,16 @@ median of 5).
 * ``flash_attention``: bf16 at tinyllama-1.1b width (B=1 and B=4, S=2048,
   32|4 heads, hd 64), with SDPA's time beside it, and at qwen3-0.6b width
   (B=1, S=2048, 16|8 heads, hd 128);
+* ``flash_attention_f32``: f32 at tinyllama-1.1b width (B=1, S=2048 and
+  S=2000), with the time of SDPA's memory-efficient kernel in f32 (K and V
+  expanded to the query heads) beside it;
+* ``exb``: the paper's GKV domain (16, 16, 128, 65), f32;
 * ``ssm_scan``: falcon-mamba-7b width (B=1, S=2048, D=8192, N=16), f32 and
   bf16;
 * ``rglru_scan``: recurrentgemma-2b width (B=1, S=2048, W=2560), f32 and
   bf16.
 
-With no kernel named, all three.  Run it once per version in one call on
+With no kernel named, all of them.  Run it once per version in one call on
 the card, in turns (A, B, B, A), and compare only within that call.
 """
 from __future__ import annotations
@@ -30,27 +35,55 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ("flash_attention", "ssm_scan", "rglru_scan")
-SOURCES = {"flash_attention": "flash_attention_sm90", "ssm_scan": "ssm_scan",
-           "rglru_scan": "rglru_scan"}
+KERNELS = ("flash_attention", "flash_attention_f32", "exb", "ssm_scan", "rglru_scan")
+SOURCES = {"flash_attention": "flash_attention_sm90", "flash_attention_f32": "flash_attention",
+           "exb": "exb", "ssm_scan": "ssm_scan", "rglru_scan": "rglru_scan"}
 
 
 def cases(torch, name, arch, gen, dev):
-    """(label, region, run, plain out, dtype, tolerance, counter) per shape."""
-    from chip_smoke import FLASH, FLASH_B, FLASH_HD128, RGLRU, SCAN_TOL, SSM
+    """(label, region, run, plain out, dtype, tolerance, counter, library
+    call or None) per shape."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from chip_smoke import EXB_DIMS, FLASH, FLASH_B, FLASH_HD128, RGLRU, SCAN_TOL, SSM
     from repro_torch.core import bucket_pow2
 
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref
 
-        for shape in (FLASH, dict(FLASH, B=FLASH_B), FLASH_HD128):
-            qkv = ref.make_inputs(gen, dtype=torch.bfloat16, device=dev, **shape)
-            region = ops.flash_region(shape["S"], shape["hd"], "bfloat16", arch=arch,
+        if name == "flash_attention":
+            shapes, dt_name = (FLASH, dict(FLASH, B=FLASH_B), FLASH_HD128), "bfloat16"
+        else:
+            shapes, dt_name = (FLASH, dict(FLASH, S=2000)), "float32"
+        for shape in shapes:
+            qkv = ref.make_inputs(gen, dtype=getattr(torch, dt_name), device=dev, **shape)
+            region = ops.flash_region(shape["S"], shape["hd"], dt_name, arch=arch,
                                       heads=bucket_pow2(shape["B"] * shape["H"]))
-            label = (f"flash bf16 ({shape['B']},{shape['S']},{shape['H']}|{shape['KV']},"
+            label = (f"flash {dt_name} ({shape['B']},{shape['S']},{shape['H']}|{shape['KV']},"
                      f"{shape['hd']})")
+            q, k, v = (t.transpose(1, 2) for t in qkv)
+            if dt_name == "bfloat16":
+                library = None if shape["hd"] != 64 else (
+                    lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True))
+            else:
+                rep = shape["H"] // shape["KV"]
+                k, v = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+
+                def library(q=q, k=k, v=v):
+                    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
             yield (label, region, lambda p, qkv=qkv: fa.flash_attention_cuda(*qkv, **p),
-                   (fa.attention_plain(*qkv),), "bfloat16", None, fa.counter)
+                   (fa.attention_plain(*qkv),), dt_name, None, fa.counter, library)
+        return
+    if name == "exb":
+        from repro_torch.kernels.exb import exb as mod, ops, ref
+
+        inp = ref.make_inputs(gen, dims=EXB_DIMS, device=dev)
+        yield ("exb f32 (16,16,128,65)", ops.exb_region(dims=EXB_DIMS, arch=arch),
+               lambda p: mod.exb_cuda(inp, **p), mod.exb_plain(inp), "float32", None,
+               mod.counter, None)
         return
     if name == "ssm_scan":
         from repro_torch.kernels.ssm_scan import ops, ref, ssm_scan as mod
@@ -75,14 +108,40 @@ def cases(torch, name, arch, gen, dev):
         args = cast(tuple(t.to(dtype) for t in f32))
         yield (f"{name} {dt_name} {shape}", region_of(dt_name),
                lambda p, args=args: kernel(*args, **p), (plain(*args),), dt_name, tol,
-               mod.counter)
+               mod.counter, None)
+
+
+def l2_states(torch, label, run, times, timer, arch, dev) -> None:
+    """The fastest swept point timed as the tuner times it (the L2 flushed
+    by zeroing twice its size, so it starts full of dirty lines), after a
+    flush that reads twice its size (clean lines), and warm (no flush)."""
+    import json
+
+    from repro_torch.core.cost import _timed
+
+    point = json.loads(min(times, key=times.get))
+    scratch = torch.empty(2 * arch.l2_bytes // 4, dtype=torch.int32, device=dev)
+    cycles = int(2e-4 * torch.cuda.get_device_properties(dev).clock_rate * 1e3)
+
+    def clean() -> None:
+        scratch.sum()
+        torch.cuda._sleep(cycles)
+
+    def median(prepare) -> float:
+        run(point)
+        torch.cuda.synchronize()
+        ms = sorted(_timed(lambda: run(point), prepare) for _ in range(10))
+        return ms[len(ms) // 2] * 1e3
+
+    warm = median(lambda: torch.cuda._sleep(cycles))
+    print(f"{label} L2 at {point}: dirty {timer.ms(lambda: run(point)):.4f} ms, "
+          f"clean {median(clean):.4f} ms, warm {warm:.4f} ms")
 
 
 def main(src: str, label: str, names) -> int:
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(ROOT / "build" / f"ab_{label}")
     sys.path[:0] = [str(Path(src).resolve()), str(ROOT)]
     import torch
-    import torch.nn.functional as F
 
     from chip_smoke import Timer, card_line, ptxas_entries, sweep
     from repro_torch.core import detect
@@ -106,15 +165,13 @@ def main(src: str, label: str, names) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     errors: list = []
     for name in names:
-        for case_label, region, run, plain_out, dtype, tol, counter in cases(
+        for case_label, region, run, plain_out, dtype, tol, counter, library in cases(
                 torch, name, arch, gen, dev):
-            sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype, timer,
-                  counter, errors, tol=tol)
-            if case_label.startswith("flash") and case_label.endswith(",64)"):
-                q, k, v = (t.transpose(1, 2) for t in run.__defaults__[0])
-                ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True))
-                print(f"{label} {case_label} sdpa {ms:.4f} ms")
+            times = sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
+                          timer, counter, errors, tol=tol)[2]
+            if library is not None:
+                print(f"{label} {case_label} sdpa {timer.ms(library):.4f} ms")
+            l2_states(torch, f"{label} {case_label}", run, times, timer, arch, dev)
     for e in errors:
         print(f"{label} WRONG {e}")
     print(f"{label} points off the plain version: {len(errors)}")

@@ -27,7 +27,7 @@ _PREFIX = "arch_"
 
 _FIELDS = (
     "name", "backend", "sm_count", "smem_per_block", "l2_bytes",
-    "hbm_bandwidth", "peak_flops", "peak_flops_fp32", "warp_size",
+    "hbm_bandwidth", "peak_flops", "peak_flops_tf32", "peak_flops_fp32", "warp_size",
     "mma_edge", "wave_overhead_s",
 )
 
@@ -40,7 +40,8 @@ class ArchSpec:
     (``cudaDevAttrMaxSharedMemoryPerBlockOptin``); :meth:`vmem_budget`
     returns it whole, because the kernels' ``vmem_model`` counts their real
     shared-memory bytes.  ``peak_flops`` is the dense bf16 tensor-core rate,
-    ``peak_flops_fp32`` the float32 rate outside the tensor cores.
+    ``peak_flops_tf32`` the dense TF32 tensor-core rate, ``peak_flops_fp32``
+    the float32 rate outside the tensor cores.
     ``wave_overhead_s`` is the fixed cost of one wave of CTAs over the SMs.
     """
 
@@ -51,6 +52,7 @@ class ArchSpec:
     l2_bytes: int = 50 * 2**20
     hbm_bandwidth: float = 3.35e12      # bytes/s
     peak_flops: float = 989e12          # bf16 dense, tensor cores
+    peak_flops_tf32: float = 495e12     # TF32 dense, tensor cores
     peak_flops_fp32: float = 67e12      # float32, CUDA cores
     warp_size: int = 32
     mma_edge: int = 16                  # smallest tensor-core fragment edge
@@ -81,16 +83,16 @@ class ArchSpec:
 
 
 # Datasheet rows (NVIDIA H100/H200 data sheets, dense rates): memory
-# bandwidth, bf16 tensor-core peak, float32 peak, opt-in shared memory per
-# block.  Matched by substring of the lower-cased device name, first hit wins.
+# bandwidth, bf16 and TF32 tensor-core peaks, float32 peak, opt-in shared
+# memory per block.  Matched by substring of the lower-cased device name, first hit wins.
 _DATASHEET: Tuple[Tuple[Tuple[str, ...], Dict[str, Any]], ...] = (
-    (("h100", "pcie"), dict(hbm_bandwidth=2.0e12, peak_flops=756e12,
+    (("h100", "pcie"), dict(hbm_bandwidth=2.0e12, peak_flops=756e12, peak_flops_tf32=378e12,
                             peak_flops_fp32=51e12, smem_per_block=232_448)),
-    (("h100", "nvl"), dict(hbm_bandwidth=3.9e12, peak_flops=835e12,
+    (("h100", "nvl"), dict(hbm_bandwidth=3.9e12, peak_flops=835e12, peak_flops_tf32=417.5e12,
                            peak_flops_fp32=60e12, smem_per_block=232_448)),
-    (("h100",), dict(hbm_bandwidth=3.35e12, peak_flops=989e12,
+    (("h100",), dict(hbm_bandwidth=3.35e12, peak_flops=989e12, peak_flops_tf32=495e12,
                      peak_flops_fp32=67e12, smem_per_block=232_448)),
-    (("h200",), dict(hbm_bandwidth=4.8e12, peak_flops=989e12,
+    (("h200",), dict(hbm_bandwidth=4.8e12, peak_flops=989e12, peak_flops_tf32=495e12,
                      peak_flops_fp32=67e12, smem_per_block=232_448)),
 )
 

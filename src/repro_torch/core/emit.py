@@ -15,7 +15,10 @@ Hopper meanings (the JAX package's floors are TPU lane/sublane shapes):
 * a "sequential" dim is a loop *inside* one CTA (Hopper has no ordered
   grid axis to carry state on), so it ladders from a warp's width and
   adds no CTAs;
-* a "grid" dim only splits the CTA count (any size works).
+* a "grid" dim only splits the CTA count (any size works);
+* a "pieces" dim is not a tile but a count: the extent is cut into that
+  many contiguous pieces, one CTA each, so the CTA count is multiplied by
+  the value itself and nothing is padded.
 
 A dim's ``max_tile`` caps its ladder where the kernel maps the tile onto
 threads (at most 1024 a CTA), a dim with ``pow2_only`` ladders over
@@ -49,7 +52,7 @@ from .params import EmptySpace, ParamSpace, PerfParam, pp_key
 
 
 # Dimension semantics → the smallest tile worth emitting (module docstring).
-_SEMANTICS = ("lane", "sequential", "grid")
+_SEMANTICS = ("lane", "sequential", "grid", "pieces")
 
 
 @dataclass(frozen=True)
@@ -159,7 +162,7 @@ def _pad_factor(dims: Sequence[TileDim], point: Mapping[str, Any]) -> float:
     """Compute/traffic inflation from tiling past the array edge."""
     factor = 1.0
     for d in dims:
-        if d.name not in point:
+        if d.name not in point or d.semantic == "pieces":
             continue
         tile = int(point[d.name])
         padded = -(-d.extent // tile) * tile
@@ -168,10 +171,15 @@ def _pad_factor(dims: Sequence[TileDim], point: Mapping[str, Any]) -> float:
 
 
 def _programs(dims: Sequence[TileDim], point: Mapping[str, Any]) -> int:
-    """CTAs one call launches; "sequential" dims loop inside a CTA."""
+    """CTAs one call launches; "sequential" dims loop inside a CTA, a
+    "pieces" dim's value is its CTAs."""
     n = 1
     for d in dims:
-        if d.name in point and d.semantic != "sequential":
+        if d.name not in point or d.semantic == "sequential":
+            continue
+        if d.semantic == "pieces":
+            n *= int(point[d.name])
+        else:
             n *= -(-d.extent // int(point[d.name]))
     return n
 

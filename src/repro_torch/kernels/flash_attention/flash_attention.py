@@ -12,8 +12,10 @@ not divide instead of padding it in memory:
 * bfloat16: ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores
   with TMA loads into a 2-stage ring.  Its tiles are compile-time: only
   the (hd, block_q, block_kv) in :data:`SM90_TILES` launch.
-* float32: ``csrc/flash_attention.cu``, FMAs on the CUDA cores.  Any
-  positive tile whose shared memory fits the card's opt-in limit.
+* float32: ``csrc/flash_attention.cu``, ``mma.sync`` on the tensor cores
+  in 3xTF32 (each product split into a TF32 high part and the rest, three
+  TF32 products, so float32 accuracy holds) with ``cp.async`` loads into a
+  2-stage ring.  Its tiles are compile-time too: :data:`F32_TILES`.
 """
 from __future__ import annotations
 
@@ -56,18 +58,33 @@ SM90_TILES = frozenset(
     if bkv <= sm90_max_block_kv(hd)
 )
 
+# The float32 kernel's instantiations (FLASH_F32_TILES in the source): a
+# warp owns 16 query rows, so block_q is 16 x its warps; block_kv is the
+# keys of one ring stage, at most 64 at hd 128, where two stages of 128
+# keys would not fit the shared memory.
+F32_BLOCK_Q = (64, 128)
+F32_BLOCK_KV = (32, 64, 128)
+
+
+def f32_max_block_kv(hd: int) -> int:
+    return 64 if hd == 128 else 128
+
+
+F32_TILES = frozenset(
+    (hd, bq, bkv) for hd in HEAD_DIMS for bq in F32_BLOCK_Q for bkv in F32_BLOCK_KV
+    if bkv <= f32_max_block_kv(hd)
+)
+
 
 def smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
-    """Dynamic shared memory of one CTA (``smem_bytes``/``Tile::kSmem`` in
-    the sources).  float32: f32 scores, accumulator and m/l/alpha, then the
-    q, k and v tiles with one extra 32-bit word per row.  bf16: 1 KiB to
-    align the swizzled tiles, the q tile, two stages of k and v tiles, and
-    64 bytes of barriers."""
+    """Dynamic shared memory of one CTA (``Tile::kSmem`` in the sources).
+    float32: the q tile and two stages of a k tile (rows padded by 8
+    floats) and a v tile (rows padded by 4).  bf16: 1 KiB to align the
+    swizzled tiles, the q tile, two stages of k and v tiles, and 64 bytes
+    of barriers."""
     if elt == 2:
         return 1024 + 2 * hd * (block_q + 4 * block_kv) + 64
-    floats = block_q * block_kv + block_q * hd + 3 * block_q
-    ld = hd + 4 // elt
-    return 4 * floats + elt * (block_q + 2 * block_kv) * ld
+    return 4 * (block_q * (hd + 8) + 2 * block_kv * ((hd + 8) + (hd + 4)))
 
 
 def _check(q, k, v, block_q: int, block_kv: int):
@@ -103,14 +120,15 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
-    if q.dtype == torch.bfloat16:
-        if (hd, block_q, block_kv) not in SM90_TILES:
-            raise ValueError(
-                f"flash_attention_cuda: bf16 tile (hd={hd}, {block_q}, {block_kv}) "
-                f"is not instantiated"
-            )
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("flash_attention_cuda: TMA needs 16-byte aligned q, k, v")
+    tiles = SM90_TILES if q.dtype == torch.bfloat16 else F32_TILES
+    if (hd, block_q, block_kv) not in tiles:
+        raise ValueError(
+            f"flash_attention_cuda: {q.dtype} tile (hd={hd}, {block_q}, {block_kv}) "
+            f"is not instantiated"
+        )
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: the 16-byte loads need 16-byte aligned "
+                         "q, k, v")
     smem = smem_bytes(block_q, block_kv, hd, q.element_size())
     limit = smem_optin(q.device)
     if smem > limit:
@@ -166,30 +184,30 @@ def smem_optin(device="cuda") -> int:
 
 
 _CTAS = {}
+_CTAS_ENTRY = {"bfloat16": ("flash_attention_sm90", "flash_attention_sm90_ctas_per_sm"),
+               "float32": ("flash_attention", "flash_attention_ctas_per_sm")}
 
 
-def sm90_ctas_per_sm(hd: int, block_q: int, block_kv: int) -> int:
-    """CTAs of a bf16 tile one SM of the current card holds at once, as
-    CUDA's occupancy calculator counts them from the compiled kernel's
-    registers, shared memory and threads
+def ctas_per_sm(hd: int, block_q: int, block_kv: int, dtype: str = "bfloat16") -> int:
+    """CTAs of a tile one SM of the current card holds at once, as CUDA's
+    occupancy calculator counts them from the compiled kernel's registers,
+    shared memory and threads
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; builds the
     kernels)."""
-    key = (torch.cuda.current_device(), hd, block_q, block_kv)
+    key = (torch.cuda.current_device(), dtype, hd, block_q, block_kv)
     if key not in _CTAS:
-        fn = _build.function("flash_attention_sm90", "flash_attention_sm90_ctas_per_sm",
-                             [ctypes.c_int] * 3)
-        n = int(fn(hd, block_q, block_kv))
+        lib, entry = _CTAS_ENTRY[dtype]
+        n = int(_build.function(lib, entry, [ctypes.c_int] * 3)(hd, block_q, block_kv))
         if n < 1:
-            raise RuntimeError(f"flash_attention_sm90_ctas_per_sm({hd}, {block_q}, "
-                               f"{block_kv}) returned {n}")
+            raise RuntimeError(f"{entry}({hd}, {block_q}, {block_kv}) returned {n}")
         _CTAS[key] = n
     return _CTAS[key]
 
 
 def smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
     """What the compiled source computes for :func:`smem_bytes` (a check
-    that the Python model is the kernel's real footprint); -1 for a bf16
-    tile that is not instantiated."""
+    that the Python model is the kernel's real footprint); -1 for a tile
+    that is not instantiated."""
     if dtype == torch.bfloat16:
         fn = _build.function("flash_attention_sm90", "flash_attention_sm90_smem_bytes",
                              [ctypes.c_int] * 3, ctypes.c_longlong)

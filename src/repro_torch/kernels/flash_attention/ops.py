@@ -15,9 +15,10 @@ shared-memory bytes fit the card's opt-in limit.
   the warpgroups it holds at once (CUDA's occupancy of the compiled tile
   on the card; without the card, the bound shared memory and threads
   give).
-* float32 (the CUDA-core kernel): ``block_q`` ladders from the tensor-core
-  fragment edge, ``block_kv`` from 16, any size that fits; flops at the
-  float32 CUDA-core rate.
+* float32 (the 3xTF32 ``mma.sync`` kernel): the instantiated tiles and no
+  others, ``block_q`` 64 or 128 (16 rows a warp), ``block_kv`` from 32 to
+  128 (64 at hd 128).  Each multiply-add is three TF32 products, so its
+  flops are charged at a third of the TF32 tensor-core rate.
 
 The shape class keeps a power-of-two bucket of B·H (the JAX package drops
 it): the card runs one CTA per (q block, head, batch), so the hint's CTA
@@ -34,8 +35,8 @@ from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_ker
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .flash_attention import (
-    SM90_BLOCK_KV, SM90_BLOCK_Q, flash_attention, sm90_ctas_per_sm, sm90_max_block_kv,
-    smem_bytes,
+    F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, ctas_per_sm, f32_max_block_kv,
+    flash_attention, sm90_max_block_kv, smem_bytes,
 )
 from .ref import attention_ref
 
@@ -54,18 +55,14 @@ def _keys_visited(seq: int, bq: int, bkv: int) -> int:
 def _traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
     """(flops, bytes) of the whole call, all ``heads`` (batch × query
     heads) — ranking only.  Flops count the causal blocks the kernel
-    visits, tail padding included.  bf16 bytes count q and o once, and K
-    and V once per query head: the CTAs of one head run together (q blocks
-    are the grid's fastest axis), so later q blocks re-read its K and V
-    from the L2, not device memory.  float32 bytes still count a K and V
-    read from device memory per q block, as the float32 kernel's first
-    model did, which keeps its space in the order it was measured in."""
+    visits, tail padding included.  Bytes count q and o once, and K and V
+    once per query head: the CTAs of one head run together (q blocks are
+    the grid's fastest axis), so later q blocks re-read its K and V from
+    the L2, not device memory."""
     s, hd, elt = bp["seq"], bp["hd"], _ELT.get(bp["dtype"], 4)
     bq, bkv = point["block_q"], point["block_kv"]
-    keys = _keys_visited(s, bq, bkv)
-    flops = 4.0 * hd * bq * keys
-    kv_reads = s if bp["dtype"] == "bfloat16" else keys
-    bytes_ = elt * (2.0 * s * hd + 2.0 * kv_reads * hd)
+    flops = 4.0 * hd * bq * _keys_visited(s, bq, bkv)
+    bytes_ = elt * (2.0 * s * hd + 2.0 * s * hd)
     return bp["heads"] * flops, bp["heads"] * bytes_
 
 
@@ -90,7 +87,7 @@ def _warpgroup_trips(seq: int, bq: int, bkv: int):
 
 def _ctas_per_sm(arch: ArchSpec, hd: int, bq: int, bkv: int) -> int:
     if arch.backend == "cuda" and torch.cuda.is_available():
-        return sm90_ctas_per_sm(hd, bq, bkv)
+        return ctas_per_sm(hd, bq, bkv)
     # without the card: the bound the SM's 228 KiB of shared memory (1 KiB
     # reserved a CTA) and its 2048 threads give; registers, which the
     # compiled tile alone knows, may bind first
@@ -112,17 +109,14 @@ def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) ->
 
 def _dims(bp: Mapping[str, Any]):
     if bp["dtype"] == "bfloat16":
-        return (
-            TileDim("block_q", bp["seq"], semantic="lane", min_tile=SM90_BLOCK_Q[0],
-                    max_tile=SM90_BLOCK_Q[-1], allow_padding=True, pow2_only=True),
-            TileDim("block_kv", bp["seq"], semantic="sequential",
-                    min_tile=SM90_BLOCK_KV[0], max_tile=sm90_max_block_kv(bp["hd"]),
-                    allow_padding=True, pow2_only=True),
-        )
+        block_q, block_kv, max_kv = SM90_BLOCK_Q, SM90_BLOCK_KV, sm90_max_block_kv(bp["hd"])
+    else:
+        block_q, block_kv, max_kv = F32_BLOCK_Q, F32_BLOCK_KV, f32_max_block_kv(bp["hd"])
     return (
-        TileDim("block_q", bp["seq"], semantic="lane", allow_padding=True),
-        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=16,
-                allow_padding=True),
+        TileDim("block_q", bp["seq"], semantic="lane", min_tile=block_q[0],
+                max_tile=block_q[-1], allow_padding=True, pow2_only=True),
+        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=block_kv[0],
+                max_tile=max_kv, allow_padding=True, pow2_only=True),
     )
 
 
@@ -134,8 +128,9 @@ FLASH_POLICY = TilePolicy(
     ),
     traffic_model=_traffic,
     grid_multiplier=lambda bp: bp["heads"],
+    # 3xTF32: three TF32 products for every float32 multiply-add
     flop_rate=lambda arch, bp: (
-        arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_fp32
+        arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_tf32 / 3
     ),
     latency_model=_latency,
 )

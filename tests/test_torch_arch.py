@@ -79,18 +79,19 @@ def test_signature_names_the_arch():
 
 
 def test_flash_space_is_what_the_kernel_takes():
-    """float32: tiles ladder from the tensor-core edge, block_kv adds no
-    CTAs, and a padded sequence keeps its non-dividing pow2 tiles.  bf16:
-    the wgmma kernel's instantiated tiles, block_q from a warpgroup's 64
-    rows, also past a sequence they do not divide."""
+    """float32: the 3xTF32 kernel's instantiated tiles, block_q from four
+    warps of 16 rows, block_kv adding no CTAs, also past a sequence they do
+    not divide.  bf16: the wgmma kernel's instantiated tiles, block_q from
+    a warpgroup's 64 rows, also past a sequence they do not divide."""
     region = SPACES["flash_padded_f32"](SXM)
     pts = list(region.space.points())
-    assert min(p["block_q"] for p in pts) == 16
-    assert {p["block_kv"] for p in pts} >= {16, 32, 64}
+    assert {p["block_q"] for p in pts} == {64, 128}
+    assert {p["block_kv"] for p in pts} == {32, 64, 128}
     for p in pts:
         h = region.hints[pp_key(p)]
         assert h["programs"] == -(-2000 // p["block_q"])
         assert h["vmem_bytes"] == fa_ops.smem_bytes(p["block_q"], p["block_kv"], 64, 4)
+        assert (64, p["block_q"], p["block_kv"]) in fa_mod.F32_TILES
     # the full extents are too large for one CTA's shared memory
     assert all(p["block_q"] < 2000 and p["block_kv"] < 2000 for p in pts)
 
@@ -107,10 +108,18 @@ def test_flash_space_is_what_the_kernel_takes():
 
 @pytest.mark.parametrize("arch", [SXM, PCIE], ids=["sxm", "pcie"])
 def test_exb_hint_ranks_for_the_sms(arch):
+    """Every (block_iv, block_iz) of the paper's grain, with split from 1
+    to 32 (a piece keeps 64 of the plane's 2080 float4s) while the call
+    launches at most 8 CTAs an SM."""
     region = SPACES["exb"](arch)
     ranked = list(region.space.points())
-    assert len(ranked) == 25
-    assert ranked[-1] == {"block_iv": 16, "block_iz": 16}
+    tiles = (1, 2, 4, 8, 16)
+    assert sorted(pp_key(p) for p in ranked) == sorted(
+        pp_key({"block_iv": biv, "block_iz": biz, "split": s})
+        for biv in tiles for biz in tiles for s in (1, 2, 4, 8, 16, 32)
+        if s == 1 or (16 // biv) * (16 // biz) * s <= 8 * arch.sm_count)
+    assert len(ranked) == {132: 140, 114: 130}[arch.sm_count]
+    assert ranked[-1] == {"block_iv": 16, "block_iz": 16, "split": 1}
     top = ranked[: default_prescreen_k(len(ranked))]
     programs = [region.hints[pp_key(p)]["programs"] for p in top]
     assert max(programs) >= 64

@@ -1,13 +1,14 @@
-"""The bf16 flash attention kernel for Hopper, as far as the CPU can see it.
+"""The flash attention kernels for Hopper, as far as the CPU can see them.
 
-The kernel (``csrc/flash_attention_sm90.cu``: wgmma, TMA ring) runs only on
-the card, where ``chip_smoke.py`` holds every emitted point against the
-plain version.  Here: the bf16 space is exactly the instantiated tiles, the
-float32 space is what it was before the bf16 kernel existed, the hints
-count B·H and charge each dtype's flops at the rate of the units that do
-them, the shape class buckets B·H, and the plain versions agree with the
-JAX kernel (Pallas in interpret mode) at the new tiles within
-``DEFAULT_TOL`` (``tests/conformance.py``).
+The kernels (``csrc/flash_attention_sm90.cu``: bf16, wgmma, TMA ring;
+``csrc/flash_attention.cu``: f32, 3xTF32 mma.sync) run only on the card,
+where ``chip_smoke.py`` holds every emitted point against the plain
+version.  Here: the bf16 space is exactly the instantiated tiles, the
+float32 space is exactly its kernel's instantiated tiles, the hints count
+B·H and charge each dtype's flops at the rate of the units that do them,
+the shape class buckets B·H, and the plain versions agree with the JAX
+kernel (Pallas in interpret mode) at the new tiles within ``DEFAULT_TOL``
+(``tests/conformance.py``).
 """
 from __future__ import annotations
 
@@ -73,22 +74,24 @@ def test_short_sequences_keep_instantiated_tiles(S, expected):
     assert {(p["block_q"], p["block_kv"]) for p in region.space.points()} == expected
 
 
-# The float32 space at the parent commit (S=2048, hd=64, SXM), in its hint
-# order; B·H = 1 gives the hint it had then.
-F32_POINTS = [
-    (16, 16), (16, 32), (32, 16), (32, 32), (16, 64), (32, 64), (16, 128),
-    (32, 128), (16, 256), (32, 256), (64, 16), (64, 32), (64, 64), (64, 128),
-    (64, 256), (128, 128), (128, 16), (128, 32), (128, 64), (256, 16), (256, 32),
-]
+# The float32 space (S=2048, hd=64, SXM): the 3xTF32 kernel's instantiated
+# tiles at hd 64, in the hint's order at B·H = 1 (one CTA row of q blocks:
+# 64-row blocks fill more SMs) and at B·H = 32 (every point fills the card:
+# 128-row blocks launch fewer waves).
+F32_POINTS = {
+    1: [(64, 32), (64, 64), (64, 128), (128, 128), (128, 32), (128, 64)],
+    32: [(128, 128), (128, 32), (128, 64), (64, 32), (64, 64), (64, 128)],
+}
 
 
 @pytest.mark.parametrize("heads", [1, 32])
 def test_f32_space_is_unchanged(heads):
+    """The space is the instantiated set and no other (it replaced the
+    CUDA-core kernel's 21 runtime tiles)."""
     region = fa_ops.flash_region(2048, 64, "float32", arch=SXM, heads=heads)
     points = [(p["block_q"], p["block_kv"]) for p in region.space.points()]
-    assert sorted(points) == sorted(F32_POINTS)
-    if heads == 1:
-        assert points == F32_POINTS
+    assert set(points) == {(bq, bkv) for hd, bq, bkv in fa_mod.F32_TILES if hd == 64}
+    assert points == F32_POINTS[heads]
 
 
 def _hand_hint(arch, S, hd, heads, dtype, bq, bkv):
@@ -101,16 +104,16 @@ def _hand_hint(arch, S, hd, heads, dtype, bq, bkv):
         for w in range(bq // 64):  # blocks wholly above a warpgroup's rows are skipped
             trips += min(nkv, (q0 + 64 * w + 63) // bkv + 1)
     flops = heads * 4.0 * hd * bq * keys
+    elt = 2 if dtype == "bfloat16" else 4
+    bytes_ = heads * elt * (2.0 * S * hd + 2.0 * S * hd)  # K/V re-reads hit the L2
     if dtype == "bfloat16":
         rate = arch.peak_flops
-        bytes_ = heads * 2 * (2.0 * S * hd + 2.0 * S * hd)  # K/V re-reads hit the L2
         smem = 1024 + 2 * hd * (bq + 4 * bkv) + 64
         ctas = max(1, min((arch.smem_per_block + 1024) // (smem + 1024), 2048 // (2 * bq)))
         latency = fa_ops.TRIP_S * max(heads * trips / (arch.sm_count * ctas * bq // 64),
                                       longest)
     else:
-        rate = arch.peak_flops_fp32
-        bytes_ = heads * 4 * (2.0 * S * hd + 2.0 * keys * hd)
+        rate = arch.peak_flops_tf32 / 3  # 3xTF32: three TF32 products a multiply-add
         latency = 0.0
     pad = (math.ceil(S / bq) * bq / S) * (math.ceil(S / bkv) * bkv / S)
     programs = math.ceil(S / bq) * heads

@@ -132,17 +132,18 @@ def test_every_emitted_point_passes_the_wrapper_checks(space):
     if space == "exb":
         region = exb_ops.exb_region(dims=EXB_DIMS)
         inp = carry.exb_inputs(exb_numpy(seed=8), device="cpu")
-        assert region.space.size() == 9
+        assert region.space.size() == 9  # a 144-float plane: one piece
         for point in region.space.points():
-            exb_mod._check_inputs(inp, point["block_iv"], point["block_iz"])
+            exb_mod._check_inputs(inp, point["block_iv"], point["block_iz"], point["split"])
         return
     S = int(space.split("S")[1])
     q, k, v = carry.attention_inputs(*qkv_numpy(seed=9, S=S), device="cpu")
     region = fa_ops.flash_region(S, 16)
-    assert {p["block_q"] for p in region.space.points()} >= {16, 32, 64}
+    assert {p["block_q"] for p in region.space.points()} == set(fa_mod.F32_BLOCK_Q)
     for point in region.space.points():
         bq, bkv = point["block_q"], point["block_kv"]
         fa_mod._check(q, k, v, bq, bkv)
+        assert (16, bq, bkv) in fa_mod.F32_TILES
         assert fa_mod.smem_bytes(bq, bkv, 16, 4) <= region.arch.smem_per_block
 
 
