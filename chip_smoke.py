@@ -19,7 +19,13 @@ runs for all five ported kernels at real sizes:
 * ``ssm_scan`` at falcon-mamba-7b width (d_inner 8192, ssm_state 16), B=1,
   S=2048, f32, then bf16 (its own shape class), then f32 at B=4, S=2047;
 * ``rglru_scan`` at recurrentgemma-2b width (lru_width 2560), B=1, S=2048,
-  f32, then bf16 (its own shape class), then f32 at B=4, S=2047.
+  f32, then bf16 (its own shape class), then f32 at B=4, S=2047;
+* flash again at recurrentgemma-2b's head dim 256 (10 query heads, 1 KV
+  head), bf16 (its own shape class);
+* the paper's apps on the loop-nest kernel: the GKV region (10 loop
+  variants × 9 degrees at (16, 16, 128, 65)) tuned through the Tuner and
+  recalled from its TuningDB, the Seism3D region at 256³ likewise, and the
+  Fig. 12 degree switch on it.
 
 Phases, each of which fails the run:
 
@@ -35,6 +41,15 @@ Phases, each of which fails the run:
    the stated tolerance; the scans also at S=1 and S=7 on narrow widths,
    every emitted point and a few more (a CTA of less than a warp, bf16 rows
    of an odd length), in f32 and bf16;
+3a. flash head dims: every emitted point in both dtypes at hd 80
+   (microsoft/phi-2's shape: 32|32 heads), hd 64 at the same heads (what
+   the hd-128 tile costs hd 80) and hd 256 (recurrentgemma-2b: 10|1
+   heads), S=2048; one non-causal call a dtype at hd 64;
+3b. ``ssm_scan`` state sizes: every emitted point at N = 12 and 64 (D=8192,
+   S=2048) in f32 and bf16, and at N = 256 on a narrow width;
+3c. the apps: every (variant, degree) of GKV (10 × 9) and of Seism3D at
+   64³ and 256³ (6 × 9 each) against the plain body on the card, each call
+   timed once;
 4. main path, per kernel: every launch count reset, a cold tune
    (evaluations > 0), a fresh op on the same DB file recalling with 0
    evaluations and two fast-path calls; the counts read at once: the
@@ -45,7 +60,12 @@ Phases, each of which fails the run:
    scan once more in bf16 and in f32 at B=4, S=2047, each of which must
    tune a shape class of its own and recall it (at B=4, S=2047 the staged
    winner's time is set beside the fastest swept point's: a check of the
-   hint away from the shape its constants were fitted at).
+   hint away from the shape its constants were fitted at); flash at hd 256
+   in bf16 tuned and recalled; then the apps: the GKV and Seism3D regions
+   tuned cold through the Tuner (the GKV one as Figs. 13–14), recalled
+   from a fresh TuningDB with no measurement, the recalled point run and
+   checked, and Fig. 12 (a DegreeController switch a call) at 256³; the
+   ``[fig11]``..``[fig14]`` lines set each figure beside the paper's.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -55,7 +75,11 @@ the f32 kernel's (``f32_*``: 3xTF32 operations over the TF32 rate, SDPA's
 memory-efficient kernel in f32 as the library call); the scans' entries
 also give their bf16 time, bound and tuned point, their B=4, S=2047
 tuned point and time beside the fastest swept one (``b4_s2047_*``), and
-``ssm_scan`` its SFU floor (one exp per (t, d, n) at 16 a clock per SM).  The last line is
+``ssm_scan`` its SFU floor (one exp per (t, d, n) at 16 a clock per SM);
+flash's and ``ssm_scan``'s also give their times at the new head dims and
+state sizes beside their bounds; ``loop_nest_gkv`` and
+``loop_nest_seism3d`` give the tuned point's time, its outer launches and
+CTAs, and the bound of the domain's bytes.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -91,11 +115,18 @@ FLASH = dict(B=1, S=2048, H=32, KV=4, hd=64)
 # qwen3-0.6b: 16 query heads, 8 KV heads, head_dim 128 (two TMA boxes a row)
 FLASH_HD128 = dict(B=1, S=2048, H=16, KV=8, hd=128)
 FLASH_B = 4  # the B·H phase: B·H = 128
+# head dims the kernels run on a larger tile: microsoft/phi-2 (32|32 heads,
+# head_dim 80; its shape only), and recurrentgemma-2b (10|1 heads, 256)
+FLASH_HD80 = dict(B=1, S=2048, H=32, KV=32, hd=80)
+FLASH_HD256 = dict(B=1, S=2048, H=10, KV=1, hd=256)
 # one card's subdomain of the Seism3D FDM grid: 23 fields of 64 MiB, 30x the L2
 STRESS_DIMS = (256, 256, 256)
 # falcon-mamba-7b (d_inner, ssm_state) and recurrentgemma-2b (lru_width)
 SSM = dict(B=1, S=2048, D=8192, N=16)
 RGLRU = dict(B=1, S=2048, W=2560)
+# state sizes that are no power of two or past 32, at falcon-mamba-7b width
+SSM_STATES = (12, 64)
+SSM_N256 = dict(B=1, S=64, D=64, N=256)
 # the scans' second shape: a batch, and a length that no chunk divides
 ODD = dict(B=4, S=2047)
 # narrow shapes at S = 1 (decode) and 7, with points the emitted spaces
@@ -167,12 +198,20 @@ def outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
+def as_real(torch, t):
+    """A tensor in float32; a complex one as its (re, im) pairs along the
+    last axis, so a row is one line of both parts."""
+    if t.is_complex():
+        return torch.view_as_real(t).flatten(-2)
+    return t.float()
+
+
 def max_err(torch, out, ref, dtype: str, tol=None):
     """(max abs error, worst row error ratio, list of the checks failed)."""
     rtol, atol = tol or TOL[dtype]
     worst, worst_row, failed = 0.0, 0.0, []
     for o, r in zip(out, ref):
-        o, r = o.float(), r.float()
+        o, r = as_real(torch, o), as_real(torch, r)
         if o.shape != r.shape or not bool(torch.isfinite(o).all()):
             return math.inf, math.inf, ["shape/finite"]
         diff = (o - r).abs()
@@ -235,6 +274,55 @@ def check_points(torch, label, points, run, plain_out, dtype, counter, errors, t
     return worst, worst_row
 
 
+def check_ssm_smem(ssm_mod, region, N, dtype, optin, errors):
+    """Each point's shared memory: the Python model against the compiled
+    source's, within the card's limit, and its threads within the launch
+    bound."""
+    elt = ssm_mod.DTYPES[dtype]
+    for point in region.space.points():
+        model = ssm_mod.smem_bytes(point["block_d"], point["chunk"], N, elt)
+        native = ssm_mod.smem_bytes_native(point["block_d"], point["chunk"], N, elt)
+        threads = point["block_d"] * ssm_mod.pad_states(N) // point["states"]
+        if (model != native or model > optin
+                or threads > ssm_mod.max_threads_native(point["states"])):
+            errors.append(f"ssm_scan N={N} {dtype} {point}: smem model {model}, kernel "
+                          f"{native}, limit {optin}; {threads} threads")
+
+
+def sweep_once(torch, label, region, run, plain_out, timer, counter, errors):
+    """Launch every point of ``region`` once, timed (L2 flushed, CUDA events
+    around the call) and held against the plain version in float32;
+    returns (max error, worst row error, {pp_key: ms})."""
+    from repro_torch.core import pp_key
+    from repro_torch.core.cost import _timed
+
+    before = counter.launches
+    worst, worst_row, times = 0.0, 0.0, {}
+    points = list(region.space.points())
+    for point in points:
+        got = []
+
+        def call(point=point):
+            got.append(run(point))
+            return got[-1]
+
+        times[pp_key(point)] = _timed(call, timer.flush) * 1e3
+        err, row, failed = max_err(torch, outputs(got[-1]), plain_out, "float32")
+        worst, worst_row = max(worst, err), max(worst_row, row)
+        if failed:
+            errors.append(f"{label} {point}: max abs error {err}, row error {row}; "
+                          f"failed {failed}")
+    if counter.launches - before < len(points):
+        errors.append(f"{label}: {counter.launches - before} launches for {len(points)} points")
+    best = min(times, key=times.get)
+    print(f"[kernel] {label}: {len(points)} candidates, max abs err {worst:.3e} "
+          f"(tol {TOL['float32']}), row error {worst_row:.3e}, fastest {best} "
+          f"{times[best]:.4f} ms")
+    print(f"[sweep] {label}: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
+    return worst, worst_row, times
+
+
 def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
     """Cold tune, fresh-op recall, fast path; returns the cold op's state
     and the host seconds of the cold call and of the recalling call."""
@@ -280,6 +368,7 @@ def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
 
 
 def run() -> int:
+    started = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         return fail(f"the repository's src/repro_torch is not beside {__file__}")
     try:
@@ -307,6 +396,9 @@ def run() -> int:
     )
     from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_mod
     from repro_torch.kernels.stress import ops as st_ops, ref as st_ref, stress as st_mod
+    from repro_torch.apps import degrees as app_degrees, gkv, paper_figures, seism3d
+    from repro_torch.core import ExchangeVariant, launch_shape
+    from repro_torch.kernels.loop_nest import loop_nest as ln_mod
 
     card = card_line()
     print(card)
@@ -340,10 +432,15 @@ def run() -> int:
         for (hd, bq, bkv), (regs, spill) in sorted(tiles.items()):
             print(f"[ptxas] flash {dtype_name} (hd={hd}, {bq}, {bkv}): {regs} registers, "
                   f"{spill} B spilled, {fa_mod.ctas_per_sm(hd, bq, bkv, long_name)} CTAs/SM")
-        spill = max((s for _, s in tiles.values()), default=0)
+        for line in log.splitlines():
+            if "Performance" in line:
+                print(f"[ptxas] flash {dtype_name}: {line.strip()}")
+        # the hd-256 tiles keep their spills, if any, printed here and in PERF.md
+        spill = max((s for t, (_, s) in tiles.items() if t[0] != 256), default=0)
+        spill256 = max((s for t, (_, s) in tiles.items() if t[0] == 256), default=0)
         print(f"[build] flash {dtype_name}: {len(tiles)} instantiations, registers "
               f"{min(r for r, _ in tiles.values())}-{max(r for r, _ in tiles.values())}, "
-              f"max spill {spill} B")
+              f"max spill {spill} B below hd 256, {spill256} B at hd 256")
         if set(tiles) != set(table) or spill:
             return fail(f"flash {dtype_name}: {len(tiles)} instantiations for {len(table)} "
                         f"tiles, spill {spill} B")
@@ -354,15 +451,17 @@ def run() -> int:
                                ("rglru_scan", "rglru_kernel", "chunk/split")):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         for name, (regs, spill) in sorted(ptxas_entries(log).items()):
-            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", name)
+            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(Lb1E)?", name)
             if not inst:
                 continue
             dtype_name = "f32" if inst.group(1) == "f" else "bf16"
-            print(f"[ptxas] {stem} {dtype_name} ({knob} {inst.group(2)}): {regs} registers, "
-                  f"{spill} B spilled")
+            general = ", any N" if inst.group(3) else ""
+            print(f"[ptxas] {stem} {dtype_name} ({knob} {inst.group(2)}{general}): {regs} "
+                  f"registers, {spill} B spilled")
             scan_spill, scan_count = max(scan_spill, spill), scan_count + 1
     print(f"[build] scans: {scan_count} instantiations, max spill {scan_spill} B")
-    if scan_count != 2 * (len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
+    # ssm_scan: each states count for N a power of two up to 32, and for any N
+    if scan_count != 2 * (2 * len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
     optin = fa_mod.smem_optin(device)
     if optin < arch.smem_per_block:
@@ -384,11 +483,16 @@ def run() -> int:
 
     flash_cases = {}
     fa_err = fa_row = 0.0
-    for dtype_name, dtype, shape in (("bfloat16", torch.bfloat16, FLASH),
-                                     ("float32", torch.float32, FLASH),
-                                     ("bfloat16", torch.bfloat16, dict(FLASH, S=2000)),
-                                     ("float32", torch.float32, dict(FLASH, S=2000)),
-                                     ("bfloat16", torch.bfloat16, FLASH_HD128)):
+    flash_shapes = [("bfloat16", torch.bfloat16, FLASH), ("float32", torch.float32, FLASH),
+                    ("bfloat16", torch.bfloat16, dict(FLASH, S=2000)),
+                    ("float32", torch.float32, dict(FLASH, S=2000)),
+                    ("bfloat16", torch.bfloat16, FLASH_HD128)]
+    # 3a: head dims on a larger tile, and hd 64 at phi-2's heads beside hd 80
+    flash_shapes += [(name, dtype, shape)
+                     for shape in (FLASH_HD80, dict(FLASH_HD80, hd=64), FLASH_HD256)
+                     for name, dtype in (("bfloat16", torch.bfloat16),
+                                         ("float32", torch.float32))]
+    for dtype_name, dtype, shape in flash_shapes:
         S = shape["S"]
         qkv = fa_ref.make_inputs(gen, dtype=dtype, device=device, **shape)
         plain_out = (fa_mod.attention_plain(*qkv),)
@@ -414,7 +518,28 @@ def run() -> int:
             print(f"[hint] {label} {pp_key(point)}: est {hint['est_s'] * 1e3:.4f} ms "
                   f"(latency {hint['latency_s'] * 1e3:.4f}), measured "
                   f"{times[pp_key(point)]:.4f} ms")
-        flash_cases[(dtype_name, S, shape["hd"])] = (qkv, plain_out, times)
+        flash_cases[(dtype_name, S, shape["hd"], shape["H"], shape["KV"])] = (
+            qkv, plain_out, times)
+
+    # one non-causal call a dtype, at hd 64, on the fastest swept tile
+    for dtype_name in ("bfloat16", "float32"):
+        qkv, _, times = flash_cases[(dtype_name, 2048, 64, FLASH["H"], FLASH["KV"])]
+        point = json.loads(min(times, key=times.get))
+        out = fa_mod.flash_attention_cuda(*qkv, **point, causal=False)
+        torch.cuda.synchronize()
+        err, row, failed = max_err(torch, (out,), (fa_mod.attention_plain(*qkv, causal=False),),
+                                   dtype_name)
+        print(f"[kernel] flash {dtype_name} non-causal (1,2048,32|4,64) {point}: max abs err "
+              f"{err:.3e}, row error {row:.3e}")
+        if failed:
+            errors.append(f"flash {dtype_name} non-causal {point}: {err}, row {row}; {failed}")
+    fa_hd = {}  # (dtype, hd, H, KV) -> (fastest point, ms) of the 3a shapes
+    for shape in (FLASH_HD80, dict(FLASH_HD80, hd=64), FLASH_HD256):
+        for dtype_name in ("bfloat16", "float32"):
+            key = (dtype_name, shape["hd"], shape["H"], shape["KV"])
+            times = flash_cases[(dtype_name, shape["S"]) + key[1:]][2]
+            best = min(times, key=times.get)
+            fa_hd[key] = (json.loads(best), times[best])
 
     st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
     st_plain_out = outputs(st_mod.stress_plain(st_inp))
@@ -437,14 +562,7 @@ def run() -> int:
         args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp)
         region = ssm_ops.ssm_region(SSM["D"], SSM["S"], SSM["N"], SSM["B"], arch=arch,
                                     dtype=dtype_name)
-        for point in region.space.points():
-            model = ssm_mod.smem_bytes(point["block_d"], point["chunk"], SSM["N"], elt)
-            native = ssm_mod.smem_bytes_native(point["block_d"], point["chunk"], SSM["N"], elt)
-            threads = point["block_d"] * SSM["N"] // point["states"]
-            if (model != native or model > optin
-                    or threads > ssm_mod.max_threads_native(point["states"])):
-                errors.append(f"ssm_scan {tag} {point}: smem model {model}, kernel {native}, "
-                              f"limit {optin}; {threads} threads")
+        check_ssm_smem(ssm_mod, region, SSM["N"], dtype, optin, errors)
         plain_out = (ssm_mod.ssm_scan_plain(*args),)
         label = f"ssm_scan {tag} (1,2048,8192,N=16)"
         err, row, times = sweep(
@@ -522,6 +640,58 @@ def run() -> int:
                 (rg_mod.rglru_scan_plain(*args),), dtype_name, rg_mod.counter, errors, tol)
             short_err["rglru_scan"] = tuple(map(max, short_err["rglru_scan"], got))
 
+    # 3b: ssm_scan at state sizes that are no power of two, or past 32
+    ssm_states = {}  # (N, dtype) -> (max err, row err, {point: ms})
+    for N in SSM_STATES:
+        x, dt, A, Bc, Cc, Dp = ssm_ref.make_inputs(gen, device=device, **dict(SSM, N=N))
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp)
+            region = ssm_ops.ssm_region(SSM["D"], SSM["S"], N, SSM["B"], arch=arch,
+                                        dtype=dtype_name)
+            check_ssm_smem(ssm_mod, region, N, dtype, optin, errors)
+            err, row, times = sweep(
+                torch, f"ssm_scan {tag} (1,2048,8192,N={N})", region,
+                lambda p, args=args: ssm_mod.ssm_scan_cuda(*args, **p),
+                (ssm_mod.ssm_scan_plain(*args),), dtype_name, timer, ssm_mod.counter, errors,
+                tol=SCAN_TOL if dtype == torch.float32 else None,
+            )
+            ssm_states[(N, dtype_name)] = (err, row, times)
+    # N = 256 (8 and 16 states a thread), every point on a narrow width, and
+    # the shared-memory model at the slice width
+    x, dt, A, Bc, Cc, Dp = ssm_ref.make_inputs(gen, device=device, **SSM_N256)
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp)
+        region = ssm_ops.ssm_region(SSM_N256["D"], SSM_N256["S"], 256, 1, arch=arch,
+                                    dtype=dtype_name)
+        got = check_points(
+            torch, f"ssm_scan {dtype_name} {tuple(SSM_N256.values())}",
+            list(region.space.points()),
+            lambda p, args=args: ssm_mod.ssm_scan_cuda(*args, **p),
+            (ssm_mod.ssm_scan_plain(*args),), dtype_name, ssm_mod.counter, errors,
+            SCAN_TOL if dtype == torch.float32 else None)
+        ssm_states[(256, dtype_name)] = got
+        check_ssm_smem(ssm_mod, ssm_ops.ssm_region(SSM["D"], SSM["S"], 256, 1, arch=arch,
+                                                   dtype=dtype_name),
+                       256, dtype, optin, errors)
+
+    # 3c: the apps: every (variant, degree) against the plain body on the card
+    app_deg = app_degrees(arch)
+    apps = {}  # key -> (nest, inputs, plain out, max err, row err, {point: ms})
+    for key, nest, dims in (("gkv", gkv.exb_nest(), gkv.GKV_DIMS),
+                            ("seism3d 64^3", seism3d.stress_nest(), seism3d.SEISM_DIMS),
+                            ("seism3d 256^3", seism3d.stress_nest(seism3d.CARD_DIMS),
+                             seism3d.CARD_DIMS)):
+        app = gkv if key == "gkv" else seism3d
+        inputs = app.make_inputs(SEED, dims, device=device)
+        plain_out = outputs(nest.reference(inputs))
+        region = nest.at_region(degrees=app_deg)
+        err, row, times = sweep_once(
+            torch, f"loop_nest {key} {tuple(nest.lengths)}", region,
+            lambda p, r=region, i=inputs: r.candidate(p)(i), plain_out, timer,
+            ln_mod.counters[key.split()[0]], errors)
+        apps[key] = (nest, inputs, plain_out, err, row, times)
+
     for (name, dtype_name), (_, _, region, _, _, times) in scans.items():
         for point in region.space.points():  # the hint's rank beside the card's
             hint = region.hints[pp_key(point)]
@@ -537,13 +707,13 @@ def run() -> int:
     # run and read right after it
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     db_path = str(Path(tmp) / "tuning_db.json")
-    qkv, flash_plain, flash_times = flash_cases[("bfloat16", 2048, 64)]
+    qkv, flash_plain, flash_times = flash_cases[("bfloat16", 2048, 64, 32, 4)]
     counters = {"exb": exb_mod.counter, "flash_attention": fa_mod.counter,
                 "stress": st_mod.counter, "ssm_scan": ssm_mod.counter,
                 "rglru_scan": rg_mod.counter}
     # (key, kernel, args, plain out, dtype, tolerance): the scans' bf16 runs
     # after their f32 ones, each in a shape class of its own
-    qkv32, flash32_plain, flash32_times = flash_cases[("float32", 2048, 64)]
+    qkv32, flash32_plain, flash32_times = flash_cases[("float32", 2048, 64, 32, 4)]
     paths = [
         ("exb", "exb", (inp,), exb_plain_out, "float32", None),
         ("flash_attention", "flash_attention", qkv, flash_plain, "bfloat16", None),
@@ -600,6 +770,85 @@ def run() -> int:
         errors.append(f"flash_attention B={FLASH_B}: main path did not run through its kernel alone")
     if b4_state.bp.fingerprint() == fa_state.bp.fingerprint():
         errors.append(f"flash_attention B={FLASH_B}: same shape class as B=1")
+
+    # flash at hd 256 (recurrentgemma-2b) in bf16: a shape class of its own
+    qkv256, plain256, times256 = flash_cases[("bfloat16", 2048, 256, 10, 1)]
+    for counter in counters.values():
+        counter.reset()
+    hd256_state, hd256_tune_s, hd256_recall_s = main_path(
+        torch, "flash_attention", qkv256, plain256, "bfloat16", db_path, errors)
+    launches["flash_attention hd256"] = fa_mod.counter.launches
+    hd256_plain = sum(c.plain_calls for c in counters.values())
+    hd256_pt = hd256_state.region.selected
+    print(f"[main] flash_attention hd 256: launches {fa_mod.counter.launches}, plain-version "
+          f"calls {hd256_plain}; tuned point {hd256_pt}, "
+          f"{times256[pp_key(hd256_pt)]:.4f} ms in the sweep")
+    if fa_mod.counter.launches <= 0 or hd256_plain != 0:
+        errors.append("flash_attention hd 256: main path did not run through its kernel alone")
+
+    # the apps: each region tuned cold through the Tuner (GKV's as Figs.
+    # 13-14), recalled from a fresh TuningDB with nothing measured, the
+    # recalled point run and checked; then Fig. 12 on Seism3D at 256^3
+    every = list(counters.values()) + list(ln_mod.counters.values())
+    app_main = {}
+    for name, key in (("gkv", "gkv"), ("seism3d", "seism3d 256^3")):
+        nest, inputs, plain_out = apps[key][:3]
+        app_db = str(Path(tmp) / f"{name}_db.json")
+        for counter in every:
+            counter.reset()
+        t0 = time.perf_counter()
+        if name == "gkv":
+            f13 = paper_figures.fig13_14(nest, inputs, app_deg, TuningDB(app_db), arch)
+            tuned, evaluations = f13["best_point"], f13["evaluations"]
+        else:
+            result, _, _ = paper_figures.tune(nest, inputs, app_deg, TuningDB(app_db), arch)
+            tuned, evaluations = result.best.point, result.evaluations
+        tune_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        point, region = paper_figures.recall(nest, app_deg, app_db, device)
+        recall_s = time.perf_counter() - t0
+        out = region(inputs)
+        torch.cuda.synchronize()
+        err, row, failed = max_err(torch, outputs(out), plain_out, "float32")
+        if name == "seism3d":
+            f12 = paper_figures.fig12(nest, inputs, calls=50)
+        launches[f"loop_nest_{name}"] = ln_mod.counters[name].launches
+        plain_calls = sum(c.plain_calls for c in every)
+        print(f"[main] loop_nest {key}: cold tune, {evaluations} evaluations, winner {tuned}, "
+              f"{tune_s:.3f} s; fresh TuningDB recalls {point} in {recall_s:.3f} s with 0 "
+              f"evaluations; its output vs plain: max abs err {err:.3e}, row error {row:.3e}; "
+              f"launches {launches[f'loop_nest_{name}']}, plain-version calls {plain_calls}")
+        if evaluations <= 0 or point is None or pp_key(point) != pp_key(tuned) or failed:
+            errors.append(f"loop_nest {key}: tune {evaluations} evaluations, recall {point} "
+                          f"for {tuned}, output {failed}")
+        if launches[f"loop_nest_{name}"] <= 0 or plain_calls != 0:
+            errors.append(f"loop_nest {key}: main path did not run through its kernel alone")
+        app_main[name] = dict(point=tuned, evaluations=evaluations, tune_s=tune_s,
+                              recall_s=recall_s, region=region, key=key)
+
+    # the figures beside the paper's
+    f11 = paper_figures.fig11(apps["gkv"][0], apps["gkv"][1], arch=arch)
+    for r in f11["rows"]:
+        print(f"[fig11] {r['figure']} {r['variant']}: {r['s'] * 1e3:.4f} ms at degree 32, "
+              f"{r['launches']} launches of {r['ctas']} CTAs, {r['speedup']:.3f}x the original")
+    print(f"[fig11] best {f11['best']['figure']}: {f11['best']['speedup']:.3f}x the original "
+          f"(paper FX100: directive on the outermost loop, {f11['paper']}x)")
+    print(f"[fig12] seism3d 256^3 variant (3,1): degree 8 fixed {f12['fixed_s'] * 1e3:.4f} ms, "
+          f"switched every call {f12['switch_s'] * 1e3:.4f} ms ({f12['switches']} switches "
+          f"over {f12['calls']} calls): ratio {f12['ratio']:.4f} (paper <= {f12['paper']}); "
+          f"degree 32 fixed {f12['full_s'] * 1e3:.4f} ms, ratio to it "
+          f"{f12['ratio_vs_full']:.4f}")
+    for r in f13["rows"]:
+        print(f"[fig13] {r['figure']} {r['variant']}: best degree {r['best_degree']}, "
+              f"{r['s'] * 1e3:.4f} ms, {r['fig13']:.3f}x the original at degree 32")
+        print(f"[fig14] {r['figure']} {r['variant']}: {r['s_at_32'] * 1e3:.4f} ms at degree 32, "
+              f"best degree {r['best_degree']} {r['fig14']:.3f}x faster")
+    inner = next(r for r in f13["rows"] if r["variant"] == (4, 4))
+    print(f"[fig13] combined best {f13['best_point']}: {f13['combined']:.3f}x the original at "
+          f"degree 32 (paper FX100: {f13['paper']['fig13']}x)")
+    print(f"[fig14] innermost directive: best degree {inner['best_degree']}, "
+          f"{inner['fig14']:.3f}x against degree 32 (paper FX100: "
+          f"{f13['paper']['fig14_innermost']}x at 1 thread against 32)")
 
     # exb: staged winner against one exhaustive search (every emitted point)
     ex_db = str(Path(tmp) / "exhaustive_db.json")
@@ -790,6 +1039,83 @@ def run() -> int:
         if name == "ssm_scan":
             entry["sfu_floor_ms"] = ssm_mod.sfu_seconds(
                 SSM["B"], SSM["S"], SSM["D"], SSM["N"], arch.peak_flops_fp32) * 1e3
+    # flash at the 3a head dims and its hd-256 main path
+    def flash_bound_ms(B, S, H, KV, hd, dtype_name):
+        flops = 4.0 * B * H * S * S * hd / 2  # causal: half the square
+        elt = 2 if dtype_name == "bfloat16" else 4
+        ops = (flops / arch.peak_flops if elt == 2 else 3 * flops / arch.peak_flops_tf32)
+        return max(ops, elt * 2.0 * B * S * (H + KV) * hd / arch.hbm_bandwidth) * 1e3
+
+    by_name = {entry["name"]: entry for entry in kernels}
+    by_name["flash_attention"].update({
+        "head_dims": [
+            {"dtype": dtype_name, "hd": hd, "heads": f"{H}|{KV}", "fastest_swept_point": point,
+             "ms": ms, "bound_ms": flash_bound_ms(1, 2048, H, KV, hd, dtype_name)}
+            for (dtype_name, hd, H, KV), (point, ms) in fa_hd.items()],
+        "hd256_tuned_point": hd256_pt, "hd256_launches": launches["flash_attention hd256"],
+        "hd256_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(*qkv256, **hd256_pt)),
+        "hd256_bound_ms": flash_bound_ms(**FLASH_HD256, dtype_name="bfloat16"),
+        "hd256_tune_s": hd256_tune_s, "hd256_recall_s": hd256_recall_s,
+    })
+    # ssm_scan at the 3b state sizes
+    states_rows = []
+    for (N, dtype_name), got in ssm_states.items():
+        if N == 256:
+            states_rows.append({"N": N, "dtype": dtype_name, "shape": SSM_N256,
+                                "max_abs_err": got[0], "max_row_err": got[1]})
+            continue
+        err, row, times = got
+        flops, bytes_ = ssm_mod.traffic(SSM["B"], SSM["S"], SSM["D"], N,
+                                        elt=2 if dtype_name == "bfloat16" else 4)
+        best = min(times, key=times.get)
+        states_rows.append({
+            "N": N, "dtype": dtype_name, "fastest_swept_point": json.loads(best),
+            "ms": times[best], "candidates": len(times), "max_abs_err": err, "max_row_err": row,
+            "bound_ms": max(bytes_ / arch.hbm_bandwidth, flops / arch.peak_flops_fp32) * 1e3})
+    by_name["ssm_scan"]["state_sizes"] = states_rows
+    # the apps' loop-nest kernel: the tuned point of each region
+    for name, app in (("gkv", gkv), ("seism3d", seism3d)):
+        main = app_main[name]
+        nest, inputs, _, err, row, times = apps[main["key"]]
+        if name == "seism3d":  # the check covers both grids
+            err, row = max(err, apps["seism3d 64^3"][3]), max(row, apps["seism3d 64^3"][4])
+        point = main["point"]
+        shape = launch_shape(nest.lengths, ExchangeVariant(*point["variant"]), point["degree"])
+        n = math.prod(nest.lengths)
+        by_bytes = n * app.bytes_per_point() / arch.hbm_bandwidth
+        by_ops = n * app.flops_per_point() / arch.peak_flops_fp32
+        fastest = min(times, key=times.get)
+        run = main["region"].candidate(point)
+        kernels.append({
+            "name": f"loop_nest_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/loop_nest.cu",
+            "replaces": "src/repro/core/exchange.py:135",
+            "launches": launches[f"loop_nest_{name}"], "max_abs_err": err, "max_row_err": row,
+            "ms": timer.ms(lambda: run(inputs)),
+            "plain_ms": timer.ms(lambda: nest.reference(inputs), reps=5),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None,  # no single PyTorch call computes the body
+            "domain": nest.lengths, "tuned_point": point, "outer_launches": shape.launches,
+            "ctas": shape.ctas,
+            "candidates": len(times), "evaluations": main["evaluations"],
+            "fastest_swept_point": json.loads(fastest), "fastest_swept_ms": times[fastest],
+            "tune_s": main["tune_s"], "recall_s": main["recall_s"],
+        })
+    by_name = {entry["name"]: entry for entry in kernels}
+    seism64 = apps["seism3d 64^3"][5]
+    best64 = min(seism64, key=seism64.get)
+    by_name["loop_nest_seism3d"].update({
+        "fig12": {k: v for k, v in f12.items()},
+        "seism3d_64_fastest_swept_point": json.loads(best64),
+        "seism3d_64_fastest_swept_ms": seism64[best64],
+    })
+    by_name["loop_nest_gkv"].update({
+        "fig11_best": f11["best"], "fig13_combined": f13["combined"],
+        "fig14_innermost": inner["fig14"], "fig14_innermost_best_degree": inner["best_degree"],
+    })
+    print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s to the kernels line, "
+          f"the build included")
     print(json.dumps({"kernels": kernels}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

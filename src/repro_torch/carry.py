@@ -9,7 +9,10 @@ packages compute the same thing:
 * ``flash_attention``: ``(q, k, v)`` in ``(B, S, heads, hd)``;
 * ``stress``: the dict of 17 float32 ``(nk, nj, ni)`` fields;
 * ``ssm_scan``: ``(x, dt, A, Bc, Cc, D)`` in the JAX positional order;
-* ``rglru_scan``: ``(x, r, i, lam)``.
+* ``rglru_scan``: ``(x, r, i, lam)``;
+* the apps' loop nests: GKV's dict of six complex64 fields and ``vl``
+  (float32), Seism3D's dict of 17 float32 fields, every field at the full
+  domain shape.
 
 The tuning record needs no conversion: the port's TuningDB writes the same
 schema v2 file the JAX package reads.  bf16 has no numpy type, so a bf16
@@ -85,6 +88,18 @@ def rglru_inputs(
     dt_ = _scan_dtype(x, dtype)
     return (to_tensor(x, device, dt_), to_tensor(r, device, dt_), to_tensor(i, device, dt_),
             to_tensor(lam, device, torch.float32))
+
+
+def gkv_inputs(arrays: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """The GKV loop nest's input dict: complex fields stay complex64,
+    ``vl`` float32."""
+    return {name: to_tensor(a, device, torch.complex64 if np.iscomplexobj(a) else torch.float32)
+            for name, a in arrays.items()}
+
+
+def seism_inputs(arrays: Mapping[str, Any], device: Any = "cuda") -> Dict[str, torch.Tensor]:
+    """The Seism3D loop nest's input dict, field by field, as float32."""
+    return {name: to_tensor(a, device, torch.float32) for name, a in arrays.items()}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

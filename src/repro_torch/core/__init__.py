@@ -8,12 +8,16 @@ search (hint prescreen, then finals timed on the device) → ``record_best``
     from repro_torch.core import autotuned
     out = autotuned("flash_attention")(q, k, v)
 
-The exchange, degree and program modules wait for later slices.
+The paper's own loop nests (:mod:`.exchange`: the Exchange × LoopFusion
+variants as launch shapes; :mod:`.degree`: the ``omp_set_num_threads``
+protocol) drive the GKV and Seism3D apps (``repro_torch.apps``).  The
+program module waits for a later slice.
 """
 from .arch import ArchSpec, detect, local_arch
 from .autotuned import AutotunedOp, OpState
 from .cost import AdaptiveWallClockCost, CostFunction, WallClockCost
 from .db import TuningDB
+from .degree import DegreeController
 from .emit import (
     EmitPolicy,
     EmittedSpace,
@@ -22,6 +26,14 @@ from .emit import (
     hint_prescreen,
     pow2_ladder,
     space_signature,
+)
+from .exchange import (
+    GKV_FIGURE_OF_VARIANT,
+    ExchangeVariant,
+    LaunchShape,
+    LoopNest,
+    enumerate_exchange_variants,
+    launch_shape,
 )
 from .params import (
     BasicParams,
@@ -70,6 +82,13 @@ __all__ = [
     "pp_key",
     "project_point",
     "ATRegion",
+    "DegreeController",
+    "ExchangeVariant",
+    "GKV_FIGURE_OF_VARIANT",
+    "LaunchShape",
+    "LoopNest",
+    "enumerate_exchange_variants",
+    "launch_shape",
     "ArchSpec",
     "detect",
     "local_arch",

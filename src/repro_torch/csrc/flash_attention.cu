@@ -8,6 +8,15 @@
 // softmax with float32 m, l and acc; keys >= S and keys above the diagonal
 // score NEG_INF = -0.7*FLT_MAX; rows >= S are never stored.
 //
+// Head dims.  hd is a run-time value, any multiple of 4 up to 256 (a row
+// of whole 16-byte pieces); the kernel runs on the least tile head dim
+// HD in {16, 32, 64, 128, 256} at or above it.  Row strides and the output
+// store use hd; the tile's columns at or past hd load as zeros (the
+// cp.async zero-fill form), add nothing to Q.K^T, and are never stored.
+// They are computed like any other column: skipping the k-steps and
+// n-tiles past hd (a branch the same for every thread) made ptxas spill one
+// tile (hd 32, (64, 64)).
+//
 // What bounds it: operations.  At tinyllama width (S=2048, H=32, hd=64)
 // causal attention is ~17.2 GFLOP.  A TF32 product keeps 10 mantissa bits,
 // too few for the float32 tolerance, so every product is split as CUTLASS's
@@ -105,7 +114,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int HD, int BQ, int BKV>
 __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int S, int H, int KV, float scale_log2, int causal) {
+    float* __restrict__ o, int S, int H, int KV, int hd, float scale_log2, int causal) {
   using T = Tile<HD, BQ, BKV>;
   constexpr int KS = HD / 8;   // k-steps of S = Q.K^T, n-tiles of O
   constexpr int NT = BKV / 8;  // n-tiles of S, k-steps of O += P.V
@@ -115,26 +124,27 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const size_t q_step = static_cast<size_t>(H) * HD;
-  const size_t kv_step = static_cast<size_t>(KV) * HD;
-  const float* kg = k + (static_cast<size_t>(b) * S * KV + kvh) * HD;
-  const float* vg = v + (static_cast<size_t>(b) * S * KV + kvh) * HD;
+  const size_t q_step = static_cast<size_t>(H) * hd;
+  const size_t kv_step = static_cast<size_t>(KV) * hd;
+  const float* kg = k + (static_cast<size_t>(b) * S * KV + kvh) * hd;
+  const float* vg = v + (static_cast<size_t>(b) * S * KV + kvh) * hd;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = q0 + 16 * warp;  // this warp's first row
 
-  // the q tile (zeros past S), in the first group with K and V of block 0
+  // the q tile (zeros past S and hd), in the first group with K and V of block 0
   {
-    const float* qg = q + (static_cast<size_t>(b) * S * H + h) * HD;
+    const float* qg = q + (static_cast<size_t>(b) * S * H + h) * hd;
     for (int c = tid; c < BQ * HD / 4; c += T::kThreads) {
       const int row = c / (HD / 4), col = 4 * (c % (HD / 4));
-      const bool ok = q0 + row < S;
+      const bool ok = q0 + row < S && col < hd;
       cp_async16(smem + row * T::kLdk + col, qg + (ok ? (q0 + row) * q_step + col : 0), ok);
     }
   }
 
-  // K and V tiles of block j into stage j & 1, 16 bytes a piece
+  // K and V tiles of block j into stage j & 1, 16 bytes a piece (zeros
+  // past S and hd)
   const int nkv = ((causal ? min(S, q0 + BQ) : S) + BKV - 1) / BKV;
   auto stage = [&](int j) {
     float* ks = smem + T::kQ + (j & 1) * T::kStage;
@@ -142,7 +152,7 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
     const int k0 = j * BKV;
     for (int c = tid; c < BKV * HD / 4; c += T::kThreads) {
       const int row = c / (HD / 4), col = 4 * (c % (HD / 4));
-      const bool ok = k0 + row < S;
+      const bool ok = k0 + row < S && col < hd;
       const size_t gofs = ok ? static_cast<size_t>(k0 + row) * kv_step + col : 0;
       cp_async16(ks + row * T::kLdk + col, kg + gofs, ok);
       cp_async16(vs + row * T::kLdv + col, vg + gofs, ok);
@@ -251,7 +261,9 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
     __syncthreads();  // every warp is done with stage j & 1 before it refills
   }
 
-  float* og = o + (static_cast<size_t>(b) * S * H + h) * HD;
+  // columns 2t, 2t + 1 of k-step i: both below hd or both past it (hd is
+  // a multiple of 4)
+  float* og = o + (static_cast<size_t>(b) * S * H + h) * hd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
@@ -259,8 +271,10 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
     if (row < S) {
 #pragma unroll
       for (int i = 0; i < KS; ++i) {
-        *reinterpret_cast<float2*>(og + row * q_step + 8 * i + 2 * t) =
-            make_float2(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+        if (8 * i + 2 * t < hd) {
+          *reinterpret_cast<float2*>(og + row * q_step + 8 * i + 2 * t) =
+              make_float2(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+        }
       }
     }
   }
@@ -268,7 +282,7 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
 
 template <int HD, int BQ, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           float scale, int causal, cudaStream_t stream) {
+           int hd, float scale, int causal, cudaStream_t stream) {
   using T = Tile<HD, BQ, BKV>;
   auto kernel = flash_fwd_tf32x3<HD, BQ, BKV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -277,7 +291,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, KV, scale * kLog2e, causal);
+      static_cast<float*>(o), S, H, KV, hd, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,13 +310,24 @@ template <int HD, int BQ, int BKV> int ctas_per_sm() {
   return n;
 }
 
-// The instantiated tiles (hd, block_q, block_kv): block_kv <= 64 at hd 128,
-// where two stages of 128-key tiles would not fit the shared memory.
+// The instantiated tiles (tile hd, block_q, block_kv): block_kv <= 64 at
+// hd 128, where two stages of 128-key tiles would not fit the shared
+// memory, and one tile at hd 256, (64, 32), for the same reason (202 KB).
 #define FLASH_F32_TILES(X)                                                                    \
   X(16, 64, 32) X(16, 64, 64) X(16, 64, 128) X(16, 128, 32) X(16, 128, 64) X(16, 128, 128)    \
   X(32, 64, 32) X(32, 64, 64) X(32, 64, 128) X(32, 128, 32) X(32, 128, 64) X(32, 128, 128)    \
   X(64, 64, 32) X(64, 64, 64) X(64, 64, 128) X(64, 128, 32) X(64, 128, 64) X(64, 128, 128)    \
-  X(128, 64, 32) X(128, 64, 64) X(128, 128, 32) X(128, 128, 64)
+  X(128, 64, 32) X(128, 64, 64) X(128, 128, 32) X(128, 128, 64)                              \
+  X(256, 64, 32)
+
+// The tile head dim a call at head dim hd runs on: the least of 16, 32,
+// 64, 128, 256 at or above it; 0 where hd is not a multiple of 4 in 4..256.
+int tile_hd(int hd) {
+  if (hd < 4 || hd > 256 || hd % 4) return 0;
+  int t = 16;
+  while (t < hd) t *= 2;
+  return t;
+}
 
 }  // namespace
 
@@ -313,13 +338,14 @@ extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int H, int KV, int hd, int bq, int bkv, float scale, int causal,
     void* stream) {
-  if (dtype != 0 || KV < 1 || H % KV || S < 1 || B < 1) {
+  const int ht = tile_hd(hd);
+  if (dtype != 0 || ht == 0 || KV < 1 || H % KV || S < 1 || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_F32_LAUNCH(HD, BQ, BKV)                                       \
-  if (hd == HD && bq == BQ && bkv == BKV) {                                 \
-    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, scale, causal, s);  \
+#define FLASH_F32_LAUNCH(HD, BQ, BKV)                                           \
+  if (ht == HD && bq == BQ && bkv == BKV) {                                     \
+    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, hd, scale, causal, s);  \
   }
   FLASH_F32_TILES(FLASH_F32_LAUNCH)
 #undef FLASH_F32_LAUNCH
@@ -337,22 +363,24 @@ extern "C" int flash_attention_smem_optin(int device) {
   return value;
 }
 
-// The dynamic shared memory one launch asks for (must equal the Python
-// model), or -1 for a dtype or tile that is not instantiated.
+// The dynamic shared memory one launch at head dim hd asks for (must equal
+// the Python model), or -1 for a dtype or tile that is not instantiated.
 extern "C" long long flash_attention_smem_bytes(int dtype, int hd, int bq, int bkv) {
+  const int ht = tile_hd(hd);
   if (dtype != 0) return -1;
 #define FLASH_F32_SMEM(HD, BQ, BKV) \
-  if (hd == HD && bq == BQ && bkv == BKV) return Tile<HD, BQ, BKV>::kSmem;
+  if (ht == HD && bq == BQ && bkv == BKV) return Tile<HD, BQ, BKV>::kSmem;
   FLASH_F32_TILES(FLASH_F32_SMEM)
 #undef FLASH_F32_SMEM
   return -1;
 }
 
-// CTAs of a tile one SM of the current device holds at once, or -1 for a
-// tile not instantiated.
+// CTAs of a tile (at head dim hd) one SM of the current device holds at
+// once, or -1 for a tile not instantiated.
 extern "C" int flash_attention_ctas_per_sm(int hd, int bq, int bkv) {
+  const int ht = tile_hd(hd);
 #define FLASH_F32_CTAS(HD, BQ, BKV) \
-  if (hd == HD && bq == BQ && bkv == BKV) return ctas_per_sm<HD, BQ, BKV>();
+  if (ht == HD && bq == BQ && bkv == BKV) return ctas_per_sm<HD, BQ, BKV>();
   FLASH_F32_TILES(FLASH_F32_CTAS)
 #undef FLASH_F32_CTAS
   return -1;

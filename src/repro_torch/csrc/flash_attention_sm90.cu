@@ -12,6 +12,17 @@
 // wholly above the diagonal are skipped: in the TPU kernel they leave m, l
 // and acc unchanged (p = 0, alpha = 1).
 //
+// Head dims.  hd is a run-time value, any multiple of 8 up to 256 (a row
+// stride of whole 16 bytes, as TMA needs); the kernel runs on the least
+// tile head dim HD in {16, 32, 64, 128, 256} at or above it.  The tensor
+// maps are encoded with hd as dimension 0, so the box columns at or past hd
+// are out of bounds, and TMA fills them with zeros (in the swizzled layout
+// the wgmma descriptors read, like any element) and still counts their
+// bytes.  Zero columns add nothing to Q.K^T and are computed like any
+// other (no branch between the wgmma of one group, which ptxas would
+// answer by serialising them); the output store writes only columns below
+// hd.
+//
 // What bounds it: operations.  At tinyllama width (S=2048, H=32, hd=64)
 // causal attention is ~17.2 GFLOP against ~18.9 MB of traffic, ~900 flops a
 // byte, three times the bf16 tensor-core ridge.  So both products run on
@@ -34,10 +45,11 @@
 // instantiated set and refuses any other tile.
 //
 // Where the hardware is particular, and what this source does:
-//  1. Descriptors (hopper.cuh, smem_desc): the swizzle follows a row's
-//     bytes, hd 16 -> 32 B, 32 -> 64 B, 64 -> 128 B.  An hd-128 row (256 B)
-//     is wider than the 128 B span, so it is loaded as two 64-column boxes
-//     side by side in shared memory, with a descriptor each.  A k-step of
+//  1. Descriptors (hopper.cuh, smem_desc): the swizzle follows a tile
+//     row's bytes, HD 16 -> 32 B, 32 -> 64 B, 64 -> 128 B.  An HD-128 or
+//     HD-256 row (256 or 512 B) is wider than the 128 B span, so it is
+//     loaded as two or four 64-column boxes side by side in shared memory,
+//     with a descriptor each.  A k-step of
 //     S = Q.K^T moves the start address 32 B along the row, inside the
 //     swizzle atom, which holds because every tile is 1024 B aligned.
 //  2. wgmma.fence before the products that read registers ordinary code
@@ -76,7 +88,7 @@ template <int HD, int BQ, int BKV> struct Tile {
   static constexpr int kWarpgroups = BQ / 64;
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kBoxCols = HD < 64 ? HD : 64;  // columns of one TMA box
-  static constexpr int kBoxes = HD / kBoxCols;        // 2 at hd 128
+  static constexpr int kBoxes = HD / kBoxCols;        // 2 at HD 128, 4 at 256
   static constexpr int kRowBytes = 2 * kBoxCols;      // the swizzle span
   static constexpr int kQBytes = 2 * BQ * HD;
   static constexpr int kKVBytes = 2 * BKV * HD;       // one K or one V tile
@@ -109,11 +121,30 @@ __device__ __forceinline__ void scale_mask(float (&s)[BKV / 2], float (&mx)[2], 
   }
 }
 
+// Row i (0: the thread's first row, 1: the row 8 below) of the thread's
+// accumulator columns, divided by the row's sum l, as bf16 pairs from
+// `out`; Check stops at column hd (hd a multiple of 8, so a pair is wholly
+// below or past it).
+template <int Boxes, int BoxCols, bool Check>
+__device__ __forceinline__ void store_row(__nv_bfloat16* out,
+                                          const float (&acc)[Boxes][BoxCols / 2], int i,
+                                          float l, int hd) {
+#pragma unroll
+  for (int x = 0; x < Boxes; ++x) {
+#pragma unroll
+    for (int c = 0; c < BoxCols / 8; ++c) {
+      if (Check && x * BoxCols + 8 * c >= hd) continue;
+      *reinterpret_cast<__nv_bfloat162*>(out + x * BoxCols + 8 * c) =
+          __floats2bfloat162_rn(acc[x][4 * c + 2 * i] / l, acc[x][4 * c + 2 * i + 1] / l);
+    }
+  }
+}
+
 template <int HD, int BQ, int BKV>
 __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads, 1) flash_fwd_sm90(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int S, int H,
-    int KV, float scale_log2, int causal) {
+    int KV, int hd, float scale_log2, int causal) {
   using T = Tile<HD, BQ, BKV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
@@ -272,14 +303,13 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads, 1) flash_fwd_sm90
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = row + 8 * i;
     if (r >= S) continue;
-    __nv_bfloat16* out = o + ((static_cast<size_t>(b) * S + r) * H + h) * HD + col;
-#pragma unroll
-    for (int x = 0; x < T::kBoxes; ++x) {
-#pragma unroll
-      for (int c = 0; c < T::kBoxCols / 8; ++c) {
-        *reinterpret_cast<__nv_bfloat162*>(out + x * T::kBoxCols + 8 * c) =
-            __floats2bfloat162_rn(acc[x][4 * c + 2 * i] / l[i], acc[x][4 * c + 2 * i + 1] / l[i]);
-      }
+    const size_t at = (static_cast<size_t>(b) * S + r) * H + h;
+    // a full tile (hd == HD) stores every column unchecked, at a constant
+    // row stride, as the kernel did before hd could be less than its tile
+    if (hd == HD) {
+      store_row<T::kBoxes, T::kBoxCols, false>(o + at * HD + col, acc, i, l[i], HD);
+    } else {
+      store_row<T::kBoxes, T::kBoxCols, true>(o + at * hd + col, acc, i, l[i], hd);
     }
   }
 }
@@ -308,11 +338,12 @@ EncodeTiled encode_fn() {
 }
 
 // The (B, S, heads, hd) bf16 tensor at `ptr` as a 4-D map (hd, heads, S, B),
-// boxes of (min(hd, 64), 1, rows, 1), swizzled by the box's row bytes.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd, int rows) {
+// boxes of (box_cols, 1, rows, 1), swizzled by the box's row bytes; box
+// columns at or past hd arrive as zeros.
+cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
+                   int box_cols, int rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int box_cols = hd < 64 ? hd : 64;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = 2ull * hd;
@@ -332,12 +363,12 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, i
 
 template <int HD, int BQ, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           float scale, int causal, cudaStream_t stream) {
+           int hd, float scale, int causal, cudaStream_t stream) {
   using T = Tile<HD, BQ, BKV>;
   CUtensorMap qmap, kmap, vmap;
-  cudaError_t err = encode(&qmap, q, B, S, H, HD, BQ);
-  if (err == cudaSuccess) err = encode(&kmap, k, B, S, KV, HD, BKV);
-  if (err == cudaSuccess) err = encode(&vmap, v, B, S, KV, HD, BKV);
+  cudaError_t err = encode(&qmap, q, B, S, H, hd, T::kBoxCols, BQ);
+  if (err == cudaSuccess) err = encode(&kmap, k, B, S, KV, hd, T::kBoxCols, BKV);
+  if (err == cudaSuccess) err = encode(&vmap, v, B, S, KV, hd, T::kBoxCols, BKV);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = flash_fwd_sm90<HD, BQ, BKV>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -345,7 +376,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(qmap, kmap, vmap,
-                                                  static_cast<__nv_bfloat16*>(o), S, H, KV,
+                                                  static_cast<__nv_bfloat16*>(o), S, H, KV, hd,
                                                   scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -365,8 +396,9 @@ template <int HD, int BQ, int BKV> int ctas_per_sm() {
   return n;
 }
 
-// The instantiated tiles (hd, block_q, block_kv): block_kv <= 128 at hd 128,
-// where S, O and P of 64 rows would not fit 255 registers otherwise.
+// The instantiated tiles (tile hd, block_q, block_kv): block_kv <= 128 at
+// hd 128 and <= 64 at hd 256, where S, O and P of 64 rows would not fit 255
+// registers otherwise (O alone is 128 a thread at hd 256).
 #define FLASH_SM90_TILES(X)                                                                   \
   X(16, 64, 32) X(16, 64, 64) X(16, 64, 128) X(16, 64, 256)                                   \
   X(16, 128, 32) X(16, 128, 64) X(16, 128, 128) X(16, 128, 256)                               \
@@ -375,7 +407,17 @@ template <int HD, int BQ, int BKV> int ctas_per_sm() {
   X(64, 64, 32) X(64, 64, 64) X(64, 64, 128) X(64, 64, 256)                                   \
   X(64, 128, 32) X(64, 128, 64) X(64, 128, 128) X(64, 128, 256)                               \
   X(128, 64, 32) X(128, 64, 64) X(128, 64, 128)                                               \
-  X(128, 128, 32) X(128, 128, 64) X(128, 128, 128)
+  X(128, 128, 32) X(128, 128, 64) X(128, 128, 128)                                            \
+  X(256, 64, 32) X(256, 64, 64) X(256, 128, 32) X(256, 128, 64)
+
+// The tile head dim a call at head dim hd runs on: the least of 16, 32,
+// 64, 128, 256 at or above it; 0 where hd is not a multiple of 8 in 8..256.
+int tile_hd(int hd) {
+  if (hd < 8 || hd > 256 || hd % 8) return 0;
+  int t = 16;
+  while (t < hd) t *= 2;
+  return t;
+}
 
 }  // namespace
 
@@ -384,32 +426,37 @@ template <int HD, int BQ, int BKV> int ctas_per_sm() {
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
                                            int B, int S, int H, int KV, int hd, int bq, int bkv,
                                            float scale, int causal, void* stream) {
-  if (KV < 1 || H % KV || S < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int ht = tile_hd(hd);
+  if (ht == 0 || KV < 1 || H % KV || S < 1 || B < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_SM90_LAUNCH(HD, BQ, BKV)                                                    \
-  if (hd == HD && bq == BQ && bkv == BKV) {                                                \
-    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, scale, causal, s);                \
+  if (ht == HD && bq == BQ && bkv == BKV) {                                                \
+    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, hd, scale, causal, s);            \
   }
   FLASH_SM90_TILES(FLASH_SM90_LAUNCH)
 #undef FLASH_SM90_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory one launch asks for (must equal the Python
-// model), or -1 for a tile not instantiated.
+// The dynamic shared memory one launch at head dim hd asks for (must equal
+// the Python model), or -1 for a tile not instantiated.
 extern "C" long long flash_attention_sm90_smem_bytes(int hd, int bq, int bkv) {
+  const int ht = tile_hd(hd);
 #define FLASH_SM90_SMEM(HD, BQ, BKV) \
-  if (hd == HD && bq == BQ && bkv == BKV) return Tile<HD, BQ, BKV>::kSmem;
+  if (ht == HD && bq == BQ && bkv == BKV) return Tile<HD, BQ, BKV>::kSmem;
   FLASH_SM90_TILES(FLASH_SM90_SMEM)
 #undef FLASH_SM90_SMEM
   return -1;
 }
 
-// CTAs of a tile one SM of the current device holds at once, or -1 for a
-// tile not instantiated.
+// CTAs of a tile (at head dim hd) one SM of the current device holds at
+// once, or -1 for a tile not instantiated.
 extern "C" int flash_attention_sm90_ctas_per_sm(int hd, int bq, int bkv) {
+  const int ht = tile_hd(hd);
 #define FLASH_SM90_CTAS(HD, BQ, BKV) \
-  if (hd == HD && bq == BQ && bkv == BKV) return ctas_per_sm<HD, BQ, BKV>();
+  if (ht == HD && bq == BQ && bkv == BKV) return ctas_per_sm<HD, BQ, BKV>();
   FLASH_SM90_TILES(FLASH_SM90_CTAS)
 #undef FLASH_SM90_CTAS
   return -1;

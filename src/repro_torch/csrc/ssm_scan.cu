@@ -51,6 +51,20 @@
 // dt = 0 is decay 1 and input 0, so h passes through them unchanged, and
 // they store nothing.  So any S runs, and the loop over groups is the same
 // for every trip.
+//
+// State sizes.  N is any value from 1 to 256; the kernel runs on NP, the
+// power of two at or above it, as its lanes and its shared-memory rows of
+// B_t and C_t.  The states past N read A = 0 and B = C = 0 (the columns
+// past N of every staged row are set to 0 once, and cp.async never writes
+// them), so their decay is 1, their input 0, h stays 0 and they add nothing
+// to y; no padded copy is made in memory.  A channel takes NP / K lanes,
+// at most a warp's 32.  Past N = 32 that is more lanes than the U steps of
+// a group: the reduce-scatter then leaves each lane one step's sum over
+// U of the lanes, and a butterfly over the remaining NP / (K U) lanes
+// completes it; the first of those lanes stores it.  Both cases (N no
+// power of two, N past 32) run an instantiation of their own (General):
+// one that took them whatever N was ran the power-of-two sizes up to 32 in
+// bf16 10-15% slower, so those keep the code they ran before.
 #include "scan_staging.cuh"
 
 namespace {
@@ -65,6 +79,7 @@ struct SsmArgs {
   void* y;
   int S, D, N, block_d, chunk;
   int g_xd, g_bc;  // staging piece sizes in bytes (scan::copy_bytes)
+  int np;          // N rounded up to a power of two
 };
 
 // The most threads a CTA of K states a thread takes: ssm_kernel's launch
@@ -77,31 +92,46 @@ constexpr int max_threads(int K) { return K >= 8 ? 256 : 512; }
 // (U = 32 / K divides 32), so a short trip's last group stays inside it.
 __host__ __device__ constexpr int stage_rows(int chunk) { return (chunk + 31) / 32 * 32; }
 
-// Bytes of one stage: x, dt as [rows][block_d], Bc, Cc as [rows][N],
+// The states the kernel runs on: N rounded up to a power of two.
+constexpr int pad_states(int n) {
+  int p = 1;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// Bytes of one stage: x, dt as [rows][block_d], Bc, Cc as [rows][NP],
 // each region 16-byte aligned.
 long long stage_bytes(int block_d, int chunk, int n_state, int elt) {
   const long long rows = stage_rows(chunk);
-  return 2 * scan::align16(rows * block_d * elt) + 2 * scan::align16(rows * n_state * elt);
+  return 2 * scan::align16(rows * block_d * elt) +
+         2 * scan::align16(rows * pad_states(n_state) * elt);
 }
 
 long long smem_bytes(int block_d, int chunk, int n_state, int elt) {
   return 2 * stage_bytes(block_d, chunk, n_state, elt);
 }
 
-template <typename T, int K>
+template <typename T, int K, bool General>
 __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArgs a) {
   constexpr int U = 32 / K;  // steps of a group: at least the threads of a channel
   constexpr int kLevels = K == 1 ? 5 : K == 2 ? 4 : K == 4 ? 3 : K == 8 ? 2 : 1;  // log2(U)
   extern __shared__ __align__(16) unsigned char smem[];
   const int bd = a.block_d, ck = a.chunk, N = a.N, D = a.D;
-  const int tpc = N / K;   // threads of one channel
-  const int m = U / tpc;   // steps of a group whose y this thread stores
+  const int NP = General ? a.np : N;  // N itself unless General
+  const int tpc = NP / K;  // threads of one channel
   const int xd_bytes = static_cast<int>(scan::align16(1LL * stage_rows(ck) * bd * sizeof(T)));
-  const int bc_bytes = static_cast<int>(scan::align16(1LL * stage_rows(ck) * N * sizeof(T)));
+  const int bc_bytes = static_cast<int>(scan::align16(1LL * stage_rows(ck) * NP * sizeof(T)));
   const int stage = 2 * xd_bytes + 2 * bc_bytes;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int dl = tid / tpc;
   const int g = tid - dl * tpc;
+  // lanes that end a group with the same step's sum (more than 1 only past
+  // N = 32), the steps of a group whose y a storing lane stores, and the
+  // lane's first
+  const int spread = General && tpc > U ? tpc / U : 1;
+  const int m = General && tpc > U ? 1 : U / tpc;
+  const int lane_first = General ? g / spread * m : g * m;
+  const bool stores = !General || g % spread == 0;
   const int tiles = D / bd;
   const int b = blockIdx.x / tiles;
   const int d0 = (blockIdx.x % tiles) * bd;
@@ -110,7 +140,12 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
   float a2[K], h[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    a2[j] = a.A[static_cast<size_t>(d) * N + g * K + j] * scan::kLog2e;
+    const int n = g * K + j;
+    if constexpr (General) {
+      a2[j] = n < N ? a.A[static_cast<size_t>(d) * N + n] * scan::kLog2e : 0.0f;
+    } else {
+      a2[j] = a.A[static_cast<size_t>(d) * N + n] * scan::kLog2e;
+    }
     h[j] = 0.0f;
   }
   const float skip = a.skip[d];
@@ -125,8 +160,8 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
   auto rows_of = [&](int k) { return min(ck, a.S - k * ck); };
 
   // cp.async trip `trip` into stage `s`: x, dt rows of block_d elements
-  // (row stride D), then the trip's contiguous N values a step of Bc and
-  // Cc; a short trip's rows up to its last group's end are set to 0.
+  // (row stride D), then the trip's N values a step of Bc and Cc into rows
+  // of NP; a short trip's rows up to its last group's end are set to 0.
   auto load_trip = [&](int trip, int s) {
     unsigned char* base = smem + s * stage;
     const size_t r = row0 + static_cast<size_t>(trip) * ck;
@@ -142,24 +177,48 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
       scan::copy_piece(base + off, xs + src, gx);
       scan::copy_piece(base + xd_bytes + off, dts + src, gx);
     }
-    const int gb = a.g_bc, bc_pieces = n * N * static_cast<int>(sizeof(T)) / gb;
+    const int gb = a.g_bc;
     const char* bs = reinterpret_cast<const char*>(Bc + r * N);
     const char* cs = reinterpret_cast<const char*>(Cc + r * N);
-    for (int e = tid; e < bc_pieces; e += nthreads) {
-      scan::copy_piece(base + 2 * xd_bytes + e * gb, bs + e * gb, gb);
-      scan::copy_piece(base + 2 * xd_bytes + bc_bytes + e * gb, cs + e * gb, gb);
+    if constexpr (!General) {  // the trip's rows are contiguous in both
+      const int bc_pieces = n * N * static_cast<int>(sizeof(T)) / gb;
+      for (int e = tid; e < bc_pieces; e += nthreads) {
+        scan::copy_piece(base + 2 * xd_bytes + e * gb, bs + e * gb, gb);
+        scan::copy_piece(base + 2 * xd_bytes + bc_bytes + e * gb, cs + e * gb, gb);
+      }
+    } else {
+      const int bc_row = N * static_cast<int>(sizeof(T)) / gb;
+      for (int e = tid; e < n * bc_row; e += nthreads) {
+        const int t = e / bc_row;
+        const int piece = (e - t * bc_row) * gb;
+        const int off = t * NP * static_cast<int>(sizeof(T)) + piece;
+        const int src = t * N * static_cast<int>(sizeof(T)) + piece;
+        scan::copy_piece(base + 2 * xd_bytes + off, bs + src, gb);
+        scan::copy_piece(base + 2 * xd_bytes + bc_bytes + off, cs + src, gb);
+      }
     }
     const int dead = (n + U - 1) / U * U - n;
     T* zx = reinterpret_cast<T*>(base) + n * bd;
     T* zdt = reinterpret_cast<T*>(base + xd_bytes) + n * bd;
-    T* zb = reinterpret_cast<T*>(base + 2 * xd_bytes) + n * N;
+    T* zb = reinterpret_cast<T*>(base + 2 * xd_bytes) + n * NP;
     for (int e = tid; e < dead * bd; e += nthreads) {
       zx[e] = scan::from_f32<T>(0.0f);
       zdt[e] = scan::from_f32<T>(0.0f);
     }
-    for (int e = tid; e < dead * N; e += nthreads) zb[e] = scan::from_f32<T>(0.0f);
+    for (int e = tid; e < dead * NP; e += nthreads) zb[e] = scan::from_f32<T>(0.0f);
     scan::cp_async_commit();
   };
+
+  // the columns past N of both stages' B and C rows: 0 for the whole run
+  if (General && N < NP) {
+    const int pad = NP - N, per = stage_rows(ck) * pad;
+    for (int e = tid; e < 4 * per; e += nthreads) {
+      const int region = e / per, rest = e - region * per, row = rest / pad;
+      T* rows = reinterpret_cast<T*>(smem + (region >> 1) * stage + 2 * xd_bytes +
+                                     (region & 1) * bc_bytes);
+      rows[row * NP + N + (rest - row * pad)] = scan::from_f32<T>(0.0f);
+    }
+  }
 
   const int trips = (a.S + ck - 1) / ck;
   load_trip(0, 0);
@@ -179,7 +238,7 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
       float dec[U][K], ub[U][K];
       const T* px = sx + t0 * bd + dl;
       const T* pdt = sdt + t0 * bd + dl;
-      const T* pb = sb + t0 * N;
+      const T* pb = sb + t0 * NP;
 #pragma unroll
       for (int s = 0; s < U; ++s) {
         const float dtv = scan::to_f32(*pdt);
@@ -188,7 +247,7 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
         scan::load_vec<T, K>(pb, bv);
         px += bd;
         pdt += bd;
-        pb += N;
+        pb += NP;
 #pragma unroll
         for (int j = 0; j < K; ++j) {
           dec[s][j] = scan::ex2(dtv * a2[j]);
@@ -197,12 +256,12 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
       }
       // the recurrence, and each step's partial y over this thread's states
       float p[U];
-      const T* pc = sc + t0 * N;
+      const T* pc = sc + t0 * NP;
 #pragma unroll
       for (int s = 0; s < U; ++s) {
         float cv[K];
         scan::load_vec<T, K>(pc, cv);
-        pc += N;
+        pc += NP;
         float ps = 0.0f;
 #pragma unroll
         for (int j = 0; j < K; ++j) {
@@ -213,7 +272,8 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
       }
       // reduce-scatter over the channel's lanes: each level halves the
       // steps a lane holds, sending the half its partner keeps, so lane g
-      // ends with the sums of steps [g m, g m + m) in p[0..m)
+      // ends with the sums of steps [g m, g m + m) in p[0..m); past
+      // N = 32 (spread > 1) with step g / spread's sum over U lanes in p[0]
 #pragma unroll
       for (int l = 0; l < kLevels; ++l) {
         if ((tpc >> l) > 1) {
@@ -226,11 +286,16 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
           }
         }
       }
-      T* py = yk + static_cast<size_t>(t0 + g * m) * D;
-      const T* pxs = sx + (t0 + g * m) * bd + dl;
+      // ... which a butterfly over the spread lanes completes
+      if constexpr (General) {
+        for (int o = spread / 2; o >= 1; o /= 2) p[0] += __shfl_xor_sync(0xffffffffu, p[0], o);
+      }
+      const int first = t0 + lane_first;  // this lane's first step
+      T* py = yk + static_cast<size_t>(first) * D;
+      const T* pxs = sx + first * bd + dl;
 #pragma unroll
       for (int i = 0; i < U; ++i) {
-        if (i < m && t0 + g * m + i < n) {
+        if (stores && i < m && first + i < n) {
           *py = scan::from_f32<T>(fmaf(scan::to_f32(*pxs), skip, p[i]));
           py += D;
           pxs += bd;
@@ -240,30 +305,33 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool General>
 int launch(SsmArgs a, int B, cudaStream_t stream) {
   const int elt = static_cast<int>(sizeof(T));
   const long long smem = smem_bytes(a.block_d, a.chunk, a.N, elt);
   cudaError_t err = cudaFuncSetAttribute(
-      ssm_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      ssm_kernel<T, K, General>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
   a.g_xd = scan::copy_bytes(elt, {1ULL * a.block_d * elt, 1ULL * a.D * elt, addr(a.x),
                                   addr(a.dt)});
   a.g_bc = scan::copy_bytes(elt, {1ULL * a.N * elt, addr(a.Bc), addr(a.Cc)});
   const unsigned grid = static_cast<unsigned>(B * (a.D / a.block_d));
-  ssm_kernel<T, K><<<grid, a.block_d * a.N / K, static_cast<size_t>(smem), stream>>>(a);
+  ssm_kernel<T, K, General><<<grid, a.block_d * a.np / K, static_cast<size_t>(smem),
+                             stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_states(const SsmArgs& a, int B, int states, cudaStream_t s) {
+  const bool general = a.N != a.np || a.np > 32;
   switch (states) {
-    case 1: return launch<T, 1>(a, B, s);
-    case 2: return launch<T, 2>(a, B, s);
-    case 4: return launch<T, 4>(a, B, s);
-    case 8: return launch<T, 8>(a, B, s);
-    case 16: return launch<T, 16>(a, B, s);
+    case 1: return general ? launch<T, 1, true>(a, B, s) : launch<T, 1, false>(a, B, s);
+    case 2: return general ? launch<T, 2, true>(a, B, s) : launch<T, 2, false>(a, B, s);
+    case 4: return general ? launch<T, 4, true>(a, B, s) : launch<T, 4, false>(a, B, s);
+    case 8: return general ? launch<T, 8, true>(a, B, s) : launch<T, 8, false>(a, B, s);
+    case 16: return general ? launch<T, 16, true>(a, B, s) : launch<T, 16, false>(a, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -280,22 +348,24 @@ extern "C" long long ssm_scan_smem_bytes(int block_d, int chunk, int n_state, in
 extern "C" int ssm_scan_max_threads(int states) { return max_threads(states); }
 
 // x, dt, Bc, Cc, y: elements of elt bytes (4: float32, 2: bf16); A, skip
-// float32.  Any S >= 1 and chunk >= 1; N must be a power of two up to 32,
-// states a power of two up to 16 that divides N, and block_d * N / states
-// a multiple of 32 up to max_threads(states).  Returns the
-// launch's cudaGetLastError() code (cudaErrorInvalidValue for what the
-// kernel does not take).
+// float32.  Any S >= 1 and chunk >= 1; N from 1 to 256 (NP: N rounded up
+// to a power of two), states a power of two up to 16 and NP at most with
+// NP / states <= 32 lanes a channel, and block_d * NP / states a multiple
+// of 32 up to max_threads(states).  Returns the launch's
+// cudaGetLastError() code (cudaErrorInvalidValue for what the kernel does
+// not take).
 extern "C" int ssm_scan_launch(
     const void* x, const void* dt, const void* A, const void* Bc, const void* Cc,
     const void* skip, void* y, int B, int S, int D, int N, int block_d, int chunk,
     int states, int elt, void* stream) {
-  const bool pow2 = N > 0 && N <= 32 && (N & (N - 1)) == 0 && states > 0 && states <= 16 &&
-                    (states & (states - 1)) == 0;
-  if (!pow2 || N % states || B < 1 || S < 1 || block_d < 1 || chunk < 1 || D % block_d ||
+  const int np = pad_states(N);
+  const bool ok = N >= 1 && N <= 256 && states > 0 && states <= 16 &&
+                  (states & (states - 1)) == 0 && states <= np && np / states <= 32;
+  if (!ok || B < 1 || S < 1 || block_d < 1 || chunk < 1 || D % block_d ||
       (elt != 4 && elt != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads = 1LL * block_d * N / states;
+  const long long threads = 1LL * block_d * np / states;
   if (threads > max_threads(states) || threads % 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -310,6 +380,7 @@ extern "C" int ssm_scan_launch(
   a.S = S;
   a.D = D;
   a.N = N;
+  a.np = np;
   a.block_d = block_d;
   a.chunk = chunk;
   a.g_xd = a.g_bc = elt;

@@ -11,16 +11,25 @@ not divide instead of padding it in memory:
 
 * bfloat16: ``csrc/flash_attention_sm90.cu``, wgmma on the tensor cores
   with TMA loads into a 2-stage ring.  Its tiles are compile-time: only
-  the (hd, block_q, block_kv) in :data:`SM90_TILES` launch.
+  the (tile hd, block_q, block_kv) in :data:`SM90_TILES` launch.
 * float32: ``csrc/flash_attention.cu``, ``mma.sync`` on the tensor cores
   in 3xTF32 (each product split into a TF32 high part and the rest, three
   TF32 products, so float32 accuracy holds) with ``cp.async`` loads into a
   2-stage ring.  Its tiles are compile-time too: :data:`F32_TILES`.
+
+The head dim is a run-time value in both: a call runs on the least tile
+head dim in :data:`TILE_HEAD_DIMS` at or above its ``hd`` (:func:`tile_hd`),
+and the tile's columns past ``hd`` load as zeros inside the kernel.  Both
+take every ``hd`` up to 256 whose rows are whole 16-byte pieces: a
+multiple of 8 in bf16 (TMA's stride rule), of 4 in float32 (the cp.async
+pieces).  :func:`launchable` is the one predicate the emit layer and the
+wrapper share.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -30,7 +39,10 @@ from .ref import attention_ref
 attention_plain = attention_ref
 counter = _build.Counter()
 
-HEAD_DIMS = (16, 32, 64, 128)
+TILE_HEAD_DIMS = (16, 32, 64, 128, 256)
+HD_MAX = 256
+# hd a multiple of this: rows of whole 16-byte pieces
+HD_MULTIPLE = {"bfloat16": 8, "float32": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
@@ -49,42 +61,79 @@ SM90_BLOCK_Q = (64, 128)
 SM90_BLOCK_KV = (32, 64, 128, 256)
 
 
-def sm90_max_block_kv(hd: int) -> int:
-    return 128 if hd == 128 else 256
+def sm90_max_block_kv(tile: int) -> int:
+    """The largest block_kv at tile head dim ``tile`` (registers: O alone
+    is 128 a thread at 256)."""
+    return {128: 128, 256: 64}.get(tile, 256)
 
 
 SM90_TILES = frozenset(
-    (hd, bq, bkv) for hd in HEAD_DIMS for bq in SM90_BLOCK_Q for bkv in SM90_BLOCK_KV
-    if bkv <= sm90_max_block_kv(hd)
+    (t, bq, bkv) for t in TILE_HEAD_DIMS for bq in SM90_BLOCK_Q for bkv in SM90_BLOCK_KV
+    if bkv <= sm90_max_block_kv(t)
 )
 
 # The float32 kernel's instantiations (FLASH_F32_TILES in the source): a
 # warp owns 16 query rows, so block_q is 16 x its warps; block_kv is the
 # keys of one ring stage, at most 64 at hd 128, where two stages of 128
-# keys would not fit the shared memory.
+# keys would not fit the shared memory, and one tile, (64, 32), at hd 256.
 F32_BLOCK_Q = (64, 128)
 F32_BLOCK_KV = (32, 64, 128)
 
 
-def f32_max_block_kv(hd: int) -> int:
-    return 64 if hd == 128 else 128
+def f32_max_block_kv(tile: int) -> int:
+    return {128: 64, 256: 32}.get(tile, 128)
+
+
+def f32_max_block_q(tile: int) -> int:
+    return 64 if tile == 256 else 128
 
 
 F32_TILES = frozenset(
-    (hd, bq, bkv) for hd in HEAD_DIMS for bq in F32_BLOCK_Q for bkv in F32_BLOCK_KV
-    if bkv <= f32_max_block_kv(hd)
+    (t, bq, bkv) for t in TILE_HEAD_DIMS for bq in F32_BLOCK_Q for bkv in F32_BLOCK_KV
+    if bkv <= f32_max_block_kv(t) and bq <= f32_max_block_q(t)
 )
 
 
+def head_dim_error(hd: int, dtype: str) -> Optional[str]:
+    """Why the kernel of ``dtype`` (``"float32"``/``"bfloat16"``) does not
+    take head dim ``hd``, or None where it does."""
+    m = HD_MULTIPLE.get(dtype)
+    if m is None:
+        return f"flash_attention: dtype {dtype} not supported"
+    if hd < m or hd > HD_MAX or hd % m:
+        return (f"flash_attention: {dtype} head_dim {hd} must be a multiple of {m} "
+                f"up to {HD_MAX} (rows of whole 16-byte pieces)")
+    return None
+
+
+def tile_hd(hd: int, dtype: str) -> Optional[int]:
+    """The tile head dim a call at ``hd`` runs on (the least of
+    :data:`TILE_HEAD_DIMS` at or above it), or None where the kernel does
+    not take ``hd``."""
+    if head_dim_error(hd, dtype) is not None:
+        return None
+    return next(t for t in TILE_HEAD_DIMS if t >= hd)
+
+
+def launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
+    """True iff the kernel of ``dtype`` launches (block_q, block_kv) at
+    head dim ``hd``: the emit layer's point filter and the wrapper's check."""
+    tile = tile_hd(hd, dtype)
+    tiles = SM90_TILES if dtype == "bfloat16" else F32_TILES
+    return tile is not None and (tile, block_q, block_kv) in tiles
+
+
 def smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
-    """Dynamic shared memory of one CTA (``Tile::kSmem`` in the sources).
-    float32: the q tile and two stages of a k tile (rows padded by 8
-    floats) and a v tile (rows padded by 4).  bf16: 1 KiB to align the
-    swizzled tiles, the q tile, two stages of k and v tiles, and 64 bytes
-    of barriers."""
+    """Dynamic shared memory of one CTA (``Tile::kSmem`` in the sources)
+    at the tile head dim ``hd`` runs on (the power of two at or above it,
+    16 at least).  float32: the q tile and two stages of a k tile (rows
+    padded by 8 floats) and a v tile (rows padded by 4).  bf16: 1 KiB to
+    align the swizzled tiles, the q tile, two stages of k and v tiles, and
+    64 bytes of barriers."""
+    t = max(16, 1 << (hd - 1).bit_length())
     if elt == 2:
-        return 1024 + 2 * hd * (block_q + 4 * block_kv) + 64
-    return 4 * (block_q * (hd + 8) + 2 * block_kv * ((hd + 8) + (hd + 4)))
+        return 1024 + 2 * t * (block_q + 4 * block_kv) + 64
+    return 4 * (block_q * (t + 8) + 2 * block_kv * ((t + 8) + (t + 4)))
 
 
 def _check(q, k, v, block_q: int, block_kv: int):
@@ -114,17 +163,16 @@ def flash_attention_cuda(
     B, S, H, KV, hd = _check(q, k, v, block_q, block_kv)
     if _build.route((q, k, v), "flash_attention") != "cuda":
         raise ValueError("flash_attention_cuda: inputs must be CUDA tensors")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not supported")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head_dim {hd} not in {HEAD_DIMS}")
+    dtype = _name(q.dtype)
+    why = head_dim_error(hd, dtype)
+    if why is not None:
+        raise ValueError(why)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
-    tiles = SM90_TILES if q.dtype == torch.bfloat16 else F32_TILES
-    if (hd, block_q, block_kv) not in tiles:
+    if not launchable(hd, dtype, block_q, block_kv):
         raise ValueError(
-            f"flash_attention_cuda: {q.dtype} tile (hd={hd}, {block_q}, {block_kv}) "
-            f"is not instantiated"
+            f"flash_attention_cuda: {dtype} tile (hd={tile_hd(hd, dtype)}, {block_q}, "
+            f"{block_kv}) is not instantiated"
         )
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: the 16-byte loads need 16-byte aligned "
@@ -153,6 +201,10 @@ def flash_attention_cuda(
     _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
     counter.launches += 1
     return o
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def flash_attention(

@@ -1,6 +1,10 @@
 """AT region and KernelSpec for the flash attention kernels.
 
-The emitted space is exactly what the kernel of the dtype takes.
+The emitted space is exactly what the kernel of the dtype takes: every
+point passes :func:`~.flash_attention.launchable`, the predicate the
+wrapper checks, at the call's head dim (run on the least instantiated tile
+head dim at or above it), and a head dim the kernel does not take raises
+the wrapper's error here too.
 ``block_q`` is a "lane" dim (one CTA per q block), ``block_kv`` a
 "sequential" dim (a loop inside the CTA, adding no CTAs); both tile past a
 sequence they do not divide, and a point survives only if its real
@@ -8,8 +12,9 @@ shared-memory bytes fit the card's opt-in limit.
 
 * bfloat16 (the wgmma kernel): the instantiated tiles and no others,
   powers of two with ``block_q`` from a warpgroup's 64 rows to 128 and
-  ``block_kv`` from 32 to 256 (128 at hd 128).  Its flops are charged at
-  the bf16 tensor-core rate, and its hint also has a latency term: the
+  ``block_kv`` from 32 to 256 (128 at tile hd 128, 64 at 256).  Its
+  flops are charged at the bf16 tensor-core rate, and its hint also has a
+  latency term: the
   kernel waits on every product, so each warpgroup's KV trip is a chain of
   dependent steps (:data:`TRIP_S` long), which an SM overlaps only across
   the warpgroups it holds at once (CUDA's occupancy of the compiled tile
@@ -17,8 +22,9 @@ shared-memory bytes fit the card's opt-in limit.
   give).
 * float32 (the 3xTF32 ``mma.sync`` kernel): the instantiated tiles and no
   others, ``block_q`` 64 or 128 (16 rows a warp), ``block_kv`` from 32 to
-  128 (64 at hd 128).  Each multiply-add is three TF32 products, so its
-  flops are charged at a third of the TF32 tensor-core rate.
+  128 (64 at tile hd 128; (64, 32) alone at 256).  Each multiply-add is
+  three TF32 products, so its flops are charged at a third of the TF32
+  tensor-core rate.
 
 The shape class keeps a power-of-two bucket of B·H (the JAX package drops
 it): the card runs one CTA per (q block, head, batch), so the hint's CTA
@@ -36,7 +42,8 @@ from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .flash_attention import (
     F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, ctas_per_sm, f32_max_block_kv,
-    flash_attention, sm90_max_block_kv, smem_bytes,
+    f32_max_block_q, flash_attention, head_dim_error, launchable, sm90_max_block_kv,
+    smem_bytes, tile_hd,
 )
 from .ref import attention_ref
 
@@ -108,13 +115,19 @@ def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) ->
 
 
 def _dims(bp: Mapping[str, Any]):
+    why = head_dim_error(bp["hd"], bp["dtype"])
+    if why is not None:
+        raise ValueError(why)
+    tile = tile_hd(bp["hd"], bp["dtype"])
     if bp["dtype"] == "bfloat16":
-        block_q, block_kv, max_kv = SM90_BLOCK_Q, SM90_BLOCK_KV, sm90_max_block_kv(bp["hd"])
+        block_q, block_kv = SM90_BLOCK_Q, SM90_BLOCK_KV
+        max_q, max_kv = block_q[-1], sm90_max_block_kv(tile)
     else:
-        block_q, block_kv, max_kv = F32_BLOCK_Q, F32_BLOCK_KV, f32_max_block_kv(bp["hd"])
+        block_q, block_kv = F32_BLOCK_Q, F32_BLOCK_KV
+        max_q, max_kv = f32_max_block_q(tile), f32_max_block_kv(tile)
     return (
         TileDim("block_q", bp["seq"], semantic="lane", min_tile=block_q[0],
-                max_tile=block_q[-1], allow_padding=True, pow2_only=True),
+                max_tile=max_q, allow_padding=True, pow2_only=True),
         TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=block_kv[0],
                 max_tile=max_kv, allow_padding=True, pow2_only=True),
     )
@@ -133,6 +146,7 @@ FLASH_POLICY = TilePolicy(
         arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_tf32 / 3
     ),
     latency_model=_latency,
+    point_filter=lambda bp, p: launchable(bp["hd"], bp["dtype"], p["block_q"], p["block_kv"]),
 )
 
 

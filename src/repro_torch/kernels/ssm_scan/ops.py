@@ -1,10 +1,12 @@
 """AT region and KernelSpec for the selective-scan kernel.
 
-The emitted space is exactly what the kernel takes, in float32 and bf16.
-``states`` is the states one thread carries (1 to 16, dividing N): a
+The emitted space is exactly what the kernel takes, in float32 and bf16,
+at any state size N up to 256, which the kernel runs as NP, N rounded up
+to a power of two.  ``states`` is the states one thread carries (1 to 16,
+dividing NP, with ``NP / states`` at most a warp's 32 lanes a channel): a
 compile-time instantiation that adds no CTAs.  ``block_d`` is the channels
-of one CTA, ``N / states`` threads each: a "grid" dim from one warp at one
-state a thread (``32 / N`` channels) up to the widest CTA any ``states``
+of one CTA, ``NP / states`` threads each: a "grid" dim from one warp at one
+state a thread (``32 / NP`` channels) up to the widest CTA any ``states``
 takes.  ``chunk`` is the time steps staged per loop trip: a "sequential"
 dim (a loop inside the CTA) from a warp's 32 to 256, which need not divide
 the sequence.  A point survives only if its threads are whole warps
@@ -35,7 +37,8 @@ from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .ref import ssm_scan_ref
 from .ssm_scan import (
-    DTYPES, STATES, WARP, group, max_threads, sfu_seconds, smem_bytes, ssm_scan, traffic,
+    DTYPES, STATES, WARP, group, max_threads, pad_states, sfu_seconds, smem_bytes, ssm_scan,
+    traffic,
 )
 
 _ELT = {str(dt).replace("torch.", ""): elt for dt, elt in DTYPES.items()}
@@ -58,19 +61,21 @@ def _elt(bp: Mapping[str, Any]) -> int:
 
 
 def _threads(bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
-    return point["block_d"] * bp["n_state"] // point["states"]
+    return point["block_d"] * pad_states(bp["n_state"]) // point["states"]
 
 
 def _takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
     threads = _threads(bp, point)
     whole_groups = point["chunk"] % group(point["states"]) == 0 or point["chunk"] == bp["seq"]
-    return threads % WARP == 0 and threads <= max_threads(point["states"]) and whole_groups
+    lanes = pad_states(bp["n_state"]) // point["states"]  # a channel's, within a warp
+    return (threads % WARP == 0 and threads <= max_threads(point["states"]) and whole_groups
+            and lanes <= WARP)
 
 
 def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
     """The warp-steps' time over the SMs the CTAs fill, stretched where an
     SM holds fewer than WARPS_FULL warps, and no less than the SFU's."""
-    B, S, D, N = bp["batch"], bp["seq"], bp["d_inner"], bp["n_state"]
+    B, S, D, N = bp["batch"], bp["seq"], bp["d_inner"], pad_states(bp["n_state"])
     k = point["states"]
     ctas = B * (D // point["block_d"])
     sms = min(ctas, arch.sm_count)
@@ -82,8 +87,8 @@ def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) ->
 
 
 def _dims(bp: Mapping[str, Any]):
-    N = bp["n_state"]
-    widest = max(max_threads(k) * k // N for k in STATES if N % k == 0)
+    N = pad_states(bp["n_state"])
+    widest = max(max_threads(k) * k // N for k in STATES if N % k == 0 and N // k <= WARP)
     return (
         TileDim("block_d", bp["d_inner"], semantic="grid",
                 min_tile=max(1, WARP // N), max_tile=widest),

@@ -8,14 +8,18 @@ order is the JAX package's; ``D`` is the skip vector, not the width.
 
 x, dt, Bc and Cc share one dtype, float32 or bfloat16, and y takes it (as
 the JAX kernel casts them to float32 and y to ``x.dtype``); A and D are
-float32.  One thread carries ``states`` consecutive states of a channel
-over the whole sequence, so a channel takes ``N / states`` threads and a
-CTA of ``block_d`` channels ``block_d * N / states``; it stages ``chunk``
-time steps per loop trip in one of two shared-memory stages.  As in the
-JAX kernel, each tile is first ``min``'d to its extent (``states`` to N);
-``block_d`` must then divide D, while ``chunk`` need not divide S: the
-kernel sets the steps past the sequence's end to dt = 0 (decay 1, input
-0) in shared memory, so every S runs.  N is a power of two up to 32.
+float32.  The kernel runs on NP states, N rounded up to a power of two
+(:func:`pad_states`; the states past N read A = 0 and B = C = 0 in shared
+memory, so they stay 0 and add nothing), and N may be anything from 1 to
+:data:`N_MAX`.  One thread carries ``states`` consecutive states of a
+channel over the whole sequence, so a channel takes ``NP / states``
+threads, at most a warp, and a CTA of ``block_d`` channels
+``block_d * NP / states``; it stages ``chunk`` time steps per loop trip in
+one of two shared-memory stages.  As in the JAX kernel, each tile is first
+``min``'d to its extent (``states`` to NP); ``block_d`` must then divide D,
+while ``chunk`` need not divide S: the kernel sets the steps past the
+sequence's end to dt = 0 (decay 1, input 0) in shared memory, so every S
+runs.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from .ref import ssm_scan_ref
 ssm_scan_plain = ssm_scan_ref
 counter = _build.Counter()
 
-WARP = 32            # block_d * N / states is a whole number of warps
-N_STATES = (1, 2, 4, 8, 16, 32)
+WARP = 32            # block_d * NP / states is a whole number of warps
+N_MAX = 256          # NP / states lanes a channel, at most a warp's 32
 STATES = (1, 2, 4, 8, 16)  # states a thread carries: compile-time in the kernel
 DTYPES = {torch.float32: 4, torch.bfloat16: 2}  # input dtype -> element bytes
 SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
@@ -53,6 +57,12 @@ def group(states: int) -> int:
     return 32 // states
 
 
+def pad_states(n_state: int) -> int:
+    """The states the kernel runs on: ``n_state`` rounded up to a power
+    of two."""
+    return 1 << (n_state - 1).bit_length()
+
+
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -60,10 +70,12 @@ def _align16(n: int) -> int:
 def smem_bytes(block_d: int, chunk: int, n_state: int, elt: int = 4) -> int:
     """Dynamic shared memory of one CTA (``smem_bytes`` in the source):
     two stages, each ``chunk`` steps rounded up to 32 (a whole group at any
-    ``states``) of x and dt for ``block_d`` channels and of B_t, C_t, at
-    ``elt`` bytes an element, each array 16-byte aligned."""
+    ``states``) of x and dt for ``block_d`` channels and of B_t, C_t in
+    rows of :func:`pad_states` values, at ``elt`` bytes an element, each
+    array 16-byte aligned."""
     rows = -(-chunk // WARP) * WARP
-    stage = 2 * _align16(rows * block_d * elt) + 2 * _align16(rows * n_state * elt)
+    stage = (2 * _align16(rows * block_d * elt)
+             + 2 * _align16(rows * pad_states(n_state) * elt))
     return 2 * stage
 
 
@@ -90,24 +102,29 @@ def _check(x, dt, A, Bc, Cc, D, block_d: int, chunk: int, states: int):
     for name, t in (("A", A), ("D", D)):
         if t.dtype != torch.float32:
             raise ValueError(f"ssm_scan: {name} must be float32, got {t.dtype}")
-    if N not in N_STATES:
-        raise ValueError(f"ssm_scan: state size N={N} not in {N_STATES}")
+    if not 1 <= N <= N_MAX:
+        raise ValueError(f"ssm_scan: state size N={N} outside 1..{N_MAX} (the kernel's "
+                         f"{N_MAX} states a channel: {WARP} lanes of up to 8 each)")
     if block_d < 1 or chunk < 1:
         raise ValueError(f"ssm_scan: tiles ({block_d},{chunk}) must be >= 1")
-    bd, ck, k = min(block_d, Dd), min(chunk, S), min(states, N)
+    NP = pad_states(N)
+    bd, ck, k = min(block_d, Dd), min(chunk, S), min(states, NP)
     if Dd % bd:
         raise ValueError(f"blocks ({bd},{ck}): block_d must divide D={Dd}")
-    if k not in STATES or N % k:
-        raise ValueError(f"ssm_scan: states {states} not in {STATES} or does not divide N={N}")
+    if k not in STATES:
+        raise ValueError(f"ssm_scan: states {states} not in {STATES}")
+    if NP // k > WARP:
+        raise ValueError(f"ssm_scan: states {k} leave {NP // k} lanes a channel at N={N} "
+                         f"({NP} run); a channel takes at most {WARP}")
     if ck % group(k) and ck != S:
         raise ValueError(
             f"ssm_scan: chunk {ck} is not a multiple of the {group(k)} steps taken together "
             f"at states {k}, nor the whole sequence S={S}"
         )
-    threads = bd * N // k
+    threads = bd * NP // k
     if threads > max_threads(k) or threads % WARP:
         raise ValueError(
-            f"ssm_scan: block_d {bd} x N {N} / states {k} = {threads} threads; a CTA "
+            f"ssm_scan: block_d {bd} x N {NP} / states {k} = {threads} threads; a CTA "
             f"takes a multiple of {WARP} up to {max_threads(k)}"
         )
     elt = DTYPES[x.dtype]

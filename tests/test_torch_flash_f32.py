@@ -44,8 +44,9 @@ def test_python_tile_table_is_the_sources():
     body = body[: body.index("\n\n")]
     tiles = {tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)}
     assert tiles == set(fa_mod.F32_TILES)
-    assert len(tiles) == 22
+    assert len(tiles) == 23
     assert max(bkv for hd, _, bkv in tiles if hd == 128) == 64
+    assert {(bq, bkv) for hd, bq, bkv in tiles if hd == 256} == {(64, 32)}
 
 
 def test_f32_source_is_the_tensor_core_kernel():

@@ -43,8 +43,9 @@ def test_python_tile_table_is_the_sources():
     body = body[: body.index("\n\n")]
     tiles = {tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)}
     assert tiles == set(fa_mod.SM90_TILES)
-    assert len(tiles) == 30
+    assert len(tiles) == 34
     assert max(bkv for hd, _, bkv in tiles if hd == 128) == 128
+    assert max(bkv for hd, _, bkv in tiles if hd == 256) == 64
 
 
 def test_bf16_source_is_the_tensor_core_kernel():

@@ -139,10 +139,10 @@ def test_ssm_wrapper_rejects_what_the_kernel_does_not_take():
     n16 = carry.ssm_inputs(*ssm_numpy(seed=47, S=32, D=512, N=16), device="cpu")
     with pytest.raises(ValueError, match="up to 256"):
         ssm_mod.ssm_scan(*n16, block_d=256, chunk=32, states=8)  # 512 threads
-    with pytest.raises(ValueError, match="N=3"):
-        s3 = carry.ssm_inputs(*ssm_numpy(seed=46, N=3), device="cpu")
-        ssm_mod.ssm_scan(*s3, block_d=32, chunk=32)
-    with pytest.raises(ValueError, match="N=64"):
+    with pytest.raises(ValueError, match=r"N=300 outside 1\.\.256"):
+        s300 = carry.ssm_inputs(*ssm_numpy(seed=46, S=32, D=32, N=300), device="cpu")
+        ssm_mod.ssm_scan(*s300, block_d=32, chunk=32, states=16)
+    with pytest.raises(ValueError, match="64 lanes a channel"):
         s64 = carry.ssm_inputs(*ssm_numpy(seed=46, S=32, D=32, N=64), device="cpu")
         ssm_mod.ssm_scan(*s64, block_d=1, chunk=32)
     big = carry.ssm_inputs(*ssm_numpy(seed=47, S=32, D=512, N=4), device="cpu")
