@@ -25,7 +25,13 @@ runs for all five ported kernels at real sizes:
 * the paper's apps on the loop-nest kernel: the GKV region (10 loop
   variants × 9 degrees at (16, 16, 128, 65)) tuned through the Tuner and
   recalled from its TuningDB, the Seism3D region at 256³ likewise, and the
-  Fig. 12 degree switch on it.
+  Fig. 12 degree switch on it;
+* the model zoo's serving entry points (``repro_torch.models``: prefill,
+  then greedy decode) on random bf16 weights from the seed, at full width:
+  tinyllama-1.1b at full depth (22 layers, flash at hd 64), falcon-mamba-7b
+  at 2 layers (``ssm_scan`` with its final state) and recurrentgemma-2b at
+  3 layers (``rglru_scan``, flash at hd 256), B=1, a 2048-token prompt,
+  sharing the kernel phases' TuningDB; and every arch at its SMOKE config.
 
 Phases, each of which fails the run:
 
@@ -50,6 +56,12 @@ Phases, each of which fails the run:
 3c. the apps: every (variant, degree) of GKV (10 × 9) and of Seism3D at
    64³ and 256³ (6 × 9 each) against the plain body on the card, each call
    timed once;
+3d. head dims off the kernels' 16-byte rule (C3): every emitted flash point
+   at hd 12, 36, 100 (bf16) and 6, 50 (f32), S=2048, 8|2 heads, run padded
+   by the wrapper, against the plain version, and the copy's cost (the
+   wrapper's time against the kernel alone on inputs padded beforehand);
+   ``ssm_scan`` with its final state at every emitted point of the falcon
+   shape class, y and h against the plain version's;
 4. main path, per kernel: every launch count reset, a cold tune
    (evaluations > 0), a fresh op on the same DB file recalling with 0
    evaluations and two fast-path calls; the counts read at once: the
@@ -65,7 +77,27 @@ Phases, each of which fails the run:
    tuned cold through the Tuner (the GKV one as Figs. 13–14), recalled
    from a fresh TuningDB with no measurement, the recalled point run and
    checked, and Fig. 12 (a DegreeController switch a call) at 256³; the
-   ``[fig11]``..``[fig14]`` lines set each figure beside the paper's.
+   ``[fig11]``..``[fig14]`` lines set each figure beside the paper's;
+5. the models (``[model]`` lines), each phase with the counts reset before
+   its prefill and read after it: the evaluations each shape class spent
+   tuning (0 for every class a kernel phase tuned: the model path recalls
+   them), the launches of a prefill (one flash call a causal attention
+   layer, one scan a recurrent layer; no plain call), prefill ms and
+   decode ms a token (CUDA events) beside their bounds
+   (``analytic_step_flops`` at the bf16 peak; the bytes a decode step must
+   move at the memory rate), the hand-written kernels' share of one
+   ``torch.profiler`` prefill, each kernel call of a prefill against its
+   plain version on the same inputs (flash: worst row within 4·2⁻⁸; the
+   scans: their f32 tolerance), and, on the same weights with the
+   attention projections drawn at the fan-in of d_model (``temper``: the
+   JAX init's fan-in of the heads makes a full-width model chaotic, one
+   bf16 ulp flipping a softmax), the kernel route's last logits against
+   the plain versions' on the card (worst row within 4·2⁻⁸) and decode
+   after prefill (prompt[:512] and one step against prefill of
+   prompt[:513], within ``tests/test_models.py``'s rtol 0.1, atol 0.08),
+   both also reported, unchecked, at the JAX init; then every arch at
+   SMOKE, tempered: prefill and 4 decode steps on the card against the
+   port's CPU run on the same weights (worst row within 4·2⁻⁸).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -79,7 +111,10 @@ tuned point and time beside the fastest swept one (``b4_s2047_*``), and
 flash's and ``ssm_scan``'s also give their times at the new head dims and
 state sizes beside their bounds; ``loop_nest_gkv`` and
 ``loop_nest_seism3d`` give the tuned point's time, its outer launches and
-CTAs, and the bound of the domain's bytes.  The last line is
+CTAs, and the bound of the domain's bytes; the kernels on the model path
+also give ``model_launches`` (a prefill's, per model), flash its ``c3``
+rows and ``ssm_scan`` its final state's errors.  A ``{"models": ...}``
+line before it holds the model phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -138,6 +173,21 @@ RGLRU_SHORT = [(dict(B=2, S=7, W=24), [dict(block_w=8, chunk=7, split=2),
                                        dict(block_w=3, chunk=7, split=1)]),
                (dict(B=1, S=1, W=24), [dict(block_w=3, chunk=1, split=1)]),
                (dict(B=1, S=64, W=128), [dict(block_w=8, chunk=24, split=2)])]
+
+
+# the model zoo on the card: (arch, depth or None for the full depth,
+# decode steps) at full width, B=1, a 2048-token prompt
+MODELS = (("tinyllama-1.1b", None, 32), ("falcon-mamba-7b", 2, 16),
+          ("recurrentgemma-2b", 3, 16))
+MODEL_S = 2048
+MODEL_CHECK_S = 512  # decode after prefill: prompt[:512] + one step vs prompt[:513]
+SMOKE_STEPS = 4      # decode steps of each SMOKE config, card against CPU
+# C3: head dims off the kernels' 16-byte rule, run padded (S=2048, 8|2 heads)
+C3_HEAD_DIMS = (("bfloat16", (12, 36, 100)), ("float32", (6, 50)))
+C3_SHAPE = dict(B=1, S=2048, H=8, KV=2)
+# the kernels each model phase reaches, by the name of their compiled entry
+KERNEL_ENTRIES = {"flash_attention": ("flash_fwd",), "ssm_scan": ("ssm_kernel",),
+                  "rglru_scan": ("rglru_kernel",)}
 
 
 def fail(msg: str) -> int:
@@ -321,6 +371,369 @@ def sweep_once(torch, label, region, run, plain_out, timer, counter, errors):
     print(f"[sweep] {label}: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
     return worst, worst_row, times
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of ``fn`` over ``reps`` runs after a warm one,
+    CUDA events around each, in ms (no flush: a model step's own state)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def worst_row(torch, got, ref) -> float:
+    """The worst row's ||got - ref|| / ||ref|| over the last axis."""
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float(((got - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def model_kernels(cfg) -> dict:
+    """The kernel launches one prefill of ``cfg`` makes: one flash call a
+    causal self-attention layer (a hybrid's at S <= its window), one scan
+    a recurrent layer."""
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssm_scan": cfg.n_layers, "rglru_scan": 0}
+    if cfg.family == "hybrid":
+        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+        return {"flash_attention": kinds.count("attn"), "ssm_scan": 0,
+                "rglru_scan": kinds.count("rec")}
+    return {"flash_attention": cfg.n_layers, "ssm_scan": 0, "rglru_scan": 0}
+
+
+def decode_bytes(tm, cfg, ctx: int) -> float:
+    """Bytes one decode step must move at ``ctx`` cached positions: every
+    weight once (the embedding table only where it is also the unembedding:
+    a lookup gathers one row), the K/V positions attended, and each
+    recurrent state read and written."""
+    n = tm.count_params(tm.param_specs(cfg))
+    weights = 2.0 * (n - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+    kinds = model_kernels(cfg)
+    kv = 2.0 * 2 * cfg.n_kv_heads * cfg.head_dim_ * kinds["flash_attention"]
+    if cfg.family == "hybrid":
+        kv *= min(ctx, cfg.local_window)
+    else:
+        kv *= ctx
+    state = 0.0
+    if cfg.family == "ssm":
+        state = cfg.n_layers * 2 * (4.0 * cfg.d_inner * cfg.ssm_state
+                                    + 2.0 * (cfg.d_conv - 1) * cfg.d_inner)
+    elif cfg.family == "hybrid":
+        state = kinds["rglru_scan"] * 2 * (4.0 * cfg.lru_width_
+                                           + 2.0 * (cfg.d_conv - 1) * cfg.lru_width_)
+    return weights + kv + state
+
+
+def kernel_share(torch, fn) -> tuple:
+    """(device ms of the hand-written kernels, device ms of everything, the
+    eight entries with the most device time as (name, ms)) in one
+    ``torch.profiler`` run of ``fn``; (None, None, []) if it saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ours = total = 0.0
+    rows = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue  # a host op: its kernels are rows of their own
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        total += t
+        rows.append((evt.key[:80], t / 1e3))
+        if any(name in evt.key for names in KERNEL_ENTRIES.values() for name in names):
+            ours += t
+    if total <= 0:
+        return None, None, []
+    return ours / 1e3, total / 1e3, sorted(rows, key=lambda r: -r[1])[:8]
+
+
+def temper(torch, tm, params) -> None:
+    """Draw the attention projections at the fan-in of d_model, in place:
+    the JAX init rules take a (d, heads, hd) projection's fan-in as its
+    second-to-last dim (the heads), so its scores grow with d / heads
+    (std ~180 in tinyllama-1.1b's first layer) and the model is chaotic:
+    a one-ulp bf16 change flips which key a softmax picks.  wq and wk are
+    scaled by sqrt(heads / d_model), which gives scores of about unit
+    scale; every other weight is as drawn."""
+    with torch.no_grad():
+        for module in params.modules():
+            if isinstance(module, tm.Params) and "wq" in module and "wk" in module:
+                for name in ("wq", "wk"):
+                    w = module[name]
+                    w.mul_(math.sqrt(w.shape[1] / w.shape[0]))
+
+
+class KernelCalls:
+    """Records every call the model path makes to a kernel route (its
+    inputs and output), to hold each against the kernel's plain version on
+    the same inputs afterwards."""
+
+    def __init__(self):
+        self.calls = []
+        self._patches = []
+
+    def __enter__(self):
+        from repro_torch.models import encdec, rglru, ssm, transformer
+
+        for module, name in ((transformer, "causal_attention"), (encdec, "causal_attention"),
+                             (ssm, "selective_scan"), (rglru, "lru_scan")):
+            fn = getattr(module, name)
+            self._patches.append((module, name, fn))
+
+            def record(*args, _fn=fn, _name=name, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.calls.append((_name, args, kwargs, out))
+                return out
+
+            setattr(module, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._patches:
+            setattr(module, name, fn)
+        return False
+
+
+def check_calls(torch, label, calls, errors) -> dict:
+    """Each recorded kernel call against its plain version on the same
+    inputs: flash against ``attention_plain``, held to the worst-row rule
+    (the element tolerance assumes outputs of unit scale, and the model's
+    are not: at the JAX init its outputs reach tens, where one bf16 ulp is
+    0.125-0.5, and a softmax near a tie of two such values of opposite
+    sign gives outputs near 0); the scans' routes
+    run on their plain versions, held to the scans' f32 tolerance; returns
+    {route: (calls, max abs error, worst row, largest |output|)}."""
+    from repro_torch import models as tm
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import rglru, ssm
+
+    out = {}
+    for name, args, kwargs, got in calls:
+        if name == "causal_attention":
+            ref = fa_mod.attention_plain(*args)
+            dtype, tol = str(args[0].dtype).replace("torch.", ""), None
+        else:
+            with tm.plain_versions():
+                ref = (ssm.selective_scan if name == "selective_scan" else rglru.lru_scan)(
+                    *args, **kwargs)
+            dtype, tol = "float32", SCAN_TOL
+        err, row, failed = max_err(torch, outputs(got), outputs(ref), dtype, tol)
+        if name == "causal_attention":
+            failed = [f for f in failed if not f.startswith("element")]
+        n, e, r, m = out.get(name, (0, 0.0, 0.0, 0.0))
+        out[name] = (n + 1, max(e, err), max(r, row),
+                     max(m, max(float(t.abs().max()) for t in outputs(ref))))
+        if failed:
+            errors.append(f"{label}: {name} call {n} off its plain version by {err}, row "
+                          f"{row}; failed {failed}")
+    for name, (n, err, row, scale) in out.items():
+        print(f"[model] {label}: {n} {name} calls of a prefill against the plain version on "
+              f"the same inputs: max abs err {err:.3e} (largest |output| {scale:.3e}), worst "
+              f"row {row:.3e}")
+    return out
+
+
+def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fps, errors):
+    """One full-width model on the card: prefill and greedy decode through
+    the model zoo's entry points on the kernel route, each kernel's
+    launches and the evaluations it spent tuning, each kernel call of a
+    prefill against its plain version on the same inputs; then, on the
+    same weights with the attention projections tempered (:func:`temper`),
+    the kernel route's last logits against the plain versions' and decode
+    after prefill (with the JAX init's weights both are reported, not
+    checked: the model is chaotic there).  Returns the phase's record."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotuned
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_(n_layers=depth)
+    label = f"{arch} (depth {cfg.n_layers})"
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, gen, device)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (1, MODEL_S + 1), generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": prompt[:, :MODEL_S]}
+    cap = MODEL_S + steps
+
+    def prefill():
+        return tm.prefill_fn(params, batch, cfg, capacity=cap)
+
+    ops = {name: autotuned(name) for name in counters}
+    before = {name: set(op.states()) for name, op in ops.items()}
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    logits, _ = prefill()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    evaluations = {}
+    for name, op in ops.items():
+        for fp, state in op.states().items():
+            if fp in before[name]:
+                continue
+            bp = state.bp.asdict()
+            evaluations[f"{name} {bp}"] = state.cost_evaluations
+            print(f"[model] {label}: {name} shape class {bp}: {state.cost_evaluations} "
+                  f"evaluations, from_cache={state.from_cache}, tuned by a kernel phase: "
+                  f"{fp in tuned_fps}")
+            if fp in tuned_fps and (state.cost_evaluations or not state.from_cache):
+                errors.append(f"{label}: {name} re-tuned a shape class a kernel phase tuned")
+    # a steady prefill: every kernel launched by its wrapper, none plain,
+    # each call recorded and held against its plain version after
+    for c in counters.values():
+        c.reset()
+    with KernelCalls() as rec:
+        logits, cache = prefill()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    plain = sum(c.plain_calls for c in counters.values())
+    expected = model_kernels(cfg)
+    print(f"[model] {label}: prefill launches {launches} (expected {expected}), plain-version "
+          f"calls {plain}; init {init_s:.2f} s, cold prefill {cold_s:.2f} s")
+    if launches != expected or plain:
+        errors.append(f"{label}: prefill launches {launches}, plain calls {plain}; "
+                      f"expected {expected} and 0")
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        errors.append(f"{label}: prefill logits {tuple(logits.shape)} not finite")
+    per_call = check_calls(torch, label, rec.calls, errors)
+    del rec
+    prefill_ms = event_ms(torch, prefill, reps=5)
+
+    def greedy(logits, cache, n):
+        tok = logits.argmax(-1, keepdim=True)
+        for _ in range(n):
+            logits, cache = tm.decode_fn(params, {"tokens": tok}, cache, cfg)
+            tok = logits.argmax(-1, keepdim=True)
+        return logits
+
+    for c in counters.values():
+        c.reset()
+    greedy(logits, cache, steps)  # warm
+    decode_launches = {name: c.launches for name, c in counters.items()}
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    last = greedy(logits, cache, steps)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / steps
+    if not bool(torch.isfinite(last).all()):
+        errors.append(f"{label}: decode logits not finite")
+    ours_ms, device_ms, top = kernel_share(torch, prefill)
+
+    def end_to_end(gate: bool) -> tuple:
+        """The kernel route's last logits against the plain versions' on
+        the card, and decode after prefill (prompt[:S] + one step against
+        prefill of prompt[:S+1])."""
+        what = "tempered" if gate else "JAX init"
+        ours, _ = prefill()
+        for c in counters.values():
+            c.reset()
+        with tm.plain_versions():
+            theirs, _ = prefill()
+        plain_calls = {name: c.plain_calls for name, c in counters.items()}
+        vs_plain = worst_row(torch, ours, theirs)
+        s = MODEL_CHECK_S
+        full, _ = tm.prefill_fn(params, {"tokens": prompt[:, :s + 1]}, cfg)
+        _, short = tm.prefill_fn(params, {"tokens": prompt[:, :s]}, cfg, capacity=s + 1)
+        step, _ = tm.decode_fn(params, {"tokens": prompt[:, s:s + 1]}, short, cfg)
+        gap = (step.float() - full.float()).abs()
+        dap_ok = bool((gap <= 0.08 + 0.1 * full.float().abs()).all())
+        dap_row = worst_row(torch, step, full)
+        print(f"[model] {label}, {what} weights: kernel route vs plain versions, last logits "
+              f"worst row {vs_plain:.3e} (tol {ROW_TOL['bfloat16']}); decode after prefill at "
+              f"S={s}: max abs {float(gap.max()):.3e}, worst row {dap_row:.3e}, within "
+              f"(rtol 0.1, atol 0.08): {dap_ok}; plain calls {plain_calls}"
+              + ("" if gate else " (reported, not checked)"))
+        if gate and (vs_plain > ROW_TOL["bfloat16"] or plain_calls != expected):
+            errors.append(f"{label}: kernel route off the plain versions by {vs_plain} "
+                          f"(plain calls {plain_calls})")
+        if gate and not dap_ok:
+            errors.append(f"{label}: decode after prefill off prefill by {float(gap.max())}")
+        return vs_plain, dap_row
+
+    raw = end_to_end(gate=False)
+    temper(torch, tm, params)
+    tempered = end_to_end(gate=True)
+
+    flops = tm.analytic_step_flops(cfg, "prefill", 1, MODEL_S)
+    prefill_bound = flops / arch_spec.peak_flops * 1e3
+    dbytes = decode_bytes(tm, cfg, MODEL_S + steps // 2)
+    decode_bound = dbytes / arch_spec.hbm_bandwidth * 1e3
+    share = None if device_ms is None else ours_ms / device_ms
+    print(f"[model] {label}: prefill {prefill_ms:.3f} ms (bound {prefill_bound:.3f} ms, "
+          f"{flops:.3e} FLOP); decode {decode_ms:.3f} ms a token over {steps} steps (bound "
+          f"{decode_bound:.3f} ms, {dbytes:.3e} B); kernel launches in decode "
+          f"{decode_launches}; hand-written kernels {ours_ms} of {device_ms} device ms in one "
+          f"profiled prefill (share {share})")
+    for name, ms in top:
+        print(f"[profile] {label}: {ms:.3f} ms {name}")
+    return {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "seq": MODEL_S,
+            "decode_steps": steps, "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound,
+            "prefill_flops": flops, "decode_ms_per_token": decode_ms,
+            "decode_bound_ms": decode_bound, "decode_bytes": dbytes, "launches": launches,
+            "decode_launches": decode_launches, "evaluations": evaluations,
+            "per_call": per_call, "vs_plain_worst_row": tempered[0],
+            "decode_after_prefill_worst_row": tempered[1], "jax_init_vs_plain_worst_row": raw[0],
+            "jax_init_decode_after_prefill_worst_row": raw[1],
+            "kernel_ms": ours_ms, "device_ms": device_ms, "kernel_share": share,
+            "top_device_ms": top, "init_s": init_s, "cold_prefill_s": cold_s}
+
+
+def smoke_sweep(torch, device, errors) -> dict:
+    """Every arch at its SMOKE config: prefill and SMOKE_STEPS decode steps
+    on the card against the port's own CPU run on the same weights, the
+    attention projections tempered (:func:`temper`; decode fed the CPU's
+    greedy tokens); returns {arch: worst row}."""
+    import copy
+
+    from repro_torch import models as tm
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        params = tm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        temper(torch, tm, params)
+        on_card = copy.deepcopy(params).to(device)
+        S = cfg.local_window + 8 if cfg.family == "hybrid" else 16
+        batch = tm.make_concrete_batch(torch.Generator().manual_seed(SEED), cfg, "prefill", 2,
+                                       S, "cpu")["batch"]
+        card_batch = {k: v.to(device) for k, v in batch.items()}
+        ref, ref_cache = tm.prefill_fn(params, batch, cfg, capacity=S + SMOKE_STEPS)
+        got, cache = tm.prefill_fn(on_card, card_batch, cfg, capacity=S + SMOKE_STEPS)
+        rows = [worst_row(torch, got.cpu(), ref)]
+        extra = {"frames": batch["frames"]} if cfg.is_encoder_decoder else {}
+        for _ in range(SMOKE_STEPS):
+            tok = ref.argmax(-1, keepdim=True)
+            ref, ref_cache = tm.decode_fn(params, {"tokens": tok, **extra}, ref_cache, cfg)
+            got, cache = tm.decode_fn(on_card, {"tokens": tok.to(device)}, cache, cfg)
+            rows.append(worst_row(torch, got.cpu(), ref))
+        out[arch] = max(rows)
+        print(f"[model] smoke {arch}: card vs CPU, prefill and {SMOKE_STEPS} decode steps, "
+              f"worst row {out[arch]:.3e} (tol {ROW_TOL['bfloat16']})")
+        if out[arch] > ROW_TOL["bfloat16"]:
+            errors.append(f"smoke {arch}: card off the CPU run by {out[arch]}")
+    return out
 
 
 def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
@@ -541,6 +954,35 @@ def run() -> int:
             best = min(times, key=times.get)
             fa_hd[key] = (json.loads(best), times[best])
 
+    # C3: head dims off the kernels' 16-byte rule, padded by the wrapper;
+    # the copy's cost: the wrapper's time against the kernel alone on
+    # inputs padded beforehand
+    c3 = []
+    B3, S3, H3, KV3 = (C3_SHAPE[k] for k in ("B", "S", "H", "KV"))
+    for dtype_name, hds in C3_HEAD_DIMS:
+        for hd in hds:
+            qkv = fa_ref.make_inputs(gen, dtype=getattr(torch, dtype_name), device=device,
+                                     hd=hd, **C3_SHAPE)
+            region = fa_ops.flash_region(S3, hd, dtype_name, arch=arch,
+                                         heads=bucket_pow2(B3 * H3))
+            err, row, times = sweep(
+                torch, f"flash {dtype_name} C3 ({B3},{S3},{H3}|{KV3},{hd})", region,
+                lambda p, qkv=qkv: fa_mod.flash_attention_cuda(*qkv, **p),
+                (fa_mod.attention_plain(*qkv),), dtype_name, timer, fa_mod.counter, errors,
+            )
+            best = min(times, key=times.get)
+            point, hd_run = json.loads(best), fa_mod.padded_hd(hd, dtype_name)
+            padded = [fa_mod.pad_head_dim(t, hd_run) for t in qkv]
+            kernel_ms = timer.ms(lambda: fa_mod.flash_attention_cuda(*padded, **point))
+            c3.append({"dtype": dtype_name, "hd": hd, "hd_run": hd_run, "heads": f"{H3}|{KV3}",
+                       "candidates": len(times), "max_abs_err": err, "max_row_err": row,
+                       "fastest_point": point, "ms": times[best],
+                       "padded_kernel_ms": kernel_ms, "copy_ms": times[best] - kernel_ms})
+            print(f"[kernel] flash {dtype_name} C3 hd {hd} (runs at {hd_run}): {point} "
+                  f"{times[best]:.4f} ms, the kernel alone on padded inputs {kernel_ms:.4f} ms, "
+                  f"the copy {times[best] - kernel_ms:.4f} ms")
+    print(f"[c3] hd 300 raises: {fa_mod.head_dim_error(300, 'bfloat16')}")
+
     st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
     st_plain_out = outputs(st_mod.stress_plain(st_inp))
     st_region = st_ops.stress_region(dims=STRESS_DIMS, arch=arch)
@@ -612,6 +1054,24 @@ def run() -> int:
         timer, rg_mod.counter, errors, tol=SCAN_TOL,
     )
     scans[("rglru_scan", "odd")] = (args, plain_out, region, err, row, times)
+
+    # the ssm_scan final state (a model's prefill hands it to decode): every
+    # emitted point of the falcon-mamba-7b shape class, y and h
+    args, _, region = scans[("ssm_scan", "float32")][:3]
+    final_ref = ssm_mod.ssm_scan_plain(*args, final_state=True)
+    fs_err, fs_row = check_points(
+        torch, "ssm_scan f32 (1,2048,8192,N=16) with its final state",
+        list(region.space.points()),
+        lambda p: ssm_mod.ssm_scan_cuda(*args, **p, final_state=True), final_ref, "float32",
+        ssm_mod.counter, errors, SCAN_TOL)
+    times = scans[("ssm_scan", "float32")][5]
+    fs_point = json.loads(min(times, key=times.get))
+    # in turns: without, with, with, without
+    fs_runs = [(w, timer.ms(lambda w=w: ssm_mod.ssm_scan_cuda(*args, **fs_point, final_state=w),
+                            reps=20)) for w in (False, True, True, False)]
+    fs_ms = {w: min(ms for v, ms in fs_runs if v == w) for w in (False, True)}
+    print(f"[kernel] ssm_scan f32 (1,2048,8192,N=16) at {fs_point}, without / with / with / "
+          f"without the final state: " + " / ".join(f"{ms:.4f}" for _, ms in fs_runs) + " ms")
 
     # short sequences and narrow widths: every emitted point and the extras
     short_err = {"ssm_scan": (0.0, 0.0), "rglru_scan": (0.0, 0.0)}
@@ -888,6 +1348,28 @@ def run() -> int:
             print(f"[error] {e}", file=sys.stderr)
         return fail(f"{len(errors)} main-path check(s) failed")
 
+    # -- the model zoo: the serving entry points on the kernels -------------
+    # the registry's ops share the kernel phases' TuningDB, so the model path
+    # recalls the shape classes they tuned
+    from repro_torch.core import REGISTRY
+
+    REGISTRY.set_default_db(TuningDB(db_path))
+    tuned_fps = {st.bp.fingerprint() for st, _, _ in states.values()}
+    tuned_fps |= {b4_state.bp.fingerprint(), hd256_state.bp.fingerprint()}
+    model_counters = {"flash_attention": fa_mod.counter, "ssm_scan": ssm_mod.counter,
+                      "rglru_scan": rg_mod.counter}
+    t0 = time.perf_counter()
+    models = [model_phase(torch, name, depth, steps, device, arch, model_counters, tuned_fps,
+                          errors)
+              for name, depth, steps in MODELS]
+    smoke = smoke_sweep(torch, device, errors)
+    print(f"[time] model phases: {time.perf_counter() - t0:.1f} s")
+    if errors:
+        for e in errors:
+            print(f"[error] {e}", file=sys.stderr)
+        return fail(f"{len(errors)} model check(s) failed")
+    print(json.dumps({"models": models, "smoke_worst_row": smoke}, default=str))
+
     # -- the kernels line --------------------------------------------------
     iv, iz, mx, my = EXB_DIMS
     exb_bytes = 4.0 * (6 * iv * iz * mx * my + 8 * iz * mx * my + iv)
@@ -1114,6 +1596,16 @@ def run() -> int:
         "fig11_best": f11["best"], "fig13_combined": f13["combined"],
         "fig14_innermost": inner["fig14"], "fig14_innermost_best_degree": inner["best_degree"],
     })
+    # the model path's launches a prefill, and the kernels' new cases
+    for entry in kernels:
+        if entry["name"] in KERNEL_ENTRIES:
+            entry["model_launches"] = {m["arch"]: m["launches"][entry["name"]] for m in models
+                                       if m["launches"][entry["name"]]}
+    by_name["flash_attention"]["c3"] = c3
+    by_name["ssm_scan"].update({"final_state_max_abs_err": fs_err,
+                                "final_state_max_row_err": fs_row, "final_state_point": fs_point,
+                                "final_state_ms": fs_ms[True],
+                                "without_final_state_ms": fs_ms[False]})
     print(f"[time] chip_smoke: {time.perf_counter() - started:.1f} s to the kernels line, "
           f"the build included")
     print(json.dumps({"kernels": kernels}, default=str))

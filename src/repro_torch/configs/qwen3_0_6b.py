@@ -1,0 +1,31 @@
+"""qwen3-0.6b — dense GQA with per-head qk_norm [hf:Qwen/Qwen3-0.6B]."""
+from repro_torch.models.config import ModelConfig
+
+FULL = ModelConfig(
+    name="qwen3-0.6b",
+    family="dense",
+    n_layers=28,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=3072,
+    vocab_size=151936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1000000.0,
+    tie_embeddings=True,
+)
+
+SMOKE = ModelConfig(
+    name="qwen3-0.6b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    head_dim=32,
+    qk_norm=True,
+    tie_embeddings=True,
+)

@@ -9,7 +9,10 @@
 // x, dt, Bc, Cc and y share one element type, float32 or bf16 (y takes
 // x's, as in the JAX kernel); A (D, N) and the skip vector D (D,) are
 // float32; x, dt, y are (B, S, D) and Bc, Cc (B, S, N).  The state and all
-// arithmetic are float32 and the (S, D, N) decay is never stored.
+// arithmetic are float32 and the (S, D, N) decay is never stored.  Where
+// the caller passes h_out (B, D, N) float32 (a model's prefill, whose
+// decode starts from it), the threads that carry the state write it there
+// after the last step; a null h_out writes nothing.
 //
 // What bounds it: on paper, one exp per (t, d, n) on the SFU (16 a clock
 // per SM, 0.064 ms at falcon-mamba-7b width on an H100 SXM), about as long
@@ -77,6 +80,7 @@ struct SsmArgs {
   const void* Cc;
   const float* skip;
   void* y;
+  float* h_out;  // the final state (B, D, N), or null
   int S, D, N, block_d, chunk;
   int g_xd, g_bc;  // staging piece sizes in bytes (scan::copy_bytes)
   int np;          // N rounded up to a power of two
@@ -303,6 +307,15 @@ __global__ void __launch_bounds__(K >= 8 ? 256 : 512, 1) ssm_kernel(const SsmArg
       }
     }
   }
+  // the state after the last step (steps past S were the identity)
+  if (a.h_out != nullptr) {
+    float* ho = a.h_out + (static_cast<size_t>(b) * D + d) * N;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int n = g * K + j;
+      if (!General || n < N) ho[n] = h[j];
+    }
+  }
 }
 
 template <typename T, int K, bool General>
@@ -348,7 +361,7 @@ extern "C" long long ssm_scan_smem_bytes(int block_d, int chunk, int n_state, in
 extern "C" int ssm_scan_max_threads(int states) { return max_threads(states); }
 
 // x, dt, Bc, Cc, y: elements of elt bytes (4: float32, 2: bf16); A, skip
-// float32.  Any S >= 1 and chunk >= 1; N from 1 to 256 (NP: N rounded up
+// float32; h_out (B, D, N) float32 takes the final state, or is null.  Any S >= 1 and chunk >= 1; N from 1 to 256 (NP: N rounded up
 // to a power of two), states a power of two up to 16 and NP at most with
 // NP / states <= 32 lanes a channel, and block_d * NP / states a multiple
 // of 32 up to max_threads(states).  Returns the launch's
@@ -356,7 +369,7 @@ extern "C" int ssm_scan_max_threads(int states) { return max_threads(states); }
 // not take).
 extern "C" int ssm_scan_launch(
     const void* x, const void* dt, const void* A, const void* Bc, const void* Cc,
-    const void* skip, void* y, int B, int S, int D, int N, int block_d, int chunk,
+    const void* skip, void* y, void* h_out, int B, int S, int D, int N, int block_d, int chunk,
     int states, int elt, void* stream) {
   const int np = pad_states(N);
   const bool ok = N >= 1 && N <= 256 && states > 0 && states <= 16 &&
@@ -377,6 +390,7 @@ extern "C" int ssm_scan_launch(
   a.Cc = Cc;
   a.skip = static_cast<const float*>(skip);
   a.y = y;
+  a.h_out = static_cast<float*>(h_out);
   a.S = S;
   a.D = D;
   a.N = N;

@@ -19,11 +19,18 @@ not divide instead of padding it in memory:
 
 The head dim is a run-time value in both: a call runs on the least tile
 head dim in :data:`TILE_HEAD_DIMS` at or above its ``hd`` (:func:`tile_hd`),
-and the tile's columns past ``hd`` load as zeros inside the kernel.  Both
-take every ``hd`` up to 256 whose rows are whole 16-byte pieces: a
-multiple of 8 in bf16 (TMA's stride rule), of 4 in float32 (the cp.async
-pieces).  :func:`launchable` is the one predicate the emit layer and the
-wrapper share.
+and the tile's columns past ``hd`` load as zeros inside the kernel.  The
+kernels load rows of whole 16-byte pieces: ``hd`` a multiple of 8 in bf16
+(TMA's stride rule), of 4 in float32 (the cp.async pieces).  The wrapper
+takes every ``hd`` from 1 to 256 all the same: one off that rule is copied
+into q, k, v of :func:`padded_hd` columns (the new ones zero, which add
+nothing to a score or an output column the caller keeps), the kernel runs
+at the padded ``hd`` with the scale of the true one, and the first ``hd``
+columns of its output are returned.  A TMA box or a cp.async ring of
+narrower pieces would take such rows in place; the copy is O(S·heads·hd)
+bytes against the kernel's O(S²) work and leaves the kernels as they are.
+:func:`launchable` is the one predicate the emit layer and the wrapper
+share.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ counter = _build.Counter()
 
 TILE_HEAD_DIMS = (16, 32, 64, 128, 256)
 HD_MAX = 256
-# hd a multiple of this: rows of whole 16-byte pieces
+# the kernels' hd a multiple of this: rows of whole 16-byte pieces (the
+# wrapper pads any other hd up to it)
 HD_MULTIPLE = {"bfloat16": 8, "float32": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -95,24 +103,38 @@ F32_TILES = frozenset(
 
 
 def head_dim_error(hd: int, dtype: str) -> Optional[str]:
-    """Why the kernel of ``dtype`` (``"float32"``/``"bfloat16"``) does not
-    take head dim ``hd``, or None where it does."""
-    m = HD_MULTIPLE.get(dtype)
-    if m is None:
+    """Why the wrapper of ``dtype`` (``"float32"``/``"bfloat16"``) does
+    not take head dim ``hd``, or None where it does."""
+    if dtype not in HD_MULTIPLE:
         return f"flash_attention: dtype {dtype} not supported"
-    if hd < m or hd > HD_MAX or hd % m:
-        return (f"flash_attention: {dtype} head_dim {hd} must be a multiple of {m} "
-                f"up to {HD_MAX} (rows of whole 16-byte pieces)")
+    if hd < 1 or hd > HD_MAX:
+        return f"flash_attention: {dtype} head_dim {hd} must be from 1 up to {HD_MAX}"
     return None
+
+
+def padded_hd(hd: int, dtype: str) -> int:
+    """The head dim the kernel of ``dtype`` runs a call at ``hd`` on:
+    ``hd`` rounded up to the kernel's multiple (rows of whole 16-byte
+    pieces)."""
+    m = HD_MULTIPLE[dtype]
+    return -(-hd // m) * m
 
 
 def tile_hd(hd: int, dtype: str) -> Optional[int]:
     """The tile head dim a call at ``hd`` runs on (the least of
-    :data:`TILE_HEAD_DIMS` at or above it), or None where the kernel does
+    :data:`TILE_HEAD_DIMS` at or above it), or None where the wrapper does
     not take ``hd``."""
     if head_dim_error(hd, dtype) is not None:
         return None
     return next(t for t in TILE_HEAD_DIMS if t >= hd)
+
+
+def pad_head_dim(t: torch.Tensor, hd_pad: int) -> torch.Tensor:
+    """``t`` (..., hd) copied into a contiguous tensor of ``hd_pad``
+    columns, the new ones zero."""
+    out = t.new_zeros(t.shape[:-1] + (hd_pad,))
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 def launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
@@ -174,9 +196,6 @@ def flash_attention_cuda(
             f"flash_attention_cuda: {dtype} tile (hd={tile_hd(hd, dtype)}, {block_q}, "
             f"{block_kv}) is not instantiated"
         )
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_cuda: the 16-byte loads need 16-byte aligned "
-                         "q, k, v")
     smem = smem_bytes(block_q, block_kv, hd, q.element_size())
     limit = smem_optin(q.device)
     if smem > limit:
@@ -184,23 +203,29 @@ def flash_attention_cuda(
             f"flash_attention_cuda: tiles ({block_q},{block_kv}) need {smem} B "
             f"of shared memory, the card allows {limit} B"
         )
+    scale = 1.0 / math.sqrt(hd)  # the true hd's, whatever the kernel runs on
+    hd_run = padded_hd(hd, dtype)
+    if hd_run != hd:
+        q, k, v = (pad_head_dim(t, hd_run) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: the 16-byte loads need 16-byte aligned "
+                         "q, k, v")
     o = torch.empty_like(q)
-    scale = 1.0 / math.sqrt(hd)
     if q.dtype == torch.bfloat16:
         what = "flash_attention_sm90_launch"
         code = _build.function("flash_attention_sm90", what, _SM90_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, H, KV, hd, block_q, block_kv, scale, int(causal), _build.stream_of(o),
+            B, S, H, KV, hd_run, block_q, block_kv, scale, int(causal), _build.stream_of(o),
         )
     else:
         what = "flash_attention_launch"
         code = _build.function("flash_attention", what, _ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-            B, S, H, KV, hd, block_q, block_kv, scale, int(causal), _build.stream_of(o),
+            B, S, H, KV, hd_run, block_q, block_kv, scale, int(causal), _build.stream_of(o),
         )
     _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
     counter.launches += 1
-    return o
+    return o if hd_run == hd else o[..., :hd].contiguous()
 
 
 def _name(dtype: torch.dtype) -> str:

@@ -3,8 +3,9 @@
 The emitted space is exactly what the kernel of the dtype takes: every
 point passes :func:`~.flash_attention.launchable`, the predicate the
 wrapper checks, at the call's head dim (run on the least instantiated tile
-head dim at or above it), and a head dim the kernel does not take raises
-the wrapper's error here too.
+head dim at or above it; one off the kernels' 16-byte rule as the padded
+head dim the wrapper runs it at), and a head dim the wrapper does not
+take (past 256) raises the wrapper's error here too.
 ``block_q`` is a "lane" dim (one CTA per q block), ``block_kv`` a
 "sequential" dim (a loop inside the CTA, adding no CTAs); both tile past a
 sequence they do not divide, and a point survives only if its real
@@ -42,8 +43,8 @@ from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .flash_attention import (
     F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, ctas_per_sm, f32_max_block_kv,
-    f32_max_block_q, flash_attention, head_dim_error, launchable, sm90_max_block_kv,
-    smem_bytes, tile_hd,
+    f32_max_block_q, flash_attention, head_dim_error, launchable, padded_hd,
+    sm90_max_block_kv, smem_bytes, tile_hd,
 )
 from .ref import attention_ref
 
@@ -154,10 +155,16 @@ def flash_region(
     seq_len: int, head_dim: int, dtype: str = "float32",
     arch: Optional[ArchSpec] = None, heads: int = 1,
 ) -> ATRegion:
-    """``heads`` is batch × query heads (its bucket, from the shape class)."""
+    """``heads`` is batch × query heads (its bucket, from the shape class).
+    A head dim off the kernels' rule runs padded (:func:`padded_hd`), so it
+    is offered the padded head dim's points, hints and signature."""
     arch = arch or local_arch()
+    why = head_dim_error(head_dim, dtype)
+    if why is not None:
+        raise ValueError(why)
     emitted = FLASH_POLICY.emit(
-        arch, {"seq": seq_len, "hd": head_dim, "dtype": dtype, "heads": heads}
+        arch, {"seq": seq_len, "hd": padded_hd(head_dim, dtype), "dtype": dtype,
+               "heads": heads}
     )
 
     def instantiate(point: Mapping[str, Any]):

@@ -12,6 +12,7 @@ On the card it needs ``torch.backends.cuda.matmul.allow_tf32 = False``
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -23,12 +24,16 @@ def attention_ref(
     k: torch.Tensor,  # (B, S, KV, hd)
     v: torch.Tensor,
     causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale`` defaults to 1/sqrt(hd); the CUDA wrapper runs a padded hd
+    at the scale of the true one."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = s / math.sqrt(hd) if scale is None else s * scale
     if causal:
         pos = torch.arange(S, device=q.device)
         mask = pos[:, None] >= pos[None, :]

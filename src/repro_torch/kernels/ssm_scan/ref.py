@@ -22,7 +22,10 @@ def ssm_scan_ref(
     Bc: torch.Tensor,  # (B, S, N)
     Cc: torch.Tensor,  # (B, S, N)
     D: torch.Tensor,   # (D,)
-) -> torch.Tensor:
+    final_state: bool = False,
+):
+    """y, or ``(y, h)`` with ``final_state``: h the state after the last
+    step, (B, D, N) float32."""
     Bsz, S, Dd = x.shape
     N = A.shape[1]
     xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
@@ -33,7 +36,8 @@ def ssm_scan_ref(
         decay = torch.exp(dt_t[..., None] * A)
         h = decay * h + (dt_t * x_t)[..., None] * Bf[:, t, None, :]
         ys[:, t] = (h * Cf[:, t, None, :]).sum(-1)
-    return (ys + xf * D).to(x.dtype)
+    y = (ys + xf * D).to(x.dtype)
+    return (y, h) if final_state else y
 
 
 def make_inputs(

@@ -19,7 +19,9 @@ one of two shared-memory stages.  As in the JAX kernel, each tile is first
 ``min``'d to its extent (``states`` to NP); ``block_d`` must then divide D,
 while ``chunk`` need not divide S: the kernel sets the steps past the
 sequence's end to dt = 0 (decay 1, input 0) in shared memory, so every S
-runs.
+runs.  With ``final_state=True`` the call also returns the state after the
+last step, (B, D, N) float32, which the kernel writes where it keeps it
+(a model's prefill hands it to decode).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ STATES = (1, 2, 4, 8, 16)  # states a thread carries: compile-time in the kernel
 DTYPES = {torch.float32: 4, torch.bfloat16: 2}  # input dtype -> element bytes
 SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def max_threads(states: int) -> int:
@@ -139,9 +141,11 @@ def _check(x, dt, A, Bc, Cc, D, block_d: int, chunk: int, states: int):
 def ssm_scan_cuda(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
     Cc: torch.Tensor, D: torch.Tensor, block_d: int = 32, chunk: int = 128,
-    states: int = 1,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors."""
+    states: int = 1, final_state: bool = False,
+):
+    """Launch the CUDA kernel on contiguous CUDA tensors; with
+    ``final_state``, ``(y, h)`` with h the state after the last step,
+    (B, D, N) float32."""
     Bsz, S, Dd, N, bd, ck, k = _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
     tensors = (x, dt, A, Bc, Cc, D)
     if _build.route(tensors, "ssm_scan") != "cuda":
@@ -149,28 +153,29 @@ def ssm_scan_cuda(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssm_scan_cuda: x, dt, A, Bc, Cc, D must be contiguous")
     y = torch.empty_like(x)
+    h = torch.empty((Bsz, Dd, N), dtype=torch.float32, device=x.device) if final_state else None
     code = _build.function("ssm_scan", "ssm_scan_launch", _ARGTYPES)(
-        *[t.data_ptr() for t in tensors], y.data_ptr(),
+        *[t.data_ptr() for t in tensors], y.data_ptr(), None if h is None else h.data_ptr(),
         Bsz, S, Dd, N, bd, ck, k, DTYPES[x.dtype], _build.stream_of(y),
     )
     _build.check(code, f"ssm_scan_launch(block_d={bd}, chunk={ck}, states={k}, N={N})")
     counter.launches += 1
-    return y
+    return (y, h) if final_state else y
 
 
 def ssm_scan(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
     Cc: torch.Tensor, D: torch.Tensor, block_d: int = 32, chunk: int = 128,
-    states: int = 1,
-) -> torch.Tensor:
+    states: int = 1, final_state: bool = False,
+):
     """The selective scan: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors (tiles are checked either way, so both accept
-    one space)."""
+    one space); ``final_state`` as in :func:`ssm_scan_cuda`."""
     if _build.route((x, dt, A, Bc, Cc, D), "ssm_scan") == "cuda":
-        return ssm_scan_cuda(x, dt, A, Bc, Cc, D, block_d, chunk, states)
+        return ssm_scan_cuda(x, dt, A, Bc, Cc, D, block_d, chunk, states, final_state)
     _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
     counter.plain_calls += 1
-    return ssm_scan_plain(x, dt, A, Bc, Cc, D)
+    return ssm_scan_plain(x, dt, A, Bc, Cc, D, final_state=final_state)
 
 
 def smem_bytes_native(block_d: int, chunk: int, n_state: int, elt: int = 4) -> int:

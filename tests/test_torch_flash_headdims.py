@@ -1,5 +1,5 @@
-"""Flash attention at every head dim the JAX kernel takes (multiples of 8
-in bf16, of 4 in float32, up to 256), as far as the CPU can see it.
+"""Flash attention at every head dim the JAX kernel takes (1 to 256), as
+far as the CPU can see it.
 
 Both CUDA kernels run a call on the least instantiated tile head dim at or
 above its ``hd`` and load the tile's columns past ``hd`` as zeros; they
@@ -7,8 +7,10 @@ run only on the card, where ``chip_smoke.py`` holds every emitted point at
 hd 80 and 256 against the plain version.  Here: the port's plain version
 against the JAX kernel (Pallas in interpret mode) at hd 80 and 256 within
 ``DEFAULT_TOL`` float32; the emitted space is exactly what
-``launchable`` (the wrapper's check) takes; a head dim off the 16-byte
-rule raises with the limit in both; and the rule is the sources'.
+``launchable`` (the wrapper's check) takes; a head dim off the kernels'
+16-byte rule runs padded to it (the plain version against the JAX kernel
+at hd 12, 36 and 100, the emit layer offering the padded hd's points),
+and one past 256 raises with the limit; and the rule is the sources'.
 """
 from __future__ import annotations
 
@@ -73,11 +75,59 @@ def test_a_head_dim_runs_on_the_least_tile_at_or_above_it(hd, dtype, tile):
 @pytest.mark.parametrize("hd,dtype", [(20, "bfloat16"), (264, "bfloat16"), (18, "float32"),
                                       (260, "float32"), (4, "bfloat16")])
 def test_head_dims_off_the_16_byte_rule_raise_with_the_limit(hd, dtype):
-    assert fa_mod.tile_hd(hd, dtype) is None
-    assert not fa_mod.launchable(hd, dtype, 64, 32)
-    with pytest.raises(ValueError, match=r"multiple of \d up to 256"):
-        fa_ops.flash_region(2048, hd, dtype, arch=SXM)
-    assert re.search(r"multiple of \d up to 256", fa_mod.head_dim_error(hd, dtype))
+    """Off the kernels' 16-byte rule a head dim runs, padded to the rule;
+    past 256 it raises with the limit, in the wrapper and the emit layer."""
+    if hd > fa_mod.HD_MAX:
+        assert fa_mod.tile_hd(hd, dtype) is None
+        assert not fa_mod.launchable(hd, dtype, 64, 32)
+        with pytest.raises(ValueError, match=r"up to 256"):
+            fa_ops.flash_region(2048, hd, dtype, arch=SXM)
+        assert re.search(r"up to 256", fa_mod.head_dim_error(hd, dtype))
+        return
+    hd_run = fa_mod.padded_hd(hd, dtype)
+    assert hd_run % fa_mod.HD_MULTIPLE[dtype] == 0 and hd <= hd_run < hd + 8
+    assert fa_mod.head_dim_error(hd, dtype) is None
+    assert fa_mod.tile_hd(hd, dtype) == fa_mod.tile_hd(hd_run, dtype)
+    assert fa_mod.launchable(hd, dtype, 64, 32)
+    assert list(fa_ops.flash_region(2048, hd, dtype, arch=SXM).space.points())
+
+
+@pytest.mark.parametrize("hd", [12, 36, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_off_rule_head_dims_match_the_jax_kernel(hd, dtype):
+    """The plain version against the JAX kernel at head dims off the rule
+    (the JAX kernel takes every hd), and the wrapper's padding: the padded
+    inputs at the true hd's scale give the same first hd columns."""
+    q, k, v = qkv_numpy(seed=300 + hd, S=128, H=2, KV=1, hd=hd)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref = jax_fa_ops.attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                               block_q=64, block_kv=64)
+    tdt = getattr(torch, dtype)
+    qkv = carry.attention_inputs(q, k, v, device="cpu", dtype=tdt)
+    out = fa_mod.flash_attention(*qkv, block_q=64, block_kv=32)
+    assert out.dtype == tdt and tuple(out.shape) == q.shape
+    assert_close(out, ref, dtype, f"flash {dtype} hd {hd}")
+    hd_run = fa_mod.padded_hd(hd, dtype)
+    padded = [fa_mod.pad_head_dim(t, hd_run) for t in qkv]
+    assert all(p.is_contiguous() and p.shape[-1] == hd_run for p in padded)
+    assert torch.equal(padded[0][..., hd:], torch.zeros_like(padded[0][..., hd:]))
+    got = fa_mod.attention_plain(*padded, scale=1.0 / hd ** 0.5)[..., :hd]
+    assert_close(got, ref, dtype, f"flash {dtype} hd {hd} padded to {hd_run}")
+
+
+@pytest.mark.parametrize("hd,dtype", [(12, "bfloat16"), (36, "bfloat16"), (100, "bfloat16"),
+                                      (6, "float32"), (50, "float32")])
+def test_emit_offers_the_rounded_head_dims_points(hd, dtype):
+    """At an hd off the rule the emit layer offers exactly the points (and
+    hints) of the hd the wrapper pads it to."""
+    region = fa_ops.flash_region(2048, hd, dtype, arch=SXM, heads=32)
+    rounded = fa_ops.flash_region(2048, fa_mod.padded_hd(hd, dtype), dtype, arch=SXM,
+                                  heads=32)
+    points = [pp_key(p) for p in region.space.points()]
+    assert points and points == [pp_key(p) for p in rounded.space.points()]
+    assert region.hints == rounded.hints
+    assert all(fa_mod.launchable(hd, dtype, p["block_q"], p["block_kv"])
+               for p in region.space.points())
 
 
 def test_the_head_dim_rule_and_tiles_are_the_sources():
