@@ -31,7 +31,10 @@ runs for all five ported kernels at real sizes:
   tinyllama-1.1b at full depth (22 layers, flash at hd 64), falcon-mamba-7b
   at 2 layers (``ssm_scan`` with its final state) and recurrentgemma-2b at
   3 layers (``rglru_scan``, flash at hd 256), B=1, a 2048-token prompt,
-  sharing the kernel phases' TuningDB; and every arch at its SMOKE config.
+  sharing the kernel phases' TuningDB; and every arch at its SMOKE config;
+* the serving slice (``repro_torch.runtime``) on the same models: the
+  static ``Server`` and the continuous-batching ``StreamingEngine``, each
+  run with its own TuningDB and ``BackgroundTuner``.
 
 Phases, each of which fails the run:
 
@@ -97,7 +100,41 @@ Phases, each of which fails the run:
    prompt[:513], within ``tests/test_models.py``'s rtol 0.1, atol 0.08),
    both also reported, unchecked, at the JAX init; then every arch at
    SMOKE, tempered: prefill and 4 decode steps on the card against the
-   port's CPU run on the same weights (worst row within 4·2⁻⁸).
+   port's CPU run on the same weights (worst row within 4·2⁻⁸);
+6. serving (``[serve]`` lines), bf16 tempered weights, each run with the
+   counts set to 0 just before it and read just after (the serving
+   thread's launches apart from its background tuner's trials), its own
+   TuningDB and ``BackgroundTuner``: tinyllama-1.1b uncut through the
+   ``Server`` (batch 4, ``mixed_traffic_trace(cfg, 8, seed=0)``; the tuner
+   must drain within 60 s), then the same trace on the same DB (0
+   evaluations of any kind, every class recalled) and ``joint_tune`` twice
+   (the second recalls with 0), then the ``StreamingEngine`` (8 blocks,
+   ``bursty_open_loop_trace(cfg, 16, seed=0, burst_size=4,
+   burst_gap_s=0.05)``), whose tuner then drains its kernel and degree
+   classes for up to 60 s (the scheduler's are dropped first), the same
+   trace with no tuner (the control), and again on the drained DB with no
+   tuner (0 evaluations; every class that landed is recalled, flash's and
+   a degree class's among them); falcon-mamba-7b (2 layers) and
+   recurrentgemma-2b (3 layers) at full width through the engine on 8
+   requests; every arch at SMOKE through the engine on the card against
+   the port's engine on the CPU; tinyllama's SMOKE config on
+   ``adversarial_trace`` under a seeded ``ChaosInjector`` with a
+   ``TickTimer``.  Each run prints its requests, tokens and tok/s, TTFT
+   p50/p99 (engine), prefill ms a group and decode ms a step beside the
+   step's byte bound at its rows, traffic classes, hot-path evaluations
+   (must be 0), what the tuner landed, the serving thread's kernel
+   launches (each expected kernel launched, once for every call of its
+   route) and plain calls (0, on any thread), each prefill kernel call of
+   the serving thread against its plain version, the drain contract
+   (engine), and each request's tokens against the one-at-a-time oracle
+   (``Server(batch_size=1)``; for the static Server each prompt padded to
+   its group's length, as the Server feeds it): equal, or parted at a
+   near-tie, where both runs' own logits of the two tokens (recorded at
+   each greedy pick) lie within 2 bf16 ulps (bf16-rounded logits tie, and
+   a batch of rows rounds a product differently from one row); any other
+   parting, near-ties in more than half a run's requests or an eighth of
+   all compared, fail the run.  The runtime sets bf16 GEMMs to accumulate
+   without reduced-precision split-K steps (``full_precision_reductions``).
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -112,9 +149,11 @@ flash's and ``ssm_scan``'s also give their times at the new head dims and
 state sizes beside their bounds; ``loop_nest_gkv`` and
 ``loop_nest_seism3d`` give the tuned point's time, its outer launches and
 CTAs, and the bound of the domain's bytes; the kernels on the model path
-also give ``model_launches`` (a prefill's, per model), flash its ``c3``
-rows and ``ssm_scan`` its final state's errors.  A ``{"models": ...}``
-line before it holds the model phases' records.  The last line is
+also give ``model_launches`` (a prefill's, per model),
+``serve_launches`` (per serve run, the serving thread's) and
+``serve_trial_launches`` (its background tuner's trials), flash its
+``c3`` rows and ``ssm_scan`` its final state's errors.  A ``{"models": ...}`` and a ``{"serve": ...}`` line before it hold
+the model and serve phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -126,6 +165,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -188,6 +228,21 @@ C3_SHAPE = dict(B=1, S=2048, H=8, KV=2)
 # the kernels each model phase reaches, by the name of their compiled entry
 KERNEL_ENTRIES = {"flash_attention": ("flash_fwd",), "ssm_scan": ("ssm_kernel",),
                   "rglru_scan": ("rglru_kernel",)}
+# the serving slice: tinyllama-1.1b uncut through the Server (batch 4) and
+# the StreamingEngine (8 blocks); falcon-mamba-7b and recurrentgemma-2b at
+# full width, 2 of 64 and 3 of 26 layers, through the engine
+SERVE_BATCH = 4
+SERVE_BLOCKS = 8
+SERVE_ENGINES = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
+SERVE_DRAIN_S = 60.0  # the Server's background tuner must drain within this
+# a request may part from its oracle only where both runs' own logits of the
+# two tokens lie within 2 bf16 ulps; at most half of a run's requests, and
+# an eighth of all compared, may part so
+NEAR_TIE_ULPS = 2
+NEAR_TIE_RUN_SHARE = 0.5
+NEAR_TIE_SHARE = 0.125
+SERVE_CHAOS = dict(step_fault_rate=0.2, squeeze_rate=0.2, squeeze_hold=3, delay_rate=0.2,
+                   delay_s=0.01)
 
 
 def fail(msg: str) -> int:
@@ -411,18 +466,24 @@ def model_kernels(cfg) -> dict:
 
 
 def decode_bytes(tm, cfg, ctx: int) -> float:
-    """Bytes one decode step must move at ``ctx`` cached positions: every
-    weight once (the embedding table only where it is also the unembedding:
-    a lookup gathers one row), the K/V positions attended, and each
-    recurrent state read and written."""
+    """Bytes one decode step of one row must move at ``ctx`` cached
+    positions (:func:`decode_step_bytes`)."""
+    return decode_step_bytes(tm, cfg, [ctx])
+
+
+def decode_step_bytes(tm, cfg, ctxs) -> float:
+    """Bytes one decode step over rows at ``ctxs`` cached positions must
+    move: every weight once (the embedding table only where it is also the
+    unembedding: a lookup gathers one row), and for each row the K/V
+    positions it attends and each recurrent state read and written."""
     n = tm.count_params(tm.param_specs(cfg))
     weights = 2.0 * (n - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
     kinds = model_kernels(cfg)
-    kv = 2.0 * 2 * cfg.n_kv_heads * cfg.head_dim_ * kinds["flash_attention"]
+    kv_row = 2.0 * 2 * cfg.n_kv_heads * cfg.head_dim_ * kinds["flash_attention"]
     if cfg.family == "hybrid":
-        kv *= min(ctx, cfg.local_window)
+        kv = kv_row * sum(min(c, cfg.local_window) for c in ctxs)
     else:
-        kv *= ctx
+        kv = kv_row * sum(ctxs)
     state = 0.0
     if cfg.family == "ssm":
         state = cfg.n_layers * 2 * (4.0 * cfg.d_inner * cfg.ssm_state
@@ -430,7 +491,7 @@ def decode_bytes(tm, cfg, ctx: int) -> float:
     elif cfg.family == "hybrid":
         state = kinds["rglru_scan"] * 2 * (4.0 * cfg.lru_width_
                                            + 2.0 * (cfg.d_conv - 1) * cfg.lru_width_)
-    return weights + kv + state
+    return weights + kv + state * len(ctxs)
 
 
 def kernel_share(torch, fn) -> tuple:
@@ -480,11 +541,13 @@ def temper(torch, tm, params) -> None:
 class KernelCalls:
     """Records every call the model path makes to a kernel route (its
     inputs and output), to hold each against the kernel's plain version on
-    the same inputs afterwards."""
+    the same inputs afterwards; with ``this_thread`` only the calls made on
+    the thread that enters (the serving thread, not a background tuner's)."""
 
-    def __init__(self):
+    def __init__(self, this_thread: bool = False):
         self.calls = []
         self._patches = []
+        self._thread = threading.get_ident() if this_thread else None
 
     def __enter__(self):
         from repro_torch.models import encdec, rglru, ssm, transformer
@@ -496,7 +559,8 @@ class KernelCalls:
 
             def record(*args, _fn=fn, _name=name, **kwargs):
                 out = _fn(*args, **kwargs)
-                self.calls.append((_name, args, kwargs, out))
+                if self._thread is None or self._thread == threading.get_ident():
+                    self.calls.append((_name, args, kwargs, out))
                 return out
 
             setattr(module, name, record)
@@ -508,7 +572,7 @@ class KernelCalls:
         return False
 
 
-def check_calls(torch, label, calls, errors) -> dict:
+def check_calls(torch, label, calls, errors, tag: str = "model") -> dict:
     """Each recorded kernel call against its plain version on the same
     inputs: flash against ``attention_plain``, held to the worst-row rule
     (the element tolerance assumes outputs of unit scale, and the model's
@@ -541,7 +605,7 @@ def check_calls(torch, label, calls, errors) -> dict:
             errors.append(f"{label}: {name} call {n} off its plain version by {err}, row "
                           f"{row}; failed {failed}")
     for name, (n, err, row, scale) in out.items():
-        print(f"[model] {label}: {n} {name} calls of a prefill against the plain version on "
+        print(f"[{tag}] {label}: {n} {name} calls of a prefill against the plain version on "
               f"the same inputs: max abs err {err:.3e} (largest |output| {scale:.3e}), worst "
               f"row {row:.3e}")
     return out
@@ -734,6 +798,631 @@ def smoke_sweep(torch, device, errors) -> dict:
         if out[arch] > ROW_TOL["bfloat16"]:
             errors.append(f"smoke {arch}: card off the CPU run by {out[arch]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [serve]: the serving slice (repro_torch.runtime) on the card
+# ---------------------------------------------------------------------------
+
+
+def serve_setup(torch, arch, depth, device):
+    """(cfg, tempered bf16 params on ``device``) of one full-width model."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_(n_layers=depth)
+    params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    temper(torch, tm, params)
+    return cfg, params
+
+
+def serve_oracle(cfg, params, reqs, max_len, batch=None) -> tuple:
+    """(rid -> tokens, rid -> the logits row behind each token) of the
+    port's one-request-at-a-time oracle: ``Server(batch_size=1)``, request
+    by request, no tuning.  With ``batch``, each prompt is first left-padded
+    with token 0 to the length of its group of ``batch`` requests
+    (:func:`padded_prompt`): the static Server's inputs, which (as the JAX
+    Server's) pad without a mask, so a row's tokens depend on its
+    batch-mates' prompt lengths."""
+    from repro_torch.data import ServingRequest
+    from repro_torch.runtime import Server
+
+    srv = Server(cfg, params, batch_size=1, max_len=max_len)
+    alone = [ServingRequest(rid=r.rid, prompt=padded_prompt(reqs, i, batch),
+                            max_new_tokens=r.max_new_tokens) for i, r in enumerate(reqs)]
+    out = {}
+    with LogitsRecorder() as rec:
+        for r in alone:
+            out.update(srv.run([r]))
+    return out, witness(server_rows, rec.records, alone, 1)
+
+
+def padded_prompt(reqs, i, batch):
+    """Request i's prompt as the static Server feeds it: left-padded with
+    token 0 to the longest prompt of its group of ``batch``."""
+    import numpy as np
+
+    prompt = reqs[i].prompt
+    if batch is None:
+        return prompt
+    group = reqs[i - i % batch: i - i % batch + batch]
+    plen = max(len(g.prompt) for g in group)
+    return np.concatenate([np.zeros(plen - len(prompt), prompt.dtype), prompt])
+
+
+class LogitsRecorder:
+    """The logits behind every greedy token that the Server and the engine
+    pick on the entering thread (the serving thread: a background tuner's
+    trials are left out), in call order: ``records`` holds (module,
+    logits), the logits kept on their device as they are, so recording
+    costs a run no copy and no synchronisation."""
+
+    def __enter__(self):
+        from repro_torch.runtime import engine, serve
+
+        self.records = []
+        self._thread = threading.get_ident()
+        self._patches = []
+        for module in (serve, engine):
+            fn = module.greedy
+            self._patches.append((module, fn))
+
+            def record(logits, _fn=fn, _where=module.__name__.rsplit(".", 1)[1]):
+                if threading.get_ident() == self._thread:
+                    self.records.append((_where, logits))
+                return _fn(logits)
+
+            module.greedy = record
+        return self
+
+    def __exit__(self, *exc):
+        for module, fn in self._patches:
+            module.greedy = fn
+        return False
+
+
+def server_rows(records, reqs, batch) -> dict:
+    """rid -> the logits row behind each of its tokens in a Server run of
+    ``reqs`` at ``batch``: per group its prefill, then its decode steps."""
+    logits = [x for where, x in records if where == "serve"]
+    rows, k = {}, 0
+    for i in range(0, len(reqs), batch):
+        group = reqs[i:i + batch]
+        steps = logits[k:k + max(r.max_new_tokens for r in group)]
+        k += len(steps)
+        for gi, r in enumerate(group):
+            rows[r.rid] = [x[gi] for x in steps][:r.max_new_tokens]
+    if k != len(logits):
+        raise RuntimeError(f"{len(logits)} greedy calls for {k} steps of the groups")
+    return rows
+
+
+def engine_rows(records, events) -> dict:
+    """rid -> the logits row behind each of its tokens in an engine run,
+    laid out by its tracer's steps: a prefill picks one token a row of its
+    group (a resumed request starts over), a decode step one a real row,
+    over the greedy calls of its degree's chunks."""
+    logits = iter([x for where, x in records if where == "engine"])
+    rows = {}
+    for ev in events:
+        if ev["name"] == "engine.prefill":
+            x = next(logits)
+            for i, rid in enumerate(ev["args"]["rids"]):
+                rows[rid] = [x[i]]
+        elif ev["name"] == "engine.decode":
+            got = []
+            while len(got) < ev["args"]["bucket"]:
+                got.extend(next(logits).unbind(0))
+            for i, rid in enumerate(ev["args"]["rids"]):
+                rows[rid].append(got[i])
+    if next(logits, None) is not None:
+        raise RuntimeError("greedy calls left over after the traced steps")
+    return rows
+
+
+def witness(fn, *args) -> dict:
+    """``fn(*args)``, the rows behind a run's greedy tokens; {} (printed)
+    where the run's calls do not lay out, and then any parting of that
+    run counts as DIFFER."""
+    try:
+        return fn(*args)
+    except (RuntimeError, StopIteration, KeyError, IndexError) as e:
+        print(f"[serve] no logits witness: {e!r}")
+        return {}
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 bits of mantissa)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def parting(want, got, want_rows, got_rows) -> dict:
+    """Where ``got`` leaves ``want``, with both witnesses there: each
+    path's own logits of the two tokens, recorded in the runs.  ``near``
+    when each path picked its token by at most ``NEAR_TIE_ULPS`` bf16 ulps
+    (of the larger of the two picked logits) over the other's."""
+    j = next((k for k, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if j is None:
+        return {"lengths": (len(want), len(got)), "near": False}
+    a, b = want[j], got[j]
+    info = {"step": j, "of": len(want), "tokens": (a, b), "near": False}
+    if not want_rows or not got_rows or j >= min(len(want_rows), len(got_rows)):
+        info["witness"] = "not recorded"
+        return info
+    w, g = want_rows[j].float().cpu(), got_rows[j].float().cpu()
+    if int(w.argmax()) != a or int(g.argmax()) != b:
+        info["witness"] = f"the rows pick {int(w.argmax())}, {int(g.argmax())}"
+        return info
+    ulp = bf16_ulp(max(abs(float(w[a])), abs(float(g[b]))))
+    gaps = (float(w[a] - w[b]) / ulp, float(g[b] - g[a]) / ulp)
+    info.update(reference=(float(w[a]), float(w[b])), run=(float(g[a]), float(g[b])),
+                gap_ulps=gaps, near=all(0 <= x <= NEAR_TIE_ULPS for x in gaps))
+    return info
+
+
+def drained(eng, reqs) -> list:
+    """What the engine's drain contract misses: every request retired once
+    with a valid status, every block free, 0 hot-path evaluations."""
+    from repro_torch.runtime.engine import REQUEST_STATUSES
+
+    bad = []
+    if set(eng.results) != {r.rid for r in reqs}:
+        bad.append(f"retired {sorted(eng.results)} of {sorted(r.rid for r in reqs)}")
+    bad += [f"rid {rid} status {res.status}" for rid, res in eng.results.items()
+            if res.status not in REQUEST_STATUSES]
+    if eng.cache.free != eng.cache.n_blocks or eng.cache.block_table:
+        bad.append(f"blocks held: {eng.cache.block_table}")
+    if eng.hot_path_cost_evaluations:
+        bad.append(f"{eng.hot_path_cost_evaluations} hot-path evaluations")
+    return bad
+
+
+def engine_decode_steps(eng, reqs) -> list:
+    """(device-synchronised ms, rows, each row's cached positions) of every
+    decode step, from the engine's tracer: a row holds its prompt after
+    prefill and one more position each decode step it took part in."""
+    plen = {r.rid: len(r.prompt) for r in reqs}
+    ctx = {}
+    steps = []
+    for ev in eng.tracer.events():
+        if ev["name"] == "engine.prefill":
+            for rid in ev["args"]["rids"]:
+                ctx[rid] = plen[rid]
+        elif ev["name"] == "engine.decode":
+            rids = ev["args"]["rids"]
+            steps.append((ev["dur"] / 1e3, len(rids), [ctx[rid] + 1 for rid in rids]))
+            for rid in rids:
+                ctx[rid] += 1
+    return steps
+
+
+def op_states(srv) -> list:
+    """Every class a Server or an engine resolved: its serve ops' and the
+    kernel ops' of its serving rule."""
+    ops = [srv.prefill_op, srv.decode_op] + ([srv.sched_op] if hasattr(srv, "sched_op") else [])
+    return [st for op in ops for st in op.states().values()] + list(srv.rule.states().values())
+
+
+# the route (the model function that ``KernelCalls`` records) of each kernel
+ROUTE_OF = {"flash_attention": "causal_attention", "ssm_scan": "selective_scan",
+            "rglru_scan": "lru_scan"}
+
+
+class ServeRun:
+    """One serve run's bookkeeping: its TuningDB and, unless ``tuner`` is
+    False, its BackgroundTuner; the kernel counts set to 0 just before it
+    and read just after, the serving thread's apart from the tuner's
+    trials; the kernel calls of its prefills and the logits of its greedy
+    tokens on the serving thread."""
+
+    def __init__(self, torch, label, counters, db=None, tuner=True):
+        from repro_torch.core import TuningDB
+        from repro_torch.runtime import BackgroundTuner
+
+        self.torch, self.label, self.counters = torch, label, counters
+        self.db = db if db is not None else TuningDB()
+        self.tuner = BackgroundTuner(name=f"tuner {label}") if tuner else None
+        self.launches = self.trial_launches = self.plain = None
+
+    def __enter__(self):
+        for c in self.counters.values():
+            c.reset()
+        self.thread = threading.get_ident()
+        self.rec = KernelCalls(this_thread=True).__enter__()
+        self.logits = LogitsRecorder().__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.logits.__exit__(*exc)
+        self.rec.__exit__(*exc)
+        own = {name: c.on_thread(self.thread) for name, c in self.counters.items()}
+        self.launches = {name: n for name, (n, _) in own.items()}
+        self.trial_launches = {name: c.launches - own[name][0]
+                               for name, c in self.counters.items()}
+        self.plain = sum(c.plain_calls for c in self.counters.values())  # every thread's
+        self.pending = self.tuner.pending if self.tuner is not None else 0
+        return False
+
+    def stop_tuner(self, drain_s: float, drop_first=None) -> dict:
+        """Drop the queued jobs whose label ``drop_first`` accepts, let the
+        tuner go on for ``drain_s`` seconds, drop what it has not started,
+        wait for the job it runs; what it did."""
+        t0 = time.perf_counter()
+        skipped = self.tuner.cancel_pending(drop_first) if drop_first is not None else []
+        drained_in = self.tuner.drain(timeout=drain_s)
+        dropped = skipped + self.tuner.cancel_pending()
+        self.tuner.stop(timeout=300)
+        print(f"[time] {self.label}: the tuner stopped {time.perf_counter() - t0:.2f} s "
+              f"after the run (drained: {drained_in}; {len(skipped)} dropped first)")
+        return {"pending_at_end": self.pending, "drained": drained_in,
+                "dropped": len(dropped), "tuned": len(self.tuner.completed),
+                "background_evaluations": self.tuner.background_evaluations,
+                "errors": [f"{label}: {e!r}" for label, e in self.tuner.errors]}
+
+    def check(self, cfg, errors, expect=None) -> dict:
+        """On the serving thread: every expected kernel launched, once for
+        each call of its route that :class:`KernelCalls` recorded; no plain
+        call on any thread; each prefill kernel call within tolerance of
+        its plain version."""
+        expect = [k for k, n in model_kernels(cfg).items() if n] if expect is None else expect
+        per_call = check_calls(self.torch, self.label, self.rec.calls, errors, tag="serve")
+        calls = {k: per_call.get(ROUTE_OF[k], (0,))[0] for k in self.launches}
+        missing = [k for k in expect if not self.launches[k] or not calls[k]]
+        unmatched = {k: (n, calls[k]) for k, n in self.launches.items() if n != calls[k]}
+        if missing or unmatched or self.plain:
+            errors.append(f"serve {self.label}: on the serving thread kernels {missing} never "
+                          f"launched, (launches, route calls) {unmatched} apart, or "
+                          f"{self.plain} plain calls ({self.launches})")
+        return per_call
+
+
+def verdicts(label, want, got, want_rows, got_rows, errors,
+             what="the one-at-a-time oracle") -> dict:
+    """rid -> "ok" (the tokens equal ``want``'s), "near-tie" (they part
+    where both runs' own logits of the two tokens lie within
+    ``NEAR_TIE_ULPS`` bf16 ulps: the logits are bf16-rounded, as the JAX
+    model's, and a batch of rows rounds a product differently from one
+    row) or "DIFFER" (any other parting, or one with no witness: the run
+    fails); more than ``NEAR_TIE_RUN_SHARE`` of the requests at near-ties
+    fails it too.  Printed, with each parting; returns the counts."""
+    out, parts = {}, {}
+    for rid in sorted(want):
+        if got.get(rid) == want[rid]:
+            out[rid] = "ok"
+            continue
+        parts[rid] = parting(want[rid], got.get(rid) or [], want_rows.get(rid),
+                             got_rows.get(rid))
+        out[rid] = "near-tie" if parts[rid]["near"] else "DIFFER"
+    counts = {v: list(out.values()).count(v) for v in ("ok", "near-tie", "DIFFER")}
+    print(f"[serve] {label}: tokens against {what}: {counts}; "
+          + " ".join(f"{rid}:{v}" for rid, v in out.items()))
+    for rid, info in parts.items():
+        print(f"[serve] {label}: request {rid} parts at {info} ({out[rid]})")
+    bad = [rid for rid, v in out.items() if v == "DIFFER"]
+    if bad:
+        errors.append(f"serve {label}: requests {bad} differ from {what}")
+    if counts["near-tie"] > NEAR_TIE_RUN_SHARE * len(want):
+        errors.append(f"serve {label}: {counts['near-tie']} of {len(want)} requests part at "
+                      f"near-ties (at most {NEAR_TIE_RUN_SHARE:.0%})")
+    return counts
+
+
+def serve_report(label, stats_line, run, tuner, classes, hot, want, got, want_rows, got_rows,
+                 errors) -> dict:
+    print(f"[serve] {label}: {stats_line}")
+    print(f"[serve] {label}: {len(classes)} traffic classes {classes}; hot-path evaluations "
+          f"{hot}; background: {tuner}")
+    print(f"[serve] {label}: kernel launches on the serving thread {run.launches}, the "
+          f"tuner's trials {run.trial_launches}, plain calls {run.plain}; wall "
+          f"{run.wall_s:.2f} s")
+    if hot:
+        errors.append(f"serve {label}: {hot} hot-path evaluations")
+    if tuner.get("errors"):
+        errors.append(f"serve {label}: background tuning failed: {tuner['errors']}")
+    return verdicts(label, want, got, want_rows, got_rows, errors)
+
+
+def serve_tinyllama(torch, device, arch_spec, counters, errors) -> list:
+    """tinyllama-1.1b uncut: the Server on a mixed trace (then again on the
+    same DB, then joint_tune twice) and the StreamingEngine on a bursty
+    trace with its tuner, with none, and on the first run's DB once its
+    tuner has drained; every request against the oracle."""
+    from repro_torch import models as tm
+    from repro_torch.data import bursty_open_loop_trace, mixed_traffic_trace
+    from repro_torch.runtime import Server
+
+    cfg, params = serve_setup(torch, "tinyllama-1.1b", None, device)
+    stream = bursty_open_loop_trace(cfg, 16, seed=SEED, burst_size=4, burst_gap_s=0.05)
+    static = mixed_traffic_trace(cfg, 8, seed=SEED)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in stream + static)
+    records = []
+    oracle, oracle_rows = serve_oracle(cfg, params, static, max_len, batch=SERVE_BATCH)
+
+    # the Server, batch 4: the tuner drains before the second pass
+    label = "tinyllama-1.1b Server"
+    with ServeRun(torch, label, counters) as run:
+        srv = Server(cfg, params, batch_size=SERVE_BATCH, max_len=max_len, tuning_db=run.db,
+                     background_tuner=run.tuner)
+        out = srv.run(static)
+    per_call = run.check(cfg, errors)
+    rows = witness(server_rows, run.logits.records, static, SERVE_BATCH)
+    tuner = run.stop_tuner(SERVE_DRAIN_S)
+    if not tuner["drained"] or tuner["dropped"]:
+        errors.append(f"serve {label}: background tuning did not drain in {SERVE_DRAIN_S} s")
+    groups = [static[i:i + SERVE_BATCH] for i in range(0, len(static), SERVE_BATCH)]
+    steps = [max(len(r.prompt) for r in g) + k
+             for g in groups for k in range(1, max(r.max_new_tokens for r in g))]
+    bound = sum(decode_step_bytes(tm, cfg, [ctx + 1] * SERVE_BATCH)
+                for ctx in steps) / len(steps) / arch_spec.hbm_bandwidth * 1e3
+
+    def server_line(srv, run):
+        """The stats line of a Server run, and (prefill ms a group, decode
+        ms a step): a step of the batch's rows, ``steps`` of them."""
+        s = srv.stats
+        prefill_ms, step_ms = s.prefill_s / len(groups) * 1e3, s.decode_s / len(steps) * 1e3
+        return (f"{len(static)} requests, {s.tokens_out} tokens, {s.decode_tok_per_s:.1f} tok/s "
+                f"in decode, {s.tokens_out / run.wall_s:.1f} tok/s end to end; prefill "
+                f"{prefill_ms:.3f} ms a group of {SERVE_BATCH}; decode {step_ms:.3f} ms a step "
+                f"of {SERVE_BATCH} rows (bound {bound:.3f} ms)"), prefill_ms, step_ms
+
+    line, prefill_ms, step_ms = server_line(srv, run)
+    s = srv.stats
+    oracle_counts = serve_report(label, line, run, tuner, srv.traffic_classes_seen,
+                                 srv.hot_path_cost_evaluations, oracle, out, oracle_rows, rows,
+                                 errors)
+    records.append({"run": label, "requests": len(out), "tokens": s.tokens_out,
+                    "decode_tok_per_s": s.decode_tok_per_s, "wall_s": run.wall_s,
+                    "prefill_ms_per_group": prefill_ms,
+                    "decode_ms_per_step": step_ms, "decode_bound_ms": bound,
+                    "launches": run.launches, "trial_launches": run.trial_launches,
+                    "per_call": per_call, "tuner": tuner,
+                    "classes": srv.traffic_classes_seen, "oracle": oracle_counts})
+
+    # the same trace on the same DB: every class recalled, nothing evaluated
+    label = "tinyllama-1.1b Server, second pass"
+    with ServeRun(torch, label, counters, db=run.db) as run2:
+        srv2 = Server(cfg, params, batch_size=SERVE_BATCH, max_len=max_len,
+                      tuning_db=run2.db, background_tuner=run2.tuner)
+        out2 = srv2.run(static)
+    run2.check(cfg, errors)
+    rows2 = witness(server_rows, run2.logits.records, static, SERVE_BATCH)
+    states = op_states(srv2)
+    evaluations = sum(st.cost_evaluations + st.prescreen_evaluations for st in states)
+    recalled = sum(st.from_cache for st in states)
+    # joint AT of the serve step, then its recall
+    t0 = time.perf_counter()
+    joint = srv2.joint_tune(static)
+    joint_s = time.perf_counter() - t0
+    again = srv2.joint_tune(static)
+    tuner2 = run2.stop_tuner(SERVE_DRAIN_S)
+    evaluations += tuner2["background_evaluations"]
+    print(f"[serve] {label}: {len(states)} classes, {recalled} recalled from the DB, "
+          f"{evaluations} evaluations of any kind (must be 0); winners "
+          f"{[(st.bp['kernel'], st.region.selected) for st in states]}")
+    print(f"[serve] {label}: joint_tune {joint.assignment} in {joint_s:.2f} s, "
+          f"{joint.evaluations} evaluations; again: from_cache={again.from_cache}, "
+          f"{again.evaluations} evaluations")
+    if evaluations or recalled != len(states):
+        errors.append(f"serve {label}: {evaluations} evaluations, {recalled} of "
+                      f"{len(states)} classes recalled")
+    if not again.from_cache or again.evaluations or again.assignment != joint.assignment:
+        errors.append(f"serve {label}: joint_tune not recalled ({again})")
+    line2, prefill_ms2, step_ms2 = server_line(srv2, run2)
+    counts2 = serve_report(label, line2, run2, tuner2, srv2.traffic_classes_seen,
+                           srv2.hot_path_cost_evaluations, oracle, out2, oracle_rows, rows2,
+                           errors)
+    records.append({"run": label, "evaluations": evaluations, "recalled": recalled,
+                    "classes": len(states), "joint": joint.assignment,
+                    "joint_evaluations": joint.evaluations, "joint_s": joint_s,
+                    "prefill_ms_per_group": prefill_ms2, "decode_ms_per_step": step_ms2,
+                    "wall_s": run2.wall_s, "launches": run2.launches,
+                    "trial_launches": run2.trial_launches, "oracle": counts2})
+
+    # the engine: with its tuner (which then drains the kernel and degree
+    # classes: the scheduler's shadow replays would take minutes), with no
+    # tuner (the control), and on the drained DB with no tuner (the tuned path)
+    label = "tinyllama-1.1b StreamingEngine"
+    stream_oracle = serve_oracle(cfg, params, stream, max_len)
+    rec, _, run = serve_engine_run(torch, label, cfg, params, stream, max_len, arch_spec,
+                                   counters, errors, stream_oracle, drain_s=SERVE_DRAIN_S,
+                                   drop_first=lambda name: name.startswith("stream/"))
+    records.append(rec)
+    landed = {st.bp.fingerprint() for _, st in run.tuner.completed}
+    rec, _, _ = serve_engine_run(torch, f"{label}, no tuner", cfg, params, stream, max_len,
+                                 arch_spec, counters, errors, stream_oracle, tuner=False)
+    records.append(rec)
+    label = f"{label}, tuned DB"
+    rec, eng, _ = serve_engine_run(torch, label, cfg, params, stream, max_len, arch_spec,
+                                   counters, errors, stream_oracle, db=run.db, tuner=False)
+    states = op_states(eng)
+    recalled = [st for st in states if st.from_cache]
+    evaluations = sum(st.cost_evaluations + st.prescreen_evaluations for st in states)
+    missed = [st.bp["kernel"] for st in states
+              if st.bp.fingerprint() in landed and not st.from_cache]
+    kinds = sorted({st.bp["kernel"] for st in recalled})
+    winners = {}
+    for st in recalled:
+        point = json.dumps(st.region.selected, sort_keys=True)
+        winners.setdefault(st.bp["kernel"], {}).setdefault(point, 0)
+        winners[st.bp["kernel"]][point] += 1
+    print(f"[serve] {label}: {len(states)} classes, {len(recalled)} recalled from the drained "
+          f"DB ({kinds}), {len(states) - len(recalled)} not in it (their default point); "
+          f"{evaluations} evaluations of any kind (must be 0); recalled winners (classes a "
+          f"point) {winners}")
+    if (evaluations or missed or "flash_attention" not in kinds
+            or not {"engine_prefill", "engine_decode"} & set(kinds)):
+        errors.append(f"serve {label}: {evaluations} evaluations; landed but not recalled "
+                      f"{missed}; recalled {kinds}")
+    rec.update(classes_seen=len(states), recalled=len(recalled), recalled_kinds=kinds,
+               evaluations=evaluations, winners=winners)
+    records.append(rec)
+    return records
+
+
+def serve_engine_run(torch, label, cfg, params, reqs, max_len, arch_spec, counters, errors,
+                     oracle, db=None, tuner=True, drain_s=0.0, drop_first=None) -> tuple:
+    """One StreamingEngine run on the card on its own DB (or ``db``), with
+    a BackgroundTuner unless ``tuner`` is False: the stats, each decode step
+    beside its byte bound, the drain contract and the check against
+    ``oracle`` (tokens, rows); returns (its record, the engine, the run)."""
+    from repro_torch import models as tm
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import StreamingEngine
+
+    with ServeRun(torch, label, counters, db=db, tuner=tuner) as run:
+        eng = StreamingEngine(cfg, params, n_blocks=SERVE_BLOCKS, max_len=max_len,
+                              tuning_db=run.db, background_tuner=run.tuner, tracer=Tracer())
+        out = eng.serve(reqs)
+    per_call = run.check(cfg, errors)
+    rows = witness(engine_rows, run.logits.records, eng.tracer.events())
+    if run.tuner is not None:
+        landed = len(run.tuner.tuned_labels)
+        info = run.stop_tuner(drain_s, drop_first)
+        info["landed_in_run"] = landed
+    else:
+        info = {"tuner": None}
+    s = eng.stats
+    steps = engine_decode_steps(eng, reqs)
+    bounds = [decode_step_bytes(tm, cfg, ctxs) / arch_spec.hbm_bandwidth * 1e3
+              for _, _, ctxs in steps]
+    n_rows = sum(n for _, n, _ in steps) / max(1, len(steps))
+    step_ms = s.decode_s / max(1, s.decode_steps) * 1e3
+    bound = sum(bounds) / max(1, len(bounds))
+    line = (f"{len(out)} requests, {s.tokens_out} tokens, {s.tok_per_s:.1f} tok/s on the "
+            f"virtual clock ({s.makespan_s:.3f} s), {s.tokens_out / run.wall_s:.1f} tok/s "
+            f"wall; TTFT p50 {s.ttft_percentile(50) * 1e3:.3f} ms, p99 "
+            f"{s.ttft_percentile(99) * 1e3:.3f} ms; prefill "
+            f"{s.prefill_s / max(1, s.prefill_steps) * 1e3:.3f} ms a group "
+            f"({s.prefill_steps} groups); decode {step_ms:.3f} ms a step at {n_rows:.2f} rows "
+            f"(bound {bound:.3f} ms; {s.decode_steps} steps, peak in flight "
+            f"{s.peak_in_flight})")
+    bad = drained(eng, reqs)
+    if bad or any(res.status != "ok" for res in eng.results.values()):
+        errors.append(f"serve {label}: drain contract: {bad}, statuses "
+                      f"{sorted({res.status for res in eng.results.values()})}")
+    counts = serve_report(label, line, run, info, eng.traffic_classes_seen,
+                          eng.hot_path_cost_evaluations, oracle[0], out, oracle[1], rows, errors)
+    return ({"run": label, "requests": len(out), "tokens": s.tokens_out,
+             "tok_per_s_virtual": s.tok_per_s, "wall_s": run.wall_s,
+             "ttft_p50_ms": s.ttft_percentile(50) * 1e3,
+             "ttft_p99_ms": s.ttft_percentile(99) * 1e3,
+             "prefill_ms_per_group": s.prefill_s / max(1, s.prefill_steps) * 1e3,
+             "decode_ms_per_step": step_ms, "decode_rows_per_step": n_rows,
+             "decode_bound_ms": bound, "decode_steps": s.decode_steps,
+             "step_ms": [round(ms, 4) for ms, _, _ in steps], "launches": run.launches,
+             "trial_launches": run.trial_launches, "per_call": per_call, "tuner": info,
+             "classes": eng.traffic_classes_seen,
+             "tuned_scheduler_classes": eng.tuned_scheduler_classes, "oracle": counts},
+            eng, run)
+
+
+def serve_smoke(torch, device, counters, errors) -> dict:
+    """Every arch at its SMOKE config through the engine on the card
+    against the port's engine on the CPU, on the same tempered weights;
+    then tinyllama's SMOKE config under chaos."""
+    import copy
+
+    from repro_torch import models as tm
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.data import adversarial_trace, bursty_open_loop_trace
+    from repro_torch.obs import TickTimer, Tracer
+    from repro_torch.runtime import ChaosInjector, StreamingEngine
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, smoke=True)
+        params = tm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        temper(torch, tm, params)
+        reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, scale=0.25)
+        max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+        with LogitsRecorder() as rec:
+            ref_eng = StreamingEngine(cfg, params, n_blocks=4, max_len=max_len, tracer=Tracer())
+            ref = ref_eng.serve(reqs)
+        ref_rows = witness(engine_rows, rec.records, ref_eng.tracer.events())
+        label = f"smoke {arch}"
+        with ServeRun(torch, label, counters) as run:
+            eng = StreamingEngine(cfg, copy.deepcopy(params).to(device), n_blocks=4,
+                                  max_len=max_len, tuning_db=run.db,
+                                  background_tuner=run.tuner, tracer=Tracer())
+            got = eng.serve(reqs)
+        run.check(cfg, errors)
+        got_rows = witness(engine_rows, run.logits.records, eng.tracer.events())
+        tuner = run.stop_tuner(0.0)
+        print(f"[serve] {label}: card vs CPU engine, {sum(len(t) for t in got.values())} "
+              f"tokens of {len(got)} requests; launches on the serving thread {run.launches}, "
+              f"the tuner's trials {run.trial_launches}, plain {run.plain}; hot-path "
+              f"evaluations {eng.hot_path_cost_evaluations}; background {tuner['tuned']} "
+              f"classes, {tuner['dropped']} dropped")
+        out[arch] = verdicts(label, ref, got, ref_rows, got_rows, errors, what="the CPU engine")
+        bad = drained(eng, reqs)
+        if bad or eng.hot_path_cost_evaluations:
+            errors.append(f"serve {label}: drain contract: {bad}")
+
+    # chaos: every request retires exactly once, the ok ones as the oracle says
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    temper(torch, tm, params)
+    max_len = 24
+    reqs = adversarial_trace(cfg, 16, seed=SEED, scale=0.25, malformed_rate=0.2,
+                             max_len_hint=max_len, deadline_ttl_s=0.03)
+
+    on_card = copy.deepcopy(params).to(device)
+    label = "chaos tinyllama-1.1b smoke"
+    with ServeRun(torch, label, counters) as run:
+        eng = StreamingEngine(cfg, on_card, n_blocks=4, max_len=max_len, queue_limit=4,
+                              chaos=ChaosInjector(seed=SEED, **SERVE_CHAOS), timer=TickTimer(),
+                              tuning_db=run.db, background_tuner=run.tuner, tracer=Tracer())
+        got = eng.serve(reqs)
+    got_rows = witness(engine_rows, run.logits.records, eng.tracer.events())
+    run.stop_tuner(0.0)
+    well = [r for r in reqs if r.rid in got]
+    oracle, oracle_rows = serve_oracle(cfg, on_card, well, max_len)
+    statuses = {}
+    for res in eng.results.values():
+        statuses[res.status] = statuses.get(res.status, 0) + 1
+    bad = drained(eng, reqs)
+    print(f"[serve] {label}: {len(reqs)} requests retired {statuses}; chaos "
+          f"{eng.chaos.stats.as_metrics()}; drain contract {'held' if not bad else bad}; "
+          f"launches on the serving thread {run.launches}, plain {run.plain}")
+    counts = verdicts(label, oracle, got, oracle_rows, got_rows, errors)
+    if bad:
+        errors.append(f"serve {label}: drain contract: {bad}")
+    if not eng.chaos.stats.faults:
+        errors.append(f"serve {label}: the chaos never fired")
+    out["chaos"] = {"statuses": statuses, "chaos": eng.chaos.stats.as_metrics(),
+                    "oracle": counts}
+    return out
+
+
+def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
+    """The [serve] phases; returns their records.  Near-ties may part at
+    most ``NEAR_TIE_SHARE`` of all the requests they compare."""
+    from repro_torch.data import bursty_open_loop_trace
+
+    records = serve_tinyllama(torch, device, arch_spec, counters, errors)
+    for arch, depth in SERVE_ENGINES:
+        cfg, params = serve_setup(torch, arch, depth, device)
+        reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4, burst_gap_s=0.05)
+        max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+        oracle = serve_oracle(cfg, params, reqs, max_len)
+        rec, _, _ = serve_engine_run(torch, f"{arch} (depth {depth}) StreamingEngine", cfg,
+                                     params, reqs, max_len, arch_spec, counters, errors, oracle)
+        records.append(rec)
+        del params
+    smoke = serve_smoke(torch, device, counters, errors)
+    tallies = [r["oracle"] for r in records] + [v.get("oracle", v) for v in smoke.values()]
+    compared = sum(sum(t.values()) for t in tallies)
+    near = sum(t["near-tie"] for t in tallies)
+    print(f"[serve] near-ties: {near} of {compared} requests compared (at most "
+          f"{NEAR_TIE_SHARE:.1%}), each within {NEAR_TIE_ULPS} bf16 ulps on both paths")
+    if near > NEAR_TIE_SHARE * compared:
+        errors.append(f"serve: {near} of {compared} requests part at near-ties")
+    return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared}
 
 
 def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
@@ -1370,6 +2059,16 @@ def run() -> int:
         return fail(f"{len(errors)} model check(s) failed")
     print(json.dumps({"models": models, "smoke_worst_row": smoke}, default=str))
 
+    # -- the serving slice: Server and StreamingEngine on the kernels -------
+    t0 = time.perf_counter()
+    serve = serve_phases(torch, device, arch, model_counters, errors)
+    print(f"[time] serve phases: {time.perf_counter() - t0:.1f} s")
+    if errors:
+        for e in errors:
+            print(f"[error] {e}", file=sys.stderr)
+        return fail(f"{len(errors)} serve check(s) failed")
+    print(json.dumps({"serve": serve}, default=str))
+
     # -- the kernels line --------------------------------------------------
     iv, iz, mx, my = EXB_DIMS
     exb_bytes = 4.0 * (6 * iv * iz * mx * my + 8 * iz * mx * my + iv)
@@ -1601,6 +2300,13 @@ def run() -> int:
         if entry["name"] in KERNEL_ENTRIES:
             entry["model_launches"] = {m["arch"]: m["launches"][entry["name"]] for m in models
                                        if m["launches"][entry["name"]]}
+    for entry in kernels:
+        if entry["name"] in KERNEL_ENTRIES:
+            entry["serve_launches"] = {r["run"]: r["launches"][entry["name"]]
+                                       for r in serve["runs"] if r["launches"][entry["name"]]}
+            entry["serve_trial_launches"] = {
+                r["run"]: r["trial_launches"][entry["name"]]
+                for r in serve["runs"] if r["trial_launches"][entry["name"]]}
     by_name["flash_attention"]["c3"] = c3
     by_name["ssm_scan"].update({"final_state_max_abs_err": fs_err,
                                 "final_state_max_row_err": fs_row, "final_state_point": fs_point,

@@ -10,8 +10,9 @@ search (hint prescreen, then finals timed on the device) → ``record_best``
 
 The paper's own loop nests (:mod:`.exchange`: the Exchange × LoopFusion
 variants as launch shapes; :mod:`.degree`: the ``omp_set_num_threads``
-protocol) drive the GKV and Seism3D apps (``repro_torch.apps``).  The
-program module waits for a later slice.
+protocol) drive the GKV and Seism3D apps (``repro_torch.apps``);
+:mod:`.program` tunes a composition of ops jointly (the serve step's
+prefill × decode degrees, ``repro_torch.runtime.Server.joint_tune``).
 """
 from .arch import ArchSpec, detect, local_arch
 from .autotuned import AutotunedOp, OpState
@@ -43,6 +44,7 @@ from .params import (
     pp_key,
     project_point,
 )
+from .program import JointSearch, ProgramMember, ProgramResult, ProgramSpec
 from .region import ATRegion
 from .registry import (
     REGISTRY,
@@ -82,6 +84,10 @@ __all__ = [
     "pp_key",
     "project_point",
     "ATRegion",
+    "JointSearch",
+    "ProgramMember",
+    "ProgramResult",
+    "ProgramSpec",
     "DegreeController",
     "ExchangeVariant",
     "GKV_FIGURE_OF_VARIANT",

@@ -142,15 +142,44 @@ def stream_of(t) -> ctypes.c_void_p:
 class Counter:
     """How often a wrapper launched its kernel, and how often it ran the
     plain version instead (CPU tensors).  A run resets both, drives a path,
-    and reads them to show which route the path took."""
+    and reads them to show which route the path took.
+
+    ``launches`` and ``plain_calls`` count every thread; :meth:`on_thread`
+    gives one thread's share, so a serving thread's launches read apart
+    from a background tuner's trials.  The wrappers add through
+    :meth:`launched` and :meth:`ran_plain`, under a lock."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        self._lock = threading.Lock()
+        self.reset()
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
+        with self._lock:
+            self.launches = 0
+            self.plain_calls = 0
+            self._threads: Dict[int, list] = {}
+
+    def _add(self, i: int) -> None:
+        with self._lock:
+            if i:
+                self.plain_calls += 1
+            else:
+                self.launches += 1
+            self._threads.setdefault(threading.get_ident(), [0, 0])[i] += 1
+
+    def launched(self) -> None:
+        """One launch of the kernel, on the calling thread."""
+        self._add(0)
+
+    def ran_plain(self) -> None:
+        """One call of the plain version, on the calling thread."""
+        self._add(1)
+
+    def on_thread(self, ident: int) -> tuple:
+        """(launches, plain calls) made on thread ``ident`` since the last
+        reset."""
+        with self._lock:
+            return tuple(self._threads.get(ident, (0, 0)))
 
 
 def route(tensors, what: str) -> str:

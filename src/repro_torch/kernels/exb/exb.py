@@ -76,7 +76,7 @@ def exb_cuda(
         iv, iz, mx * my, block_iv, block_iz, split, _build.stream_of(out_re),
     )
     _build.check(code, f"exb_launch(block_iv={block_iv}, block_iz={block_iz}, split={split})")
-    counter.launches += 1
+    counter.launched()
     return out_re, out_im
 
 
@@ -88,7 +88,7 @@ def exb(
     if _build.route(inp.values(), "exb") == "cuda":
         return exb_cuda(inp, block_iv, block_iz, split)
     _check_inputs(inp, block_iv, block_iz, split)
-    counter.plain_calls += 1
+    counter.ran_plain()
     return exb_plain(inp)
 
 

@@ -224,7 +224,7 @@ def flash_attention_cuda(
             B, S, H, KV, hd_run, block_q, block_kv, scale, int(causal), _build.stream_of(o),
         )
     _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
-    counter.launches += 1
+    counter.launched()
     return o if hd_run == hd else o[..., :hd].contiguous()
 
 
@@ -241,7 +241,7 @@ def flash_attention(
     if _build.route((q, k, v), "flash_attention") == "cuda":
         return flash_attention_cuda(q, k, v, block_q, block_kv, causal)
     _check(q, k, v, block_q, block_kv)
-    counter.plain_calls += 1
+    counter.ran_plain()
     return attention_plain(q, k, v, causal=causal)
 
 

@@ -75,7 +75,7 @@ def exb_cuda(inputs: Mapping[str, torch.Tensor], shape: LaunchShape) -> Dict[str
     _check(inputs, GKV_FIELDS, shape, "loop_nest gkv", _GKV_DTYPES)
     out = torch.empty_like(inputs["wkdf1"])
     _launch("loop_nest_gkv", GKV_FIELDS, inputs, [out], shape, "loop_nest gkv")
-    counters["gkv"].launches += 1
+    counters["gkv"].launched()
     return {"wkdf1": out}
 
 
@@ -86,7 +86,7 @@ def stress_cuda(inputs: Mapping[str, torch.Tensor], shape: LaunchShape) -> Dict[
     outs = {n: torch.empty_like(inputs[n]) for n in STRESS}
     _launch("loop_nest_seism3d", SEISM_FIELDS, inputs, list(outs.values()), shape,
             "loop_nest seism3d")
-    counters["seism3d"].launches += 1
+    counters["seism3d"].launched()
     return outs
 
 
@@ -96,7 +96,7 @@ def exb(inputs: Mapping[str, torch.Tensor], shape: LaunchShape) -> Dict[str, tor
     if _build.route(list(inputs.values()), "loop_nest gkv") == "cuda":
         return exb_cuda(inputs, shape)
     _check(inputs, GKV_FIELDS, shape, "loop_nest gkv", _GKV_DTYPES)
-    counters["gkv"].plain_calls += 1
+    counters["gkv"].ran_plain()
     return run_plain(exb_body, dict(inputs), shape)
 
 
@@ -106,6 +106,6 @@ def stress(inputs: Mapping[str, torch.Tensor], shape: LaunchShape) -> Dict[str, 
     if _build.route(list(inputs.values()), "loop_nest seism3d") == "cuda":
         return stress_cuda(inputs, shape)
     _check(inputs, SEISM_FIELDS, shape, "loop_nest seism3d", {})
-    counters["seism3d"].plain_calls += 1
+    counters["seism3d"].ran_plain()
     return run_plain(update_stress_body, dict(inputs), shape)
 

@@ -146,7 +146,7 @@ def rglru_scan_cuda(
         B, S, W, bw, ck, sp, DTYPES[x.dtype], _build.stream_of(y),
     )
     _build.check(code, f"rglru_scan_launch(block_w={bw}, chunk={ck}, split={sp})")
-    counter.launches += 1
+    counter.launched()
     return y
 
 
@@ -159,7 +159,7 @@ def rglru_scan(
     if _build.route((x, r, i, lam), "rglru_scan") == "cuda":
         return rglru_scan_cuda(x, r, i, lam, block_w, chunk, split)
     _check(x, r, i, lam, block_w, chunk, split)
-    counter.plain_calls += 1
+    counter.ran_plain()
     return rglru_scan_plain(x, r, i, lam)
 
 

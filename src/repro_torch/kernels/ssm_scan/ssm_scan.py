@@ -159,7 +159,7 @@ def ssm_scan_cuda(
         Bsz, S, Dd, N, bd, ck, k, DTYPES[x.dtype], _build.stream_of(y),
     )
     _build.check(code, f"ssm_scan_launch(block_d={bd}, chunk={ck}, states={k}, N={N})")
-    counter.launches += 1
+    counter.launched()
     return (y, h) if final_state else y
 
 
@@ -174,7 +174,7 @@ def ssm_scan(
     if _build.route((x, dt, A, Bc, Cc, D), "ssm_scan") == "cuda":
         return ssm_scan_cuda(x, dt, A, Bc, Cc, D, block_d, chunk, states, final_state)
     _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
-    counter.plain_calls += 1
+    counter.ran_plain()
     return ssm_scan_plain(x, dt, A, Bc, Cc, D, final_state=final_state)
 
 

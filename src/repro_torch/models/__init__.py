@@ -4,12 +4,15 @@ Serving entry points (forward, prefill, decode) for every family, on the
 port's hand-written kernels where the path has one: causal self-attention
 on ``flash_attention``, the Mamba recurrence on ``ssm_scan``, the RG-LRU
 recurrence on ``rglru_scan``, each through ``autotuned(name)`` on CUDA
-tensors, their plain versions on CPU tensors (:mod:`.route`).
+tensors, their plain versions on CPU tensors (:mod:`.route`); inside
+:func:`serving` a kernel call resolves by the serving rule, never tuning
+on the serving thread unless asked.
 """
 from .config import ModelConfig
 from .model import (
     analytic_param_count,
     analytic_step_flops,
+    cache_batch_axis,
     decode_fn,
     forward,
     init_cache,
@@ -19,7 +22,7 @@ from .model import (
     prefill_fn,
     train_loss,
 )
-from .route import plain_versions
+from .route import ServingRule, plain_versions, serving
 from .spec import ParamSpec, Params, count_params
 
 __all__ = [
@@ -38,4 +41,7 @@ __all__ = [
     "analytic_step_flops",
     "count_params",
     "plain_versions",
+    "serving",
+    "ServingRule",
+    "cache_batch_axis",
 ]

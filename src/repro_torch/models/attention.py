@@ -25,11 +25,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core import autotuned
 from ..kernels.flash_attention import flash_attention as fa_mod
 from .config import ModelConfig
 from .layers import dot, mrope_apply, promote, rope_apply
-from .route import on_kernel
+from .route import on_kernel, run_kernel
 from .spec import ParamSpec
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -105,11 +104,11 @@ def output_proj(o: torch.Tensor, p) -> torch.Tensor:
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention with ``Sq == Sk``: the flash kernel (tuned
-    and recalled through the registry) on CUDA tensors, the plain
-    :func:`full_attention` on CPU tensors."""
+    and recalled through the registry, :func:`.route.run_kernel`) on CUDA
+    tensors, the plain :func:`full_attention` on CPU tensors."""
     if on_kernel(q):
-        return autotuned("flash_attention")(q.contiguous(), k.contiguous(), v.contiguous())
-    fa_mod.counter.plain_calls += 1
+        return run_kernel("flash_attention", q.contiguous(), k.contiguous(), v.contiguous())
+    fa_mod.counter.ran_plain()
     return full_attention(q, k, v, causal=True)
 
 
@@ -174,7 +173,7 @@ def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, L, KV, hd)
     v_cache: torch.Tensor,
-    cache_len: int,  # valid prefix length
+    cache_len,  # valid prefix length: an int, or a (B,) tensor, one a row
     window: Optional[int] = None,
 ) -> torch.Tensor:
     B, _, H, hd = q.shape
@@ -185,6 +184,8 @@ def decode_attention(
     s = torch.einsum("bkgd,bskd->bkgs", qg, kk).float()
     s = s / math.sqrt(hd)
     pos = torch.arange(L, device=q.device)
+    if isinstance(cache_len, torch.Tensor):  # per row, against s's (B, KV, G, L)
+        cache_len = cache_len.reshape(B, 1, 1, 1)
     valid = pos < cache_len
     if window is not None:
         valid = valid & (pos >= cache_len - window)

@@ -24,7 +24,7 @@ from .attention import (
 from .config import ModelConfig
 from .layers import dot, embed, embed_spec, gelu_mlp, gelu_mlp_spec, layernorm, unembed
 from .spec import ParamSpec
-from .transformer import pad_cap
+from .transformer import at_most, pad_cap, positions_now, token_positions, write_slot
 
 
 def _ln_spec(d: int) -> Dict[str, ParamSpec]:
@@ -159,18 +159,20 @@ def decode_step(
     params, tokens: torch.Tensor,  # (B, 1)
     cache: Dict[str, Any], cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """(logits (B, V) fp32, the cache updated in place, len + 1)."""
+    """(logits (B, V) fp32, the cache updated in place, len + 1); ``len``
+    an int or a (B,) tensor of per-row positions, as
+    :func:`.transformer.decode_step`."""
     B = tokens.shape[0]
-    pos_now = int(cache["len"])
-    pos = torch.full((B, 1), pos_now, dtype=torch.int32, device=tokens.device)
+    pos_now, rows = positions_now(cache, B)
+    pos = token_positions(pos_now, B, tokens.device)
     x = _decoder_inputs(params, tokens, pos, cfg)
-    slot = min(pos_now, cache["self_k"].shape[2] - 1)  # dynamic_update_slice clamps
+    slot = at_most(pos_now, cache["self_k"].shape[2] - 1)  # dynamic_update_slice clamps
     for i, lp in enumerate(params["dec_layers"]):
         sk, sv = cache["self_k"][i], cache["self_v"][i]
         hh = layernorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = project_qkv(hh, lp["self_attn"], cfg, positions=None)
-        sk[:, slot] = k[:, 0].to(sk.dtype)
-        sv[:, slot] = v[:, 0].to(sv.dtype)
+        write_slot(sk, rows, slot, k[:, 0])
+        write_slot(sv, rows, slot, v[:, 0])
         x = x + output_proj(decode_attention(q, sk, sv, pos_now + 1), lp["self_attn"])
         hh = layernorm(x, lp["lnx"], cfg.norm_eps)
         qx = dot(hh, lp["cross_attn"]["wq"])
@@ -178,6 +180,6 @@ def decode_step(
         x = x + output_proj(ox, lp["cross_attn"])
         hh = layernorm(x, lp["ln2"], cfg.norm_eps)
         x = x + gelu_mlp(hh, lp["mlp"])
-    cache["len"] = pos_now + 1
+    cache["len"] = pos_now + 1 if rows is None else cache["len"] + 1
     x = layernorm(x, params["dec_final_ln"], cfg.norm_eps)
     return unembed(x, params["embed"].T)[:, 0], cache

@@ -11,10 +11,11 @@ The port of ``repro.models.model``.  Entry points:
   ``torch.Generator``.
 * :func:`analytic_param_count` / :func:`analytic_step_flops` — N and the
   useful FLOPs of a step (plain Python, copied as is).
+* :func:`cache_batch_axis` — where each decode-cache leaf keeps its batch
+  (serving splits, joins, gathers and scatters caches by it).
 
 Left out, as the JAX package's XLA side: ``input_specs`` /
-``input_logical_axes`` (the dry-run's sharded stand-ins) and
-``cache_batch_axis`` (the serving slice brings it).
+``input_logical_axes`` (the dry-run's sharded stand-ins).
 """
 from __future__ import annotations
 
@@ -210,6 +211,34 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, device: Any = "cuda"
     if cfg.is_encoder_decoder:
         return encdec.init_cache(cfg, batch, capacity, device)
     return transformer.init_cache(cfg, batch, capacity, device)
+
+
+# the batch axis of the cache leaves whose layout the name fixes:
+# attention K/V (layers, batch, slots, kv_heads, head_dim); the SSM's conv
+# (layers, batch, K-1, d_inner) and h (layers, batch, d_inner, N)
+_CACHE_BATCH_AXIS = {"k": 1, "v": 1, "self_k": 1, "self_v": 1, "cross_k": 1, "cross_v": 1,
+                     "conv": 1, "h": 1}
+
+
+def cache_batch_axis(key: str, rank: int) -> Optional[int]:
+    """Index of the batch axis in one decode-cache leaf of rank ``rank``, or
+    None for a ``len`` shared by every row (an int).  As the JAX package's:
+    stacked per-layer leaves are (layers, B, ...), the hybrid's pattern
+    slots ``b{idx}_*`` (groups, B, ...) and its tail ``t{t}_*`` (B, ...),
+    keyed by the name's suffix and the rank.  A per-row ``len``, a (B,)
+    tensor, has its batch on axis 0."""
+    if key == "len":
+        return 0 if rank == 1 else None
+    if key in _CACHE_BATCH_AXIS and rank == 5 - (key in ("conv", "h")):
+        return _CACHE_BATCH_AXIS[key]
+    suffix = key.split("_")[-1]
+    if suffix in ("k", "v"):
+        return rank - 4
+    if suffix == "conv":
+        return rank - 3
+    if suffix == "h":
+        return 1 if rank == 4 else rank - 2
+    return None
 
 
 def make_concrete_batch(

@@ -23,11 +23,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core import autotuned
 from ..kernels.rglru_scan import rglru_scan as rg_mod
 from .config import ModelConfig
 from .layers import dot, gelu, promote, sigmoid
-from .route import on_kernel
+from .route import on_kernel, run_kernel
 from .spec import ParamSpec
 from .ssm import _causal_conv1d, conv_tail
 
@@ -61,8 +60,8 @@ def lru_scan(xs: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tens
     step, (B, S, w) float32."""
     args = tuple(t.float().contiguous() for t in (xs, r, i, lam))
     if on_kernel(xs):
-        return autotuned("rglru_scan")(*args)
-    rg_mod.counter.plain_calls += 1
+        return run_kernel("rglru_scan", *args)
+    rg_mod.counter.ran_plain()
     return rg_mod.rglru_scan_plain(*args)
 
 

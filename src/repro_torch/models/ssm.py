@@ -25,11 +25,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core import autotuned
 from ..kernels.ssm_scan import ssm_scan as ssm_mod
 from .config import ModelConfig
 from .layers import dot, promote, silu
-from .route import on_kernel
+from .route import kernel_state, on_kernel, run_kernel
 from .spec import ParamSpec
 
 
@@ -76,13 +75,12 @@ def selective_scan(xs, dt, A, Bt, Ct, final_state: bool = False):
     skip = torch.zeros(xs.shape[-1], dtype=torch.float32, device=xs.device)
     args = tuple(t.contiguous() for t in (xs, dt, A, Bt, Ct, skip))
     if on_kernel(xs):
-        op = autotuned("ssm_scan")
         if not final_state:
-            return op(*args)
+            return run_kernel("ssm_scan", *args)
         # the point this shape class tuned (or recalled), with the state out
-        point = op.resolve(*args).region.selected
+        point = kernel_state("ssm_scan", *args).region.selected
         return ssm_mod.ssm_scan_cuda(*args, **point, final_state=True)
-    ssm_mod.counter.plain_calls += 1
+    ssm_mod.counter.ran_plain()
     return ssm_mod.ssm_scan_plain(*args, final_state=final_state)
 
 

@@ -17,7 +17,11 @@ the SSM; per block-pattern slot ``b{idx}_*`` stacked over groups and
 per tail layer ``t{t}_*`` for the hybrid, whose attention caches are a
 ring of ``min(local_window, capacity)`` slots written at ``pos mod W``.
 :func:`decode_step` writes the new token's entries into the cache's
-tensors in place and returns the cache with ``len`` advanced.
+tensors in place and returns the cache with ``len`` advanced.  ``len`` is
+an int shared by every row, or a (B,) int tensor of per-row positions
+(the serving engine decodes requests at different positions in one
+step): each row then takes its own RoPE position, writes its own slot
+and masks its own valid keys.
 """
 from __future__ import annotations
 
@@ -361,21 +365,21 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (logits (B, V) fp32, the cache updated in place, len + 1)."""
     B = tokens.shape[0]
-    pos_now = int(cache["len"])  # position of the incoming token
+    pos_now, rows = positions_now(cache, B)  # position of the incoming token
     if positions is None:
-        pos = torch.full((B, 1), pos_now, dtype=torch.int32, device=tokens.device)
-        positions = pos.expand(3, B, 1) if cfg.mrope else pos
+        positions = token_positions(pos_now, B, tokens.device)
+        positions = positions.expand(3, B, 1) if cfg.mrope else positions
     x = embed(tokens, params["embed"])
 
     if cfg.family in ("dense", "vlm", "moe"):
         cap = cache["k"].shape[2]
-        slot = min(pos_now, cap - 1)  # dynamic_update_slice clamps the start
+        slot = at_most(pos_now, cap - 1)  # dynamic_update_slice clamps the start
         for i, lp in enumerate(params["layers"]):
             ck, cv = cache["k"][i], cache["v"][i]
             hh = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             q, k, v = project_qkv(hh, lp["attn"], cfg, positions)
-            ck[:, slot] = k[:, 0].to(ck.dtype)
-            cv[:, slot] = v[:, 0].to(cv.dtype)
+            write_slot(ck, rows, slot, k[:, 0])
+            write_slot(cv, rows, slot, v[:, 0])
             o = decode_attention(q, ck, cv, pos_now + 1)
             x = x + output_proj(o, lp["attn"])
             hh = rmsnorm(x, lp["ln2"], cfg.norm_eps)
@@ -393,17 +397,49 @@ def decode_step(
             cache["conv"][i] = nc["conv"]
             cache["h"][i] = nc["h"]
     elif cfg.family == "hybrid":
-        x = _hybrid_decode(params, x, cache, cfg, positions, pos_now)
+        x = _hybrid_decode(params, x, cache, cfg, positions, pos_now, rows)
     else:
         raise ValueError(cfg.family)
-    cache["len"] = pos_now + 1
+    cache["len"] = pos_now + 1 if rows is None else cache["len"] + 1
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x, cfg)[:, 0]
     return logits, cache
 
 
-def _hybrid_decode(params, x, cache, cfg, positions, pos_now):
+def positions_now(cache: Dict[str, Any], B: int):
+    """(position of the incoming token, row index): an int and None when
+    ``cache["len"]`` is an int shared by every row; a (B,) int64 tensor
+    and ``arange(B)`` when it holds one position a row."""
+    ln = cache["len"]
+    if isinstance(ln, torch.Tensor) and ln.dim() == 1:
+        pos = ln.to(torch.int64)
+        return pos, torch.arange(B, device=pos.device)
+    return int(ln), None
+
+
+def token_positions(pos_now, B: int, device) -> torch.Tensor:
+    """(B, 1) int32 RoPE positions of the incoming tokens."""
+    if isinstance(pos_now, torch.Tensor):
+        return pos_now.to(device=device, dtype=torch.int32).reshape(B, 1)
+    return torch.full((B, 1), pos_now, dtype=torch.int32, device=device)
+
+
+def at_most(pos, hi: int):
+    """``min(pos, hi)`` for an int or, element-wise, a tensor."""
+    return pos.clamp(max=hi) if isinstance(pos, torch.Tensor) else min(pos, hi)
+
+
+def write_slot(c: torch.Tensor, rows, slot, val: torch.Tensor) -> None:
+    """``c[:, slot] = val`` in place: one slot for every row (``rows``
+    None), or slot ``slot[b]`` of row b."""
+    if rows is None:
+        c[:, slot] = val.to(c.dtype)
+    else:
+        c[rows, slot] = val.to(c.dtype)
+
+
+def _hybrid_decode(params, x, cache, cfg, positions, pos_now, rows):
     _check_tail(cfg)
     for i, lp in enumerate(params["layers"]):
         prefix, g = hybrid_slot(cfg, i)
@@ -418,9 +454,9 @@ def _hybrid_decode(params, x, cache, cfg, positions, pos_now):
             q, k, v = project_qkv(hh, lp["attn"], cfg, positions)
             ck, cv = _slot(cache, prefix, g, "k"), _slot(cache, prefix, g, "v")
             W = ck.shape[1]
-            ck[:, pos_now % W] = k[:, 0].to(ck.dtype)
-            cv[:, pos_now % W] = v[:, 0].to(cv.dtype)
-            o = decode_attention(q, ck, cv, min(pos_now + 1, W))
+            write_slot(ck, rows, pos_now % W, k[:, 0])
+            write_slot(cv, rows, pos_now % W, v[:, 0])
+            o = decode_attention(q, ck, cv, at_most(pos_now + 1, W))
             x = x + output_proj(o, lp["attn"])
         hh = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + swiglu(hh, lp["mlp"])

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither jax nor the JAX
-package, no source line imports them, and ``chip_smoke.py`` fails loudly
-(non-zero, no result line) without a card or without the repository."""
+package, its serving modules import and serve with both made absent, no
+source line imports them, and ``chip_smoke.py`` fails loudly (non-zero,
+no result line) without a card or without the repository."""
 from __future__ import annotations
 
 import os
@@ -36,6 +37,45 @@ def test_importing_the_port_loads_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+SERVING_MODULES = (
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.core.program",
+    "repro_torch.obs.metrics", "repro_torch.obs.explain", "repro_torch.runtime",
+    "repro_torch.runtime.serve", "repro_torch.runtime.engine",
+    "repro_torch.runtime.background_tuner", "repro_torch.runtime.chaos",
+    "repro_torch.launch", "repro_torch.launch.serve",
+)
+
+
+def test_serving_modules_import_with_jax_absent():
+    """The serving slice's modules import, and serve, in a process where
+    importing jax or the JAX package raises."""
+    assert set(SERVING_MODULES) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is absent')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        f"for m in {list(SERVING_MODULES)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.data import synthetic_requests\n"
+        "from repro_torch.models import init_params\n"
+        "from repro_torch.runtime import StreamingEngine\n"
+        "import torch\n"
+        "cfg = get_config('tinyllama-1.1b', smoke=True)\n"
+        "params = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "out = StreamingEngine(cfg, params, n_blocks=2, max_len=8).serve(\n"
+        "    synthetic_requests(cfg, 2, 4, 3))\n"
+        "assert sorted(out) == [0, 1] and all(len(t) == 3 for t in out.values())\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
     )
     out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
