@@ -34,7 +34,10 @@ runs for all five ported kernels at real sizes:
   sharing the kernel phases' TuningDB; and every arch at its SMOKE config;
 * the serving slice (``repro_torch.runtime``) on the same models: the
   static ``Server`` and the continuous-batching ``StreamingEngine``, each
-  run with its own TuningDB and ``BackgroundTuner``.
+  run with its own TuningDB and ``BackgroundTuner``;
+* the training slice (``repro_torch.runtime.Trainer``), run first while
+  the card's memory is empty: tinyllama-1.1b uncut, bf16, B=4, S=4096,
+  causal attention forward and backward on the flash kernels.
 
 Phases, each of which fails the run:
 
@@ -42,6 +45,27 @@ Phases, each of which fails the run:
 2. build: every CUDA source compiled with nvcc, all at once (build time,
    registers and spills; every flash instantiation, bf16 and f32, and
    every scan instantiation must not spill);
+2a. training (``[train]`` lines), each run with the counts set to 0 just
+   before it and read just after: tinyllama-1.1b's gradient at full width,
+   2 of 22 layers, B=1, S=2048, wq and wk tempered, on the kernel route
+   against the plain versions under remat full and dots (worst leaf
+   ‖g−r‖/‖r‖ ≤ 1e-3 in float32 params, 3e-2 in bf16, exact launches);
+   uncut at B=4, S=4096: ``Trainer.joint_tune`` over micro (1, 2, 4) ×
+   remat (none, full), each measured step read through its ``trial`` hook
+   (time, peak memory, exact flash launches), 20 steps at the winner
+   (step ms beside ``analytic_step_flops`` at the bf16 peak, MFU,
+   tokens/s, launches exactly 22 forward (44 with full) and 22 backward a
+   step × n_micro, 0 plain calls, each kernel class's evaluations), a
+   second Trainer on the same DB recalling the winner and every kernel
+   class with 0 evaluations, whose step then overfits one batch from
+   tempered weights (the loss must fall); a restart drill (2
+   layers, B=2, S=1024, 8 steps, a failure before step 5: losses
+   bit-identical to an uninterrupted run's); one step of each trainable
+   SMOKE family card vs CPU in float32 (each leaf's update within 2e-2 of
+   the CPU's in norm; in Whisper, whose gradients all run through its bf16
+   encoder, 0.25, and the encoder's bf16 leaves' worst row 4·2⁻⁸), and the
+   SSM and hybrid families raising the scans' missing backward kernel's
+   error;
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
    width, 16 query heads, 8 KV heads, head_dim 128; both scans also in
@@ -59,6 +83,16 @@ Phases, each of which fails the run:
 3c. the apps: every (variant, degree) of GKV (10 × 9) and of Seism3D at
    64³ and 256³ (6 × 9 each) against the plain body on the card, each call
    timed once;
+3e. the flash backward: at tinyllama width (32|4, hd 64), S=4096 at B=1
+   and at the train step's B=4, and S=2000, qwen3-0.6b's (16|8, hd 128) and
+   hd 36 (8|2), bf16 and f32, the forward with its lse (o equal to the call
+   without it, lse against the plain version's), then every emitted point
+   of ``flash_attention_bwd`` against ``attention_bwd_plain`` in float32
+   (bf16) or float64 (f32), the plain versions a batch row at a time, per
+   element at ``DEFAULT_TOL`` and worst row (dq without query 0); the
+   tinyllama class tuned and recalled with 0 evaluations, its time beside
+   the bound (five causal products), the plain version's and SDPA's
+   backward;
 3d. head dims off the kernels' 16-byte rule (C3): every emitted flash point
    at hd 12, 36, 100 (bf16) and 6, 50 (f32), S=2048, 8|2 heads, run padded
    by the wrapper, against the plain version, and the copy's cost (the
@@ -152,13 +186,18 @@ CTAs, and the bound of the domain's bytes; the kernels on the model path
 also give ``model_launches`` (a prefill's, per model),
 ``serve_launches`` (per serve run, the serving thread's) and
 ``serve_trial_launches`` (its background tuner's trials), flash its
-``c3`` rows and ``ssm_scan`` its final state's errors.  A ``{"models": ...}`` and a ``{"serve": ...}`` line before it hold
-the model and serve phases' records.  The last line is
+``c3`` rows and ``ssm_scan`` its final state's errors; flash also its
+``lse_ms`` and ``train_launches``, and ``flash_attention_bwd`` its time,
+bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
+bf16 and f32 (``f32_*``) and ``train_launches``.  A ``{"models": ...}``,
+a ``{"serve": ...}`` and a ``{"train": ...}`` line before it hold the
+model, serve and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -1425,9 +1464,551 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
     return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared}
 
 
-def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
+# ---------------------------------------------------------------------------
+# [kernel] flash backward, and the forward's lse
+# ---------------------------------------------------------------------------
+
+# tinyllama-1.1b's width at the [train] phase's S, at its B = 4 (the batch
+# offsets of every pass) and at S = 2000 (a tail no tile divides),
+# qwen3-0.6b's (16|8, hd 128) and a C3 head dim (hd 36, padded to 40 by the
+# wrapper)
+FLASH_BWD = dict(B=1, S=4096, H=32, KV=4, hd=64)
+FLASH_BWD_SHAPES = (FLASH_BWD, dict(FLASH_BWD, B=4), dict(FLASH_BWD, S=2000), FLASH_HD128,
+                    dict(B=1, S=2048, H=8, KV=2, hd=36))
+
+
+def bwd_rows(outs) -> tuple:
+    """(dq, dk, dv) as the checks read them: dq without query 0, whose exact
+    gradient is zero (its one key is itself, so dP = delta there) and whose
+    row error is a ratio of two roundings."""
+    dq, dk, dv = outs
+    return dq[:, 1:], dk, dv
+
+
+def flash_bwd_bound_ms(arch, B, S, H, KV, hd, dtype_name) -> tuple:
+    """(ms, what bounds it): five causal products of 2·S²·hd·H/2 flops a
+    batch row at the bf16 tensor-core rate, or at a third of the TF32 rate
+    in float32 (3xTF32); bytes: q, o, do, k, v and lse read, dq, dk, dv
+    written, once each."""
+    flops = 5 * 2.0 * B * H * S * S * hd / 2
+    elt = 2 if dtype_name == "bfloat16" else 4
+    ops = flops / arch.peak_flops if elt == 2 else 3 * flops / arch.peak_flops_tf32
+    by_bytes = (elt * B * S * hd * (4 * H + 4 * KV) + 4 * B * H * S) / arch.hbm_bandwidth
+    return max(ops, by_bytes) * 1e3, ("operations" if ops >= by_bytes else "bytes")
+
+
+def by_batch_row(torch, fn, args) -> tuple:
+    """``fn(*args)``'s outputs computed one batch row at a time and joined:
+    the rows are independent, and the plain versions' S×S scores of one row
+    are a quarter of those of B = 4."""
+    rows = [fn(*(t[b:b + 1] for t in args)) for b in range(args[0].shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -> dict:
+    """At each of FLASH_BWD_SHAPES, in bf16 and float32: the forward kernel
+    with its lse (o equal to the call without it, lse against the plain
+    version's), then every emitted point of ``flash_attention_bwd`` on that
+    o and lse against ``attention_bwd_plain`` run on the same inputs in
+    float32 (bf16) or float64 (float32), the plain versions a batch row at a
+    time; returns {(dtype, B, S, hd): case}."""
+    from repro_torch.core import bucket_pow2
+
+    device = torch.device("cuda:0")
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    cases = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for shape in FLASH_BWD_SHAPES:
+            B, S, H, KV, hd = (shape[k] for k in ("B", "S", "H", "KV", "hd"))
+            tag = f"({B},{S},{H}|{KV},{hd})"
+            q, k, v = fa_ref.make_inputs(gen, dtype=dtype, device=device, **shape)
+            do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+            o, lse = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
+            same = torch.equal(o, fa_mod.flash_attention_cuda(q, k, v))
+            _, lse_ref = by_batch_row(
+                torch, lambda *a: fa_ref.attention_ref(*a, return_lse=True), (q, k, v))
+            err, row, failed = max_err(torch, (lse,), (lse_ref,), "float32")
+            print(f"[kernel] flash {dtype_name} lse {tag} (64,64): o equal to the call "
+                  f"without lse {same}, lse max abs err {err:.3e} (tol {TOL['float32']}), "
+                  f"row {row:.3e}")
+            if failed or not same:
+                errors.append(f"flash {dtype_name} lse {tag}: o equal {same}, err {err}, "
+                              f"row {row}; failed {failed}")
+            del lse_ref
+            args = (q, k, v, o, lse, do)
+            # bf16 against the plain version in float32; float32 against it in
+            # float64, as the float32 plain version's own error (sums of up to
+            # S·G terms) breaks the float32 element tolerance at S = 4096
+            work = torch.float64 if dtype == torch.float32 else torch.float32
+            ref = bwd_rows(by_batch_row(torch, fa_ref.attention_bwd_plain,
+                                        tuple(t.to(work) for t in args)))
+            if dtype == torch.float32:
+                own = bwd_rows(by_batch_row(torch, fa_ref.attention_bwd_plain, args))
+                err, row, failed = max_err(torch, own, ref, dtype_name)
+                print(f"[kernel] flash bwd float32 {tag}: the float32 plain version against "
+                      f"float64: max abs err {err:.3e}, row {row:.3e}, failed {failed}")
+                del own
+            region = fa_ops.flash_bwd_region(S, hd, dtype_name, arch=arch,
+                                             heads=bucket_pow2(B * H), group=H // KV)
+            hd_run = fa_mod.padded_hd(hd, dtype_name)
+            for point in region.space.points():
+                model = fa_mod.bwd_smem_bytes(point["block_q"], point["block_kv"], hd_run,
+                                              q.element_size())
+                native = fa_mod.bwd_smem_bytes_native(point["block_q"], point["block_kv"],
+                                                      hd_run, dtype)
+                if model != native or model > optin:
+                    errors.append(f"flash bwd {point}: smem model {model}, kernel {native}, "
+                                  f"limit {optin}")
+            err, row, times = sweep(
+                torch, f"flash bwd {dtype_name} {tag}", region,
+                lambda p, args=args: bwd_rows(fa_mod.flash_attention_bwd_cuda(*args, **p)),
+                ref, dtype_name, timer, fa_mod.bwd_counter, errors)
+            cases[(dtype_name, B, S, hd)] = {"args": args, "ref": ref, "times": times,
+                                          "err": err, "row": row, "shape": shape}
+    return cases
+
+
+def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors) -> dict:
+    """tinyllama's backward shape class of each dtype through the registry
+    (a cold tune, then a fresh op recalling with 0 evaluations through the
+    fast path), and its tuned point's time beside the bound, the plain
+    version's and SDPA's backward (forward + backward less forward)."""
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        case = cases[(dtype_name, FLASH_BWD["B"], FLASH_BWD["S"], FLASH_BWD["hd"])]
+        args = case["args"]
+        fa_mod.bwd_counter.reset()
+        state, tune_s, recall_s = main_path(torch, "flash_attention_bwd", args, case["ref"],
+                                            dtype_name, db_path, errors, view=bwd_rows)
+        point = state.region.selected
+        q, k, v, o, lse, do = args
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        sdpa_ms = timer.ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - timer.ms(sdpa)
+        bound, by = flash_bwd_bound_ms(arch, dtype_name=dtype_name, **FLASH_BWD)
+        ms = timer.ms(lambda: fa_mod.flash_attention_bwd_cuda(*args, **point))
+        plain_ms = timer.ms(lambda: fa_ref.attention_bwd_plain(*args), reps=3)
+        best = min(case["times"], key=case["times"].get)
+        out[dtype_name] = {
+            "tuned_point": point, "ms": ms, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_ms, "tune_s": tune_s,
+            "recall_s": recall_s, "candidates": len(case["times"]),
+            "fastest_swept_point": json.loads(best), "fastest_swept_ms": case["times"][best],
+            "registry_launches": fa_mod.bwd_counter.launches,
+        }
+        print(f"[kernel] flash bwd {dtype_name} (1,4096,32|4,64) tuned {point}: {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), plain {plain_ms:.3f} ms, SDPA backward "
+              f"{sdpa_ms:.4f} ms")
+    worst = {d: max(c["row"] for key, c in cases.items() if key[0] == d) for d in out}
+    errs = {d: max(c["err"] for key, c in cases.items() if key[0] == d) for d in out}
+    for d in out:
+        out[d].update({"max_row_err": worst[d], "max_abs_err": errs[d]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [train]: the training slice (repro_torch.runtime.train) on the card
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="tinyllama-1.1b", B=4, S=4096, steps=20, micro=(1, 2, 4),
+             remat=("none", "full"), overfit=10)
+TRAIN_GRADS = dict(layers=2, B=1, S=2048)
+TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=2, fail_at=5)
+# the worst gradient leaf's ||g - r|| / ||r||, kernel route against plain versions
+GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# train SMOKE card vs CPU: the loss's relative error, and each leaf's update
+# ||Δcard - Δcpu|| / ||Δcpu|| (as tests/test_torch_train_step.py).  Every
+# gradient of Whisper runs through its bf16 encoder (the decoder reads it
+# through cross-attention), so it has bf16 precision, and AdamW's first
+# step, about lr·sign(g), flips where g is within that noise: on the card
+# 8.6e-2 at worst in the encoder, 3.1e-2 in the decoder's cross-attention
+# wk, 1.9e-2 in its embedding; the float32 archs 7e-5..1.4e-4.  A wrong
+# gradient gives 1 or more (1 if zero, 2 if its sign is flipped)
+SMOKE_LOSS_TOL, SMOKE_UPDATE_TOL, SMOKE_BF16_UPDATE_TOL = 1e-4, 2e-2, 0.25
+TRAIN_SMOKE = ("tinyllama-1.1b", "granite-moe-1b-a400m", "qwen2-vl-2b", "whisper-large-v3")
+TRAIN_SMOKE_RAISE = (("falcon-mamba-7b", "ssm_scan"), ("recurrentgemma-2b", "rglru_scan"))
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths in flatten order (dict keys sorted, lists by index)."""
+    if isinstance(tree, dict):
+        return [n for key in sorted(tree) for n in leaf_names(tree[key], f"{prefix}/{key}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}/{i}")]
+    return [prefix.lstrip("/")]
+
+
+def flash_counts(fa_mod) -> tuple:
+    return (fa_mod.counter.launches, fa_mod.bwd_counter.launches,
+            fa_mod.counter.plain_calls + fa_mod.bwd_counter.plain_calls)
+
+
+def train_grads(torch, device, errors) -> dict:
+    """tinyllama-1.1b at full width, 2 of 22 layers, B=1, S=2048, wq and wk
+    tempered: the loss and every gradient leaf on the kernel route against
+    the same under ``plain_versions()``, float32 then bf16 parameters, under
+    remat ``full`` and ``dots`` (selective checkpointing, which sees
+    ``FlashAttentionFn`` as one op: its forward runs again in the recompute,
+    and its saved o and lse must reach the backward)."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.runtime.train import _loss_and_grads, batch_tensors
+    from repro_torch.tree import as_tree, flatten, tree_map
+
+    cfg = get_config(TRAIN["arch"]).with_(n_layers=TRAIN_GRADS["layers"])
+    params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    temper(torch, tm, params)
+    base = as_tree(params)
+    batch = batch_tensors(SyntheticLMDataset(cfg, TRAIN_GRADS["B"], TRAIN_GRADS["S"],
+                                             seed=SEED).batch(0), device)
+    out = {}
+    for dtype_name, remat in itertools.product(("float32", "bfloat16"), ("full", "dots")):
+        cfg = cfg.with_(remat=remat)
+        tree = tree_map(lambda t: t.to(getattr(torch, dtype_name)), base)
+        leaves, structure = flatten(tree)
+        names = leaf_names(tree)
+        _loss_and_grads(leaves, structure, batch, cfg)  # the kernel classes resolved first
+        fa_mod.counter.reset()
+        fa_mod.bwd_counter.reset()
+        loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
+        torch.cuda.synchronize()
+        fwd, bwd, plain = flash_counts(fa_mod)
+        with tm.plain_versions():
+            ref_loss, ref = _loss_and_grads(leaves, structure, batch, cfg)
+        rel = [(float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)), n)
+               for g, r, n in zip(grads, ref, names)]
+        worst, name = max(rel)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        layers = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+        print(f"[train] grads {dtype_name} params (2 layers, remat {cfg.remat}): loss "
+              f"{float(loss):.6f} vs plain {float(ref_loss):.6f} (rel {loss_rel:.2e}); worst "
+              f"leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); flash forward "
+              f"{fwd} launches (expect {layers}), backward {bwd} (expect {cfg.n_layers}), "
+              f"plain calls on the kernel route {plain}")
+        out[f"{dtype_name} {remat}"] = {"loss": float(loss), "plain_loss": float(ref_loss),
+                           "worst_leaf": name, "worst_leaf_rel": worst,
+                           "flash_launches": fwd, "flash_bwd_launches": bwd}
+        if (worst > GRAD_TOL[dtype_name] or loss_rel > GRAD_TOL[dtype_name]
+                or fwd != layers or bwd != cfg.n_layers or plain):
+            errors.append(f"train grads {dtype_name} {remat}: worst leaf {name} {worst}, loss "
+                          f"{loss_rel}, launches {fwd}/{bwd}, plain {plain}")
+        del grads, ref, tree, leaves
+    return out
+
+
+def train_tinyllama(torch, device, arch_spec, errors) -> dict:
+    """tinyllama-1.1b uncut (bf16 parameters, float32 AdamW moments) on
+    ``SyntheticLMDataset(seed 0)`` at B=4, S=4096: ``Trainer.joint_tune``
+    over micro x remat, each of its measured steps read through its
+    ``trial`` hook (peak memory, exact flash launches), 20 steps at the
+    winner with the counts reset before and read after, then a second
+    Trainer on the same DB recalling the winner and every kernel class with
+    0 evaluations, and the winner's step overfitting the first batch from
+    tempered weights (its loss must fall)."""
+    import contextlib
+    import dataclasses
+    import os
+
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.core import TuningDB
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import analytic_step_flops, serving
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    from repro_torch.runtime.train import batch_tensors, make_train_step
+    from repro_torch.tree import as_tree
+
+    cfg = get_config(TRAIN["arch"])
+    B, S, steps = TRAIN["B"], TRAIN["S"], TRAIN["steps"]
+    opt = AdamWConfig(warmup_steps=4, total_steps=steps)
+    loop = TrainLoopConfig(total_steps=steps, n_microbatches=1,
+                           microbatch_candidates=TRAIN["micro"], remat_candidates=TRAIN["remat"],
+                           joint_tune=True, joint_cap=16, seed=SEED)
+    ds = SyntheticLMDataset(cfg, B, S, seed=SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    db_path = os.path.join(tmp, "train_db.json")
+    trainer = Trainer(cfg, opt, loop, tuning_db=TuningDB(db_path), device=device)
+    params, state = trainer.init_state()
+    trials = {}
+
+    @contextlib.contextmanager
+    def trial(n, remat):
+        """One measured step of the joint search: its time and peak memory
+        (the least and the most of its runs) and its flash launches, which
+        must be exact in each run."""
+        for counter in (fa_mod.counter, fa_mod.bwd_counter):
+            counter.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        fwd, bwd, plain = flash_counts(fa_mod)
+        want = (cfg.n_layers * n * (2 if remat == "full" else 1), cfg.n_layers * n)
+        row = trials.setdefault((n, remat), {"micro": n, "remat": remat, "runs": 0,
+                                             "ms": ms, "peak_gb": 0.0, "flash_launches": fwd,
+                                             "flash_bwd_launches": bwd})
+        row["runs"] += 1
+        row["ms"] = min(row["ms"], ms)
+        row["peak_gb"] = max(row["peak_gb"], torch.cuda.max_memory_allocated() / 1e9)
+        if (fwd, bwd) != want or plain:
+            errors.append(f"train micro {n} remat {remat}: launches {fwd}/{bwd}, "
+                          f"expected {want}, plain {plain}")
+
+    t0 = time.perf_counter()
+    joint = trainer.joint_tune(ds, state=(params, state), trial=trial)
+    joint_s = time.perf_counter() - t0
+    print(f"[train] {cfg.name} B={B} S={S}: joint tune over micro {TRAIN['micro']} x remat "
+          f"{TRAIN['remat']}: winner {joint.assignment}, {joint.evaluations} step "
+          f"evaluations, {joint_s:.1f} s")
+    if joint.from_cache or joint.evaluations <= 0:
+        errors.append("train: the joint tune measured nothing")
+    assignments = []
+    for n, remat in itertools.product(TRAIN["micro"], TRAIN["remat"]):
+        row = trials.get((n, remat))
+        if row is None:
+            errors.append(f"train micro {n} remat {remat}: the joint search never ran it")
+            continue
+        assignments.append(row)
+        print(f"[train] {cfg.name} micro {n} remat {remat}: {row['runs']} measured steps, "
+              f"fastest {row['ms']:.1f} ms, peak memory {row['peak_gb']:.2f} GB, flash "
+              f"forward {row['flash_launches']}, "
+              f"backward {row['flash_bwd_launches']} a step (exact in every run)")
+    del params, state
+    torch.cuda.empty_cache()
+
+    n = trainer.region.selected["n_micro"]
+    for counter in (fa_mod.counter, fa_mod.bwd_counter):
+        counter.reset()
+    hist = trainer.run(ds)
+    torch.cuda.synchronize()
+    fwd, bwd, plain = flash_counts(fa_mod)
+    step_ms = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2] * 1e3
+    bound_ms = analytic_step_flops(cfg, "train", B, S) / arch_spec.peak_flops * 1e3
+    per = (cfg.n_layers * n * (2 if trainer._step_remat == "full" else 1), cfg.n_layers * n)
+    classes = [{"kernel": st.bp["kernel"], "seq": st.bp["seq"], "heads": st.bp["heads"],
+                "dtype": st.bp["dtype"], "point": st.region.selected,
+                "evaluations": st.cost_evaluations}
+               for st in trainer.rule.states().values()]
+    loss0, loss_last = hist["loss"][0], hist["loss"][-1]
+    print(f"[train] {cfg.name} B={B} S={S} at the winner (micro {n}, remat "
+          f"{trainer._step_remat}): {len(hist['loss'])} steps, step {step_ms:.1f} ms (median "
+          f"after the first) against a bound of {bound_ms:.1f} ms (analytic_step_flops at the "
+          f"bf16 peak), MFU {bound_ms / step_ms:.3f}, {B * S / step_ms * 1e3:.0f} tokens/s; "
+          f"loss {loss0:.4f} at step 0, {loss_last:.4f} at step {steps - 1}")
+    print(f"[train] {cfg.name} launches over the run: flash forward {fwd} ({fwd / steps:.0f} a "
+          f"step, expect {per[0]}), backward {bwd} ({bwd / steps:.0f} a step, expect "
+          f"{per[1]}), plain calls {plain}")
+    for c in classes:
+        print(f"[train] kernel class {c['kernel']} seq {c['seq']} heads {c['heads']} "
+              f"{c['dtype']}: point {c['point']}, {c['evaluations']} evaluations")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        errors.append(f"train: a loss is not finite: {hist['loss']}")
+    if (fwd, bwd) != (per[0] * steps, per[1] * steps) or plain:
+        errors.append(f"train: launches {fwd}/{bwd} over {steps} steps, expected {per}, "
+                      f"plain {plain}")
+    trainer._final_params = None
+    torch.cuda.empty_cache()
+
+    # a second Trainer on the same DB recalls the joint winner and every kernel
+    # class.  Then it overfits the stream's first batch from tempered weights
+    # (its loss must fall): the stream itself is not learnt in 20 steps (a
+    # random walk inside a band of the vocabulary), nor, under the JAX init's
+    # chaotic attention (ROADMAP §C), is one batch
+    trainer2 = Trainer(cfg, opt, dataclasses.replace(loop, total_steps=1),
+                       tuning_db=TuningDB(db_path), device=device)
+    trainer2.run(ds)
+    trainer2._final_params = None
+    tempered = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    temper(torch, tm, tempered)
+    params = as_tree(tempered)
+    state = adamw_init(params, opt)
+    del tempered
+    step = make_train_step(cfg.with_(remat=trainer2._step_remat), opt,
+                           trainer2.region.selected["n_micro"])
+    batch0, fit = batch_tensors(ds.batch(0), device), []
+    with serving(trainer2.rule):
+        for _ in range(TRAIN["overfit"]):
+            params, state, metrics = step(params, state, batch0)
+            fit.append(float(metrics["loss"]))
+    del params, state, batch0
+    recalled = trainer2.joint_result
+    evals2 = sum(st.cost_evaluations for st in trainer2.rule.states().values())
+    print(f"[train] second Trainer on the same DB: joint winner {recalled.assignment} "
+          f"from_cache={recalled.from_cache}, {recalled.evaluations} evaluations; "
+          f"{len(trainer2.rule.states())} kernel classes, {evals2} evaluations; overfitting "
+          f"one batch from tempered weights, loss {fit[0]:.4f} at step 0, {fit[-1]:.4f} at "
+          f"step {len(fit) - 1}")
+    if (not recalled.from_cache or recalled.evaluations or evals2
+            or recalled.assignment != joint.assignment):
+        errors.append("train: the second Trainer did not recall everything with 0 evaluations")
+    if not fit[-1] < fit[0] or not all(math.isfinite(x) for x in fit):
+        errors.append(f"train: the loss did not fall on one batch ({fit})")
+    trainer2._final_params = None
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "B": B, "S": S, "joint": joint.assignment,
+        "joint_evaluations": joint.evaluations, "joint_s": joint_s,
+        "assignments": assignments, "steps": len(hist["loss"]), "step_ms": step_ms,
+        "step_times_ms": [x * 1e3 for x in hist["step_time"]], "bound_ms": bound_ms,
+        "mfu": bound_ms / step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+        "loss_first": loss0, "loss_last": loss_last, "overfit_losses": fit,
+        "flash_launches": fwd,
+        "flash_bwd_launches": bwd, "kernel_classes": classes,
+        "recall_evaluations": recalled.evaluations + evals2,
+    }
+
+
+def train_restart(torch, device, errors) -> dict:
+    """tinyllama-1.1b at full width, 2 layers, B=2, S=1024, 8 steps saving
+    every 2, a SimulatedFailure before step 5: one restart, resumed from the
+    step-4 checkpoint, losses equal bit for bit to an uninterrupted run's
+    (both on one TuningDB, so both run the same kernel points)."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TuningDB
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import SimulatedFailure, Trainer, TrainLoopConfig
+
+    r = TRAIN_RESTART
+    cfg = get_config(TRAIN["arch"]).with_(n_layers=r["layers"])
+    opt = AdamWConfig(warmup_steps=2, total_steps=r["steps"])
+    ds = SyntheticLMDataset(cfg, r["B"], r["S"], seed=SEED)
+    db = TuningDB()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+
+    def loop(name):
+        return TrainLoopConfig(total_steps=r["steps"], save_every=r["save_every"],
+                               ckpt_dir=os.path.join(tmp, name), seed=SEED)
+
+    ref = Trainer(cfg, opt, loop("ref"), tuning_db=db, device=device).run(ds)
+    fired = []
+
+    def hook(step):
+        if step == r["fail_at"] and not fired:
+            fired.append(step)
+            raise SimulatedFailure("node lost")
+
+    trainer = Trainer(cfg, opt, loop("ft"), tuning_db=db, device=device)
+    hist = trainer.run(ds, failure_hook=hook)
+    resumed = r["fail_at"] - r["fail_at"] % r["save_every"]
+    want_steps = list(range(r["fail_at"])) + list(range(resumed, r["steps"]))
+    want_loss = ref["loss"][:r["fail_at"]] + ref["loss"][resumed:]
+    same = hist["loss"] == want_loss
+    print(f"[train] restart: {trainer.restarts} restart(s), steps {hist['step']}, resumed from "
+          f"step {resumed}; losses bit-identical to the uninterrupted run's: {same} "
+          f"(last {hist['loss'][-1]!r} vs {ref['loss'][-1]!r})")
+    if trainer.restarts != 1 or hist["step"] != want_steps or not same:
+        errors.append(f"train restart: restarts {trainer.restarts}, steps {hist['step']}, "
+                      f"losses {hist['loss']} vs {want_loss}")
+    return {"restarts": trainer.restarts, "steps": hist["step"], "bit_identical": same,
+            "losses": hist["loss"], "reference_losses": ref["loss"]}
+
+
+def train_smoke(torch, device, errors) -> dict:
+    """One ``make_train_step`` of each trainable family's SMOKE config on the
+    card against the same step on the CPU, tempered weights in float32 (the
+    float32 kernels on the card) but Whisper's encoder layers, which stay
+    bf16 as the JAX model keeps them (ROADMAP §C): the loss within
+    SMOKE_LOSS_TOL; each leaf's update p − p₀ within SMOKE_UPDATE_TOL of the
+    CPU's in norm (as ``tests/test_torch_train_step.py`` holds the port's
+    against JAX's: one AdamW step moves an element by about lr, so a wrong
+    gradient shows in the update, not in the parameter), SMOKE_BF16_UPDATE_TOL
+    in Whisper, whose gradients all run through its bf16 encoder, and that
+    encoder's bf16 leaves' worst row within 4·2⁻⁸.
+    The SSM and hybrid families must raise the missing backward kernel's
+    error."""
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.train import batch_tensors, make_train_step
+    from repro_torch.tree import as_tree, flatten, tree_map
+
+    out = {}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    for arch in TRAIN_SMOKE + tuple(a for a, _ in TRAIN_SMOKE_RAISE):
+        cfg = get_config(arch, smoke=True)
+        params = tm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        temper(torch, tm, params)
+        cpu = {k: v if k == "enc_layers" else tree_map(lambda t: t.float(), v)
+               for k, v in as_tree(params).items()}
+        card = tree_map(lambda t: t.to(device), cpu)
+        batch = SyntheticLMDataset(cfg, 2, 32, seed=SEED).batch(0)
+        step = make_train_step(cfg, opt, 1)
+        if arch not in TRAIN_SMOKE:
+            kernel = dict(TRAIN_SMOKE_RAISE)[arch]
+            try:
+                step(card, adamw_init(card, opt), batch_tensors(batch, device))
+                raised = "nothing"
+            except NotImplementedError as e:
+                raised = str(e)
+            ok = raised.startswith(f"{kernel} has no backward kernel")
+            print(f"[train] smoke {arch}: a step on the card raises: {raised[:90]!r}")
+            if not ok:
+                errors.append(f"train smoke {arch}: expected {kernel}'s error, got {raised}")
+            out[arch] = {"raises": ok}
+            continue
+        p_cpu, _, m_cpu = step(cpu, adamw_init(cpu, opt), batch_tensors(batch, "cpu"))
+        p_card, _, m_card = step(card, adamw_init(card, opt), batch_tensors(batch, device))
+        loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        updates, rows = [], 0.0
+        for g, r, p0, name in zip(flatten(p_card)[0], flatten(p_cpu)[0], flatten(cpu)[0],
+                                  leaf_names(cpu)):
+            g = g.cpu()
+            if p0.dtype == torch.bfloat16:
+                rows = max(rows, worst_row(torch, g, r))
+            du, dr = g.double() - p0.double(), r.double() - p0.double()
+            updates.append((float((du - dr).norm() / dr.norm().clamp_min(1e-30)), name))
+        update, leaf = max(updates)
+        tol = SMOKE_BF16_UPDATE_TOL if cfg.is_encoder_decoder else SMOKE_UPDATE_TOL
+        print(f"[train] smoke {arch}: card vs CPU, loss {float(m_card['loss']):.5f} vs "
+              f"{float(m_cpu['loss']):.5f} (rel {loss_rel:.2e}, tol {SMOKE_LOSS_TOL}), worst "
+              f"leaf update {leaf} {update:.3e} of its norm (tol {tol})"
+              + (f", worst row of the bf16 encoder's leaves {rows:.3e} (tol "
+                 f"{ROW_TOL['bfloat16']})" if cfg.is_encoder_decoder else ""))
+        print(f"[sweep] train smoke {arch} updates: "
+              + json.dumps({n: float(f"{u:.3e}") for u, n in sorted(updates)[-8:]}))
+        out[arch] = {"loss_rel": loss_rel, "worst_update": update, "worst_update_leaf": leaf,
+                     "bf16_worst_row": rows}
+        if loss_rel > SMOKE_LOSS_TOL or update > tol or rows > ROW_TOL["bfloat16"]:
+            errors.append(f"train smoke {arch}: loss {loss_rel}, update {leaf} {update}, "
+                          f"bf16 worst row {rows}")
+    return out
+
+
+def train_phases(torch, device, arch_spec, errors) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+
+    out = {}
+    for name, phase in (("grads", lambda: train_grads(torch, device, errors)),
+                        ("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors)),
+                        ("restart", lambda: train_restart(torch, device, errors)),
+                        ("smoke", lambda: train_smoke(torch, device, errors))):
+        t0 = time.perf_counter()
+        out[name] = phase()
+        torch.cuda.empty_cache()
+        print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
+    out["launch_counters"] = {"flash_attention": fa_mod.counter.launches,
+                              "flash_attention_bwd": fa_mod.bwd_counter.launches}
+    return out
+
+
+def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None, view=None):
     """Cold tune, fresh-op recall, fast path; returns the cold op's state
-    and the host seconds of the cold call and of the recalling call."""
+    and the host seconds of the cold call and of the recalling call.
+    ``view`` picks what of the output is held against ``plain_out``."""
     from repro_torch.core import TuningDB, autotuned
 
     t0 = time.perf_counter()
@@ -1444,7 +2025,7 @@ def main_path(torch, name, args, plain_out, dtype, db_path, errors, tol=None):
         print(f"[main] {name}:   measured {key} {cost * 1e3:.4f} ms")
     if state.cost_evaluations <= 0:
         errors.append(f"{name}: cold tune made no evaluations")
-    err, row, failed = max_err(torch, outputs(out), plain_out, dtype, tol)
+    err, row, failed = max_err(torch, (view or outputs)(out), plain_out, dtype, tol)
     print(f"[main] {name}: output vs plain version: max abs err {err:.3e}, "
           f"row error {row:.3e}")
     if failed:
@@ -1515,7 +2096,8 @@ def run() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)")
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
-        if log.stem in ("flash_attention", "flash_attention_sm90", "ssm_scan", "rglru_scan"):
+        if log.stem in ("flash_attention", "flash_attention_sm90", "ssm_scan", "rglru_scan",
+                        "flash_attention_bwd", "flash_attention_bwd_f32"):
             continue  # per instantiation below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -1526,14 +2108,21 @@ def run() -> int:
             ("f32", "flash_attention", "flash_fwd_tf32x3", fa_mod.F32_TILES)):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         tiles = flash_tiles[dtype_name] = {}
+        lse_tiles = {}  # the instantiations with the lse output (training)
         for name, entry in ptxas_entries(log).items():
-            tile = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)E", name)
+            tile = re.search(kernel + r"ILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", name)
             if tile:
-                tiles[tuple(map(int, tile.groups()))] = entry
+                key = tuple(map(int, tile.groups()[:3]))
+                (lse_tiles if tile.group(4) == "1" else tiles)[key] = entry
         long_name = "bfloat16" if dtype_name == "bf16" else "float32"
         for (hd, bq, bkv), (regs, spill) in sorted(tiles.items()):
+            lse_regs, lse_spill = lse_tiles.get((hd, bq, bkv), (0, -1))
             print(f"[ptxas] flash {dtype_name} (hd={hd}, {bq}, {bkv}): {regs} registers, "
-                  f"{spill} B spilled, {fa_mod.ctas_per_sm(hd, bq, bkv, long_name)} CTAs/SM")
+                  f"{spill} B spilled, {fa_mod.ctas_per_sm(hd, bq, bkv, long_name)} CTAs/SM; "
+                  f"with lse {lse_regs} registers, {lse_spill} B spilled")
+        if set(lse_tiles) != set(table) or max(s for _, s in lse_tiles.values()):
+            return fail(f"flash {dtype_name} lse: {len(lse_tiles)} instantiations for "
+                        f"{len(table)} tiles, or a spill")
         for line in log.splitlines():
             if "Performance" in line:
                 print(f"[ptxas] flash {dtype_name}: {line.strip()}")
@@ -1565,11 +2154,39 @@ def run() -> int:
     # ssm_scan: each states count for N a power of two up to 32, and for any N
     if scan_count != 2 * (2 * len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
+    # the flash backward: two passes a tile in each dtype, and its delta pass
+    bwd_spill, bwd_count = 0, 0
+    for stem in ("flash_attention_bwd", "flash_attention_bwd_f32"):
+        log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
+        for name, (regs, spill) in sorted(ptxas_entries(log).items()):
+            inst = re.search(r"(flash_bwd_dq|flash_bwd_dkv)I(f|13__nv_bfloat16)"
+                             r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
+            if not inst:
+                continue
+            dtype_name = "f32" if inst.group(2) == "f" else "bf16"
+            print(f"[ptxas] flash bwd {dtype_name} {inst.group(1)[10:]} (hd={inst.group(3)}, "
+                  f"{inst.group(4)}, {inst.group(5)}): {regs} registers, {spill} B spilled")
+            bwd_spill, bwd_count = max(bwd_spill, spill), bwd_count + 1
+    print(f"[build] flash bwd: {bwd_count} instantiations, max spill {bwd_spill} B")
+    if bwd_count != 2 * 2 * len(fa_mod.BWD_TILES) or bwd_spill:
+        return fail(f"flash bwd: {bwd_count} instantiations for {len(fa_mod.BWD_TILES)} tiles, "
+                    f"spill {bwd_spill} B")
     optin = fa_mod.smem_optin(device)
     if optin < arch.smem_per_block:
         return fail(f"arch plans {arch.smem_per_block} B of shared memory, card allows {optin}")
 
     errors: list = []
+    # -- the training slice first, while the card's memory is its own: the
+    # joint search's remat-none step peaks at 68.6 GB of the 80 -----------
+    t0 = time.perf_counter()
+    train = train_phases(torch, device, arch, errors)
+    print(f"[time] train phases: {time.perf_counter() - t0:.1f} s")
+    if errors:
+        for e in errors:
+            print(f"[error] {e}", file=sys.stderr)
+        return fail(f"{len(errors)} train check(s) failed")
+    torch.cuda.empty_cache()
+
     timer = Timer(torch, device, arch.l2_bytes)
     gen = torch.Generator(device=device).manual_seed(SEED)
 
@@ -1671,6 +2288,11 @@ def run() -> int:
                   f"{times[best]:.4f} ms, the kernel alone on padded inputs {kernel_ms:.4f} ms, "
                   f"the copy {times[best] - kernel_ms:.4f} ms")
     print(f"[c3] hd 300 raises: {fa_mod.head_dim_error(300, 'bfloat16')}")
+
+    # the flash backward: every emitted point, both dtypes, four shapes
+    t0 = time.perf_counter()
+    bwd_cases = flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors)
+    print(f"[time] flash bwd sweep: {time.perf_counter() - t0:.1f} s")
 
     st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
     st_plain_out = outputs(st_mod.stress_plain(st_inp))
@@ -1935,6 +2557,11 @@ def run() -> int:
     if fa_mod.counter.launches <= 0 or hd256_plain != 0:
         errors.append("flash_attention hd 256: main path did not run through its kernel alone")
 
+    # the flash backward's tinyllama class of each dtype: tuned, recalled, timed
+    bwd_main = flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, bwd_cases, db_path, errors)
+    del bwd_cases
+    torch.cuda.empty_cache()
+
     # the apps: each region tuned cold through the Tuner (GKV's as Figs.
     # 13-14), recalled from a fresh TuningDB with nothing measured, the
     # recalled point run and checked; then Fig. 12 on Seism3D at 256^3
@@ -2069,6 +2696,8 @@ def run() -> int:
         return fail(f"{len(errors)} serve check(s) failed")
     print(json.dumps({"serve": serve}, default=str))
 
+    print(json.dumps({"train": train}, default=str))
+
     # -- the kernels line --------------------------------------------------
     iv, iz, mx, my = EXB_DIMS
     exb_bytes = 4.0 * (6 * iv * iz * mx * my + 8 * iz * mx * my + iv)
@@ -2143,6 +2772,30 @@ def run() -> int:
             "f32_candidates": len(flash32_times),
             "f32_instantiations": len(flash_tiles["f32"]),
             "f32_tune_s": f32_tune_s, "f32_recall_s": f32_recall_s,
+            "lse_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(q, k, v, **fa_pt,
+                                                                   return_lse=True)),
+            "f32_lse_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(
+                *qkv32, **f32_pt, return_lse=True), reps=20),
+            "train_launches": train["tinyllama"]["flash_launches"],
+        },
+        {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cuh",
+            "f32_source": "src/repro_torch/csrc/flash_attention_bwd_f32.cu",
+            "replaces": "src/repro/models/attention.py:260",
+            "launches": train["tinyllama"]["flash_bwd_launches"],
+            "train_launches": train["tinyllama"]["flash_bwd_launches"],
+            "max_abs_err": bwd_main["bfloat16"]["max_abs_err"],
+            "max_row_err": bwd_main["bfloat16"]["max_row_err"],
+            "ms": bwd_main["bfloat16"]["ms"], "plain_ms": bwd_main["bfloat16"]["plain_ms"],
+            "bound_ms": bwd_main["bfloat16"]["bound_ms"],
+            "bound_by": bwd_main["bfloat16"]["bound_by"],
+            "library_ms": bwd_main["bfloat16"]["sdpa_bwd_ms"],
+            "sdpa_bwd_ms": bwd_main["bfloat16"]["sdpa_bwd_ms"],
+            "shape": FLASH_BWD, **{k: v for k, v in bwd_main["bfloat16"].items()
+                                   if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "sdpa_bwd_ms", "max_abs_err", "max_row_err")},
+            **{f"f32_{k}": v for k, v in bwd_main["float32"].items()},
         },
     ]
     # stress and the scans: (name, source, TPU kernel, kernel, plain version, args,

@@ -16,7 +16,11 @@ compute the same thing:
 * a model's parameters (:func:`model_params`): the JAX ``init_params``
   tree, whose homogeneous layers are stacked on a leading axis (the hybrid
   family's as pattern groups and a tail), as the port's tree of one entry
-  per layer; :func:`model_arrays` takes it back.
+  per layer; :func:`model_arrays` takes it back;
+* an AdamW state (:func:`adamw_state`): the JAX ``{m, v, count}``, its
+  moments in the parameters' JAX layout, as the port's state over the
+  port's parameter tree (:mod:`repro_torch.tree`); :func:`adamw_arrays`
+  takes it back.
 
 The tuning record needs no conversion: the port's TuningDB writes the same
 schema v2 file the JAX package reads.  bf16 has no numpy type, so a bf16
@@ -213,3 +217,30 @@ def model_arrays(cfg: ModelConfig, params: Params) -> Dict[str, Any]:
             out["tail"] = ({f"t_{kinds[0]}": stack(tail)} if len(set(kinds)) == 1 else
                            {f"t{idx}_{kind}": tail[idx] for idx, kind in enumerate(kinds)})
     return out
+
+
+# -- optimizer state -----------------------------------------------------------
+
+
+def adamw_state(cfg: ModelConfig, state: Mapping[str, Any], device: Any = "cuda") -> Dict[str, Any]:
+    """The JAX AdamW state ``{m, v, count}`` of ``cfg``'s parameters as the
+    port's: each moment a parameter tree of plain tensors in its own dtype
+    (float32, or bf16 moments), ``count`` an int32 scalar."""
+    from .tree import as_tree
+
+    return {
+        "m": as_tree(model_params(cfg, state["m"], device)),
+        "v": as_tree(model_params(cfg, state["v"], device)),
+        "count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                              device=device),
+    }
+
+
+def adamw_arrays(cfg: ModelConfig, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state back in the JAX layout, as float32 numpy
+    moments and an int32 ``count``."""
+    return {
+        "m": model_arrays(cfg, state["m"]),
+        "v": model_arrays(cfg, state["v"]),
+        "count": np.asarray(int(state["count"]), dtype=np.int32),
+    }

@@ -6,7 +6,11 @@
 //
 // q (B,S,H,hd), k/v (B,S,KV,hd) float32; KV head = h / (H/KV).  Online
 // softmax with float32 m, l and acc; keys >= S and keys above the diagonal
-// score NEG_INF = -0.7*FLT_MAX; rows >= S are never stored.
+// score NEG_INF = -0.7*FLT_MAX; rows >= S are never stored.  Where the caller
+// passes an lse pointer (training: the backward's residual), each row's
+// log-sum-exp of the scaled scores, m + log l, is stored too, float32
+// (B, H, S), by an instantiation of its own (kLse): a null pointer runs the
+// code without it, whose registers the store's would otherwise raise.
 //
 // Head dims.  hd is a run-time value, any multiple of 4 up to 256 (a row
 // of whole 16-byte pieces); the kernel runs on the least tile head dim
@@ -56,6 +60,7 @@ namespace {
 
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD, int BQ, int BKV> struct Tile {
   static constexpr int kWarps = BQ / 16;
@@ -111,10 +116,11 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int HD, int BQ, int BKV>
+template <int HD, int BQ, int BKV, bool kLse>
 __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int S, int H, int KV, int hd, float scale_log2, int causal) {
+    float* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int hd,
+    float scale_log2, int causal) {
   using T = Tile<HD, BQ, BKV>;
   constexpr int KS = HD / 8;   // k-steps of S = Q.K^T, n-tiles of O
   constexpr int NT = BKV / 8;  // n-tiles of S, k-steps of O += P.V
@@ -267,7 +273,11 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
-    const float inv = 1.0f / quad_sum(l[r]);
+    const float sum = quad_sum(l[r]);
+    const float inv = 1.0f / sum;
+    if (kLse && t == 0 && row < S) {
+      lse[(static_cast<size_t>(b) * H + h) * S + row] = (m[r] * scale_log2 + log2f(sum)) * kLn2;
+    }
     if (row < S) {
 #pragma unroll
       for (int i = 0; i < KS; ++i) {
@@ -281,17 +291,18 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads) flash_fwd_tf32x3(
 }
 
 template <int HD, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           int hd, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
+           int KV, int hd, float scale, int causal, cudaStream_t stream) {
   using T = Tile<HD, BQ, BKV>;
-  auto kernel = flash_fwd_tf32x3<HD, BQ, BKV>;
+  auto kernel = lse != nullptr ? flash_fwd_tf32x3<HD, BQ, BKV, true>
+                               : flash_fwd_tf32x3<HD, BQ, BKV, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, KV, hd, scale * kLog2e, causal);
+      static_cast<float*>(o), static_cast<float*>(lse), S, H, KV, hd, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,7 +310,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // threads, as CUDA's occupancy calculator counts them), or -1 on error.
 template <int HD, int BQ, int BKV> int ctas_per_sm() {
   using T = Tile<HD, BQ, BKV>;
-  auto kernel = flash_fwd_tf32x3<HD, BQ, BKV>;
+  auto kernel = flash_fwd_tf32x3<HD, BQ, BKV, false>;
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(T::kSmem)) != cudaSuccess ||
@@ -331,11 +342,12 @@ int tile_hd(int hd) {
 
 }  // namespace
 
-// dtype: 0 = float32 (bf16 has its own entry, flash_attention_sm90_launch).
+// dtype: 0 = float32 (bf16 has its own entry, flash_attention_sm90_launch);
+// lse: float32 (B, H, S), or null to store no log-sum-exp.
 // Returns the launch's cudaGetLastError() code, cudaErrorInvalidValue for a
 // dtype, head_dim or tile that is not instantiated, or shapes it does not take.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B,
     int S, int H, int KV, int hd, int bq, int bkv, float scale, int causal,
     void* stream) {
   const int ht = tile_hd(hd);
@@ -345,7 +357,7 @@ extern "C" int flash_attention_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_F32_LAUNCH(HD, BQ, BKV)                                           \
   if (ht == HD && bq == BQ && bkv == BKV) {                                     \
-    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, hd, scale, causal, s);  \
+    return launch<HD, BQ, BKV>(q, k, v, o, lse, B, S, H, KV, hd, scale, causal, s); \
   }
   FLASH_F32_TILES(FLASH_F32_LAUNCH)
 #undef FLASH_F32_LAUNCH

@@ -8,7 +8,11 @@
 // q (B,S,H,hd), k/v (B,S,KV,hd) bf16; KV head = h / (H/KV).  Online softmax
 // with float32 m, l and acc; l sums the float32 p, and p is rounded to bf16
 // before p.V (as the TPU kernel does); keys >= S score NEG_INF =
-// -0.7*FLT_MAX; the output is bf16, rows >= S never stored.  KV blocks
+// -0.7*FLT_MAX; the output is bf16, rows >= S never stored; where the
+// caller passes an lse pointer (training: the backward's residual), each
+// row's log-sum-exp of the scaled scores, m + log l, is stored too, float32
+// (B, H, S), by an instantiation of its own (kLse): a null pointer runs the
+// code without it, whose registers the store's would otherwise raise.  KV blocks
 // wholly above the diagonal are skipped: in the TPU kernel they leave m, l
 // and acc unchanged (p = 0, alpha = 1).
 //
@@ -80,6 +84,7 @@ using namespace hopper;
 
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kStages = 2;
 constexpr int kAlign = 1024;        // swizzled tiles start on 1024 B
 constexpr int kBarrierBytes = 64;   // the Q barrier and one per stage
@@ -140,11 +145,11 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* out,
   }
 }
 
-template <int HD, int BQ, int BKV>
+template <int HD, int BQ, int BKV, bool kLse>
 __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads, 1) flash_fwd_sm90(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int S, int H,
-    int KV, int hd, float scale_log2, int causal) {
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KV, int hd, float scale_log2, int causal) {
   using T = Tile<HD, BQ, BKV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
@@ -303,6 +308,9 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads, 1) flash_fwd_sm90
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = row + 8 * i;
     if (r >= S) continue;
+    if (kLse && lane % 4 == 0) {  // m is in the log2 domain
+      lse[(static_cast<size_t>(b) * H + h) * S + r] = (m[i] + log2f(l[i])) * kLn2;
+    }
     const size_t at = (static_cast<size_t>(b) * S + r) * H + h;
     // a full tile (hd == HD) stores every column unchecked, at a constant
     // row stride, as the kernel did before hd could be less than its tile
@@ -362,21 +370,23 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, i
 }
 
 template <int HD, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           int hd, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
+           int KV, int hd, float scale, int causal, cudaStream_t stream) {
   using T = Tile<HD, BQ, BKV>;
   CUtensorMap qmap, kmap, vmap;
   cudaError_t err = encode(&qmap, q, B, S, H, hd, T::kBoxCols, BQ);
   if (err == cudaSuccess) err = encode(&kmap, k, B, S, KV, hd, T::kBoxCols, BKV);
   if (err == cudaSuccess) err = encode(&vmap, v, B, S, KV, hd, T::kBoxCols, BKV);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = flash_fwd_sm90<HD, BQ, BKV>;
+  auto kernel = lse != nullptr ? flash_fwd_sm90<HD, BQ, BKV, true>
+                               : flash_fwd_sm90<HD, BQ, BKV, false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(qmap, kmap, vmap,
-                                                  static_cast<__nv_bfloat16*>(o), S, H, KV, hd,
+                                                  static_cast<__nv_bfloat16*>(o),
+                                                  static_cast<float*>(lse), S, H, KV, hd,
                                                   scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -385,7 +395,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // threads, as CUDA's occupancy calculator counts them), or -1 on error.
 template <int HD, int BQ, int BKV> int ctas_per_sm() {
   using T = Tile<HD, BQ, BKV>;
-  auto kernel = flash_fwd_sm90<HD, BQ, BKV>;
+  auto kernel = flash_fwd_sm90<HD, BQ, BKV, false>;
   int n = 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(T::kSmem)) != cudaSuccess ||
@@ -421,11 +431,12 @@ int tile_hd(int hd) {
 
 }  // namespace
 
-// Returns the launch's cudaGetLastError() code, cudaErrorInvalidValue for a
-// tile not instantiated or shapes the kernel does not take.
+// lse: float32 (B, H, S), or null to store no log-sum-exp.  Returns the
+// launch's cudaGetLastError() code, cudaErrorInvalidValue for a tile not
+// instantiated or shapes the kernel does not take.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v, void* o,
-                                           int B, int S, int H, int KV, int hd, int bq, int bkv,
-                                           float scale, int causal, void* stream) {
+                                           void* lse, int B, int S, int H, int KV, int hd, int bq,
+                                           int bkv, float scale, int causal, void* stream) {
   const int ht = tile_hd(hd);
   if (ht == 0 || KV < 1 || H % KV || S < 1 || B < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -433,7 +444,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const v
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_SM90_LAUNCH(HD, BQ, BKV)                                                    \
   if (ht == HD && bq == BQ && bkv == BKV) {                                                \
-    return launch<HD, BQ, BKV>(q, k, v, o, B, S, H, KV, hd, scale, causal, s);            \
+    return launch<HD, BQ, BKV>(q, k, v, o, lse, B, S, H, KV, hd, scale, causal, s);       \
   }
   FLASH_SM90_TILES(FLASH_SM90_LAUNCH)
 #undef FLASH_SM90_LAUNCH

@@ -1,5 +1,6 @@
-"""Serving traffic for the port (:mod:`.pipeline`)."""
+"""The training stream and serving traffic for the port (:mod:`.pipeline`)."""
 from .pipeline import (
+    SyntheticLMDataset,
     ServingRequest,
     adversarial_trace,
     bursty_open_loop_trace,
@@ -8,6 +9,7 @@ from .pipeline import (
 )
 
 __all__ = [
+    "SyntheticLMDataset",
     "ServingRequest",
     "adversarial_trace",
     "bursty_open_loop_trace",

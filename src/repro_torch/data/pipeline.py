@@ -1,18 +1,100 @@
-"""Synthetic serving traffic: requests and open-loop traces.
+"""Deterministic synthetic data: the training stream and serving traffic.
 
-The serving half of ``repro.data.pipeline``, copied: numpy only, so one
-seed gives the same prompts, lengths, arrivals, deadlines and priorities
-in both packages.  ``SyntheticLMDataset`` (the training stream) waits for
-the training slice.
+``repro.data.pipeline`` copied: numpy only, so one seed gives the same
+batches (tokens, targets, loss masks, the VLM's positions and vision
+embeddings, the encoder-decoder's frames), prompts, lengths, arrivals,
+deadlines and priorities in both packages.
+
+Fault-tolerance contract of the training stream: ``batch(step)`` is a pure
+function of ``(seed, step, topology)``, so a restarted job replays the
+exact token stream from its restored step with no data-loader state to
+checkpoint.  Its "documents" are runs of tokens from a narrow vocabulary
+band with an EOS separator, so the stream has structure an optimizer can
+learn (a uniform stream would hide optimizer faults).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..models.config import ModelConfig
+
+
+class SyntheticLMDataset:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        global_batch: int,
+        seq_len: int,
+        seed: int = 0,
+        doc_len: int = 128,
+    ) -> None:
+        self.cfg = cfg
+        self.global_batch = global_batch
+        self.seq_len = seq_len
+        self.seed = seed
+        self.doc_len = doc_len
+
+    def batch(
+        self, step: int, host_id: int = 0, n_hosts: int = 1
+    ) -> Dict[str, np.ndarray]:
+        """The (host-sharded) batch for ``step``.  Pure in (seed, step)."""
+        if self.global_batch % n_hosts:
+            raise ValueError("global_batch must divide n_hosts")
+        local = self.global_batch // n_hosts
+        rows = []
+        for r in range(local):
+            global_row = host_id * local + r
+            rows.append(self._row(step, global_row))
+        tokens = np.stack(rows)  # (local, seq+1)
+        out: Dict[str, np.ndarray] = {
+            "tokens": tokens[:, :-1].astype(np.int32),
+            "targets": tokens[:, 1:].astype(np.int32),
+            "loss_mask": np.ones((local, self.seq_len), np.float32),
+        }
+        cfgm = self.cfg
+        if cfgm.family == "vlm":
+            rng = self._rng(step, 1_000_003)
+            out["vision_embeds"] = rng.standard_normal(
+                (local, cfgm.n_vision_tokens, cfgm.d_model), dtype=np.float32
+            )
+            pos = np.broadcast_to(
+                np.arange(self.seq_len, dtype=np.int32), (local, self.seq_len)
+            )
+            out["positions"] = np.broadcast_to(pos, (3, local, self.seq_len)).copy()
+            out["loss_mask"][:, : cfgm.n_vision_tokens] = 0.0
+        if cfgm.is_encoder_decoder:
+            rng = self._rng(step, 2_000_003)
+            out["frames"] = rng.standard_normal(
+                (local, cfgm.encoder_len, cfgm.d_model), dtype=np.float32
+            ).astype(np.float32)
+        return out
+
+    # -- internals -------------------------------------------------------------
+
+    def _rng(self, step: int, salt: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, salt])
+        )
+
+    def _row(self, step: int, row: int) -> np.ndarray:
+        """One (seq_len+1)-token row built from synthetic documents."""
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, step, row]))
+        V = self.cfg.vocab_size
+        eos = V - 1
+        toks: List[int] = []
+        need = self.seq_len + 1
+        while len(toks) < need:
+            # each document draws from a narrow vocab band -> learnable bigrams
+            base = int(rng.integers(0, max(1, V - 64)))
+            width = int(rng.integers(8, 64))
+            ln = int(rng.integers(self.doc_len // 2, self.doc_len))
+            walk = rng.integers(0, width, size=ln)
+            toks.extend((base + np.cumsum(walk) % width).tolist())
+            toks.append(eos)
+        return np.asarray(toks[:need], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, one package per TPU kernel ported.
 
 * exb             — GKV exb_realspcal (the paper's §III tuning target)
-* flash_attention — causal GQA flash attention, forward
+* flash_attention — causal GQA flash attention, forward (with the
+                    softmax's log-sum-exp for training) and backward
 * stress          — Seism3D update_stress (the paper's §IV tuning target)
 * ssm_scan        — Mamba-1 selective scan
 * rglru_scan      — RG-LRU recurrence (recurrentgemma)

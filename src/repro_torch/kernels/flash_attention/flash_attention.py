@@ -3,7 +3,11 @@
 ``flash_attention(q, k, v, block_q, block_kv)`` launches a kernel on CUDA
 tensors and runs the plain version (:func:`attention_plain`, the module's
 copy of ``ref.attention_ref``) on CPU tensors; there is no fallback from
-one to the other.  ``counter`` counts both.
+one to the other.  ``counter`` counts both.  ``return_lse=True`` also
+returns the rows' log-sum-exp (float32 (B, H, S)), the residual of
+:func:`flash_attention_bwd`: dq, dk, dv from (q, k, v, o, lse, do), the
+kernel of ``csrc/flash_attention_bwd.cuh`` on CUDA tensors and
+:func:`attention_bwd_plain` on CPU tensors, counted by ``bwd_counter``.
 
 Two kernels, by dtype, both one CTA per (q block, head, batch) with
 ``block_kv`` a loop inside the CTA, both masking a sequence the tiles do
@@ -41,10 +45,11 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_plain, attention_ref
 
 attention_plain = attention_ref
 counter = _build.Counter()
+bwd_counter = _build.Counter()
 
 TILE_HEAD_DIMS = (16, 32, 64, 128, 256)
 HD_MAX = 256
@@ -53,13 +58,16 @@ HD_MAX = 256
 HD_MULTIPLE = {"bfloat16": 8, "float32": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p]
 )
 _SM90_ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p]
 )
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_LIB = {"bfloat16": ("flash_attention_bwd", "flash_attention_bwd_bf16"),
+            "float32": ("flash_attention_bwd_f32", "flash_attention_bwd_f32")}
 
 # The bf16 kernel's instantiations (FLASH_SM90_TILES in the source): a
 # warpgroup owns 64 query rows, so block_q is 64 or 128; block_kv is the n
@@ -100,6 +108,22 @@ F32_TILES = frozenset(
     (t, bq, bkv) for t in TILE_HEAD_DIMS for bq in F32_BLOCK_Q for bkv in F32_BLOCK_KV
     if bkv <= f32_max_block_kv(t) and bq <= f32_max_block_q(t)
 )
+
+
+# The backward kernel's instantiations (FLASH_BWD_TILES in
+# csrc/flash_attention_bwd.cuh), both dtypes: block_q is the dq pass's rows
+# (16 a warp) and block_kv the dk/dv pass's keys; each is at most 64 (a
+# warp's S and dP accumulators are 16 x the other tile), block_kv 32 at hd
+# 256; tile hd 16 and 32 take the two square tiles.
+BWD_TILES = frozenset(
+    [(t, b, b) for t in (16, 32) for b in (32, 64)]
+    + [(t, bq, bkv) for t in (64, 128) for bq in (32, 64) for bkv in (32, 64)]
+    + [(256, bq, 32) for bq in (32, 64)]
+)
+BWD_BLOCK = (32, 64)
+# row padding of the backward's shared tiles, in elements (16 bytes in
+# either dtype)
+_BWD_PAD = {2: 8, 4: 4}
 
 
 def head_dim_error(hd: int, dtype: str) -> Optional[str]:
@@ -145,6 +169,23 @@ def launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
     return tile is not None and (tile, block_q, block_kv) in tiles
 
 
+def bwd_launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
+    """True iff the backward kernel of ``dtype`` launches (block_q,
+    block_kv) at head dim ``hd``: the emit layer's point filter and the
+    wrapper's check."""
+    tile = tile_hd(hd, dtype)
+    return tile is not None and (tile, block_q, block_kv) in BWD_TILES
+
+
+def bwd_smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
+    """Dynamic shared memory of the backward's larger pass (``DqTile`` and
+    ``DkvTile::kSmem``) at the tile head dim ``hd`` runs on: q, do, k and v
+    tiles of padded rows, and the dk/dv pass's lse and delta of a q block."""
+    t = max(16, 1 << (hd - 1).bit_length())
+    tiles = elt * (t + _BWD_PAD[elt]) * (2 * block_q + 2 * block_kv)
+    return tiles + 2 * block_q * 4
+
+
 def smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
     """Dynamic shared memory of one CTA (``Tile::kSmem`` in the sources)
     at the tile head dim ``hd`` runs on (the power of two at or above it,
@@ -179,9 +220,10 @@ def _check(q, k, v, block_q: int, block_kv: int):
 
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    block_q: int = 64, block_kv: int = 64, causal: bool = True,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous CUDA tensors (f32 or bf16)."""
+    block_q: int = 64, block_kv: int = 64, causal: bool = True, return_lse: bool = False,
+):
+    """Launch the CUDA kernel on contiguous CUDA tensors (f32 or bf16);
+    with ``return_lse``, (o, lse)."""
     B, S, H, KV, hd = _check(q, k, v, block_q, block_kv)
     if _build.route((q, k, v), "flash_attention") != "cuda":
         raise ValueError("flash_attention_cuda: inputs must be CUDA tensors")
@@ -211,21 +253,99 @@ def flash_attention_cuda(
         raise ValueError("flash_attention_cuda: the 16-byte loads need 16-byte aligned "
                          "q, k, v")
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     if q.dtype == torch.bfloat16:
         what = "flash_attention_sm90_launch"
         code = _build.function("flash_attention_sm90", what, _SM90_ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
             B, S, H, KV, hd_run, block_q, block_kv, scale, int(causal), _build.stream_of(o),
         )
     else:
         what = "flash_attention_launch"
         code = _build.function("flash_attention", what, _ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr, _DTYPES[q.dtype],
             B, S, H, KV, hd_run, block_q, block_kv, scale, int(causal), _build.stream_of(o),
         )
     _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
     counter.launched()
-    return o if hd_run == hd else o[..., :hd].contiguous()
+    o = o if hd_run == hd else o[..., :hd].contiguous()
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, block_q: int = 64, block_kv: int = 64,
+):
+    """Launch the backward kernel on contiguous CUDA tensors (f32 or bf16):
+    (dq, dk, dv) of causal attention.  An hd off the kernels' rule runs
+    padded, as the forward does: q, k, v, o and do copied into
+    :func:`padded_hd` columns (zero columns add nothing to a score, to
+    delta or to a kept gradient column), the true hd's scale, and the first
+    hd columns of each gradient returned."""
+    B, S, H, KV, hd = _check(q, k, v, block_q, block_kv)
+    if _build.route((q, k, v, o, lse, do), "flash_attention_bwd") != "cuda":
+        raise ValueError("flash_attention_bwd_cuda: inputs must be CUDA tensors")
+    dtype = _name(q.dtype)
+    why = head_dim_error(hd, dtype)
+    if why is not None:
+        raise ValueError(why)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"flash_attention_bwd_cuda: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's shape {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd_cuda: o and do must take q's dtype")
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be float32 {(B, H, S)}")
+    if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
+        raise ValueError("flash_attention_bwd_cuda: q, k, v, o, lse, do must be contiguous")
+    if not bwd_launchable(hd, dtype, block_q, block_kv):
+        raise ValueError(
+            f"flash_attention_bwd_cuda: {dtype} tile (hd={tile_hd(hd, dtype)}, {block_q}, "
+            f"{block_kv}) is not instantiated"
+        )
+    smem = bwd_smem_bytes(block_q, block_kv, hd, q.element_size())
+    limit = smem_optin(q.device)
+    if smem > limit:
+        raise ValueError(
+            f"flash_attention_bwd_cuda: tiles ({block_q},{block_kv}) need {smem} B "
+            f"of shared memory, the card allows {limit} B"
+        )
+    scale = 1.0 / math.sqrt(hd)
+    hd_run = padded_hd(hd, dtype)
+    if hd_run != hd:
+        q, k, v, o, do = (pad_head_dim(t, hd_run) for t in (q, k, v, o, do))
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd_cuda: the 16-byte loads need 16-byte aligned "
+                         "q, k, v, o, do")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib, prefix = _BWD_LIB[dtype]
+    what = f"{prefix}_launch"
+    code = _build.function(lib, what, _BWD_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, KV, hd_run, block_q, block_kv, scale, _build.stream_of(dq),
+    )
+    _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
+    bwd_counter.launched()
+    if hd_run != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, block_q: int = 64, block_kv: int = 64,
+):
+    """(dq, dk, dv) of causal GQA attention: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors (tiles are checked either
+    way)."""
+    if _build.route((q, k, v, o, lse, do), "flash_attention_bwd") == "cuda":
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, block_q, block_kv)
+    _check(q, k, v, block_q, block_kv)
+    bwd_counter.ran_plain()
+    return attention_bwd_plain(q, k, v, o, lse, do)
 
 
 def _name(dtype: torch.dtype) -> str:
@@ -234,15 +354,16 @@ def _name(dtype: torch.dtype) -> str:
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    block_q: int = 64, block_kv: int = 64, causal: bool = True,
-) -> torch.Tensor:
+    block_q: int = 64, block_kv: int = 64, causal: bool = True, return_lse: bool = False,
+):
     """Causal GQA attention: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors (tiles are checked either way)."""
+    version on CPU tensors (tiles are checked either way); with
+    ``return_lse``, (o, lse)."""
     if _build.route((q, k, v), "flash_attention") == "cuda":
-        return flash_attention_cuda(q, k, v, block_q, block_kv, causal)
+        return flash_attention_cuda(q, k, v, block_q, block_kv, causal, return_lse)
     _check(q, k, v, block_q, block_kv)
     counter.ran_plain()
-    return attention_plain(q, k, v, causal=causal)
+    return attention_plain(q, k, v, causal=causal, return_lse=return_lse)
 
 
 _OPTIN = {}
@@ -292,3 +413,11 @@ def smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
     fn = _build.function("flash_attention", "flash_attention_smem_bytes",
                          [ctypes.c_int] * 4, ctypes.c_longlong)
     return int(fn(_DTYPES[dtype], hd, block_q, block_kv))
+
+
+def bwd_smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
+    """What the compiled backward source computes for
+    :func:`bwd_smem_bytes`; -1 for a tile that is not instantiated."""
+    lib, prefix = _BWD_LIB[_name(dtype)]
+    fn = _build.function(lib, f"{prefix}_smem_bytes", [ctypes.c_int] * 3, ctypes.c_longlong)
+    return int(fn(hd, block_q, block_kv))

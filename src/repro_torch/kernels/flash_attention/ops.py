@@ -31,6 +31,14 @@ The shape class keeps a power-of-two bucket of B·H (the JAX package drops
 it): the card runs one CTA per (q block, head, batch), so the hint's CTA
 count and traffic cover the whole call, and a call with many heads does
 not recall the winner of one with few.
+
+``flash_attention_bwd`` (the backward kernel, ``csrc/flash_attention_bwd.cuh``)
+is a registry op of its own: the same shape class with the query heads a
+KV head (``group``: the dk/dv pass walks them in one CTA), the instantiated
+(block_q, block_kv) tiles its :func:`~.flash_attention.bwd_launchable`
+takes (32 or 64 each; block_kv 32 at hd 256), and a hint of seven causal
+products (S and dP recomputed in each of its two passes, then dS.K, P^T.dO
+and dS^T.Q) at the dtype's rate.
 """
 from __future__ import annotations
 
@@ -42,11 +50,12 @@ from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_ker
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .flash_attention import (
-    F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, ctas_per_sm, f32_max_block_kv,
-    f32_max_block_q, flash_attention, head_dim_error, launchable, padded_hd,
-    sm90_max_block_kv, smem_bytes, tile_hd,
+    BWD_BLOCK, F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, bwd_launchable,
+    bwd_smem_bytes, ctas_per_sm, f32_max_block_kv, f32_max_block_q, flash_attention,
+    flash_attention_bwd, head_dim_error, launchable, padded_hd, sm90_max_block_kv, smem_bytes,
+    tile_hd,
 )
-from .ref import attention_ref
+from .ref import attention_bwd_plain, attention_ref
 
 _ELT = {"float32": 4, "bfloat16": 2}
 
@@ -204,6 +213,110 @@ register_kernel(
         "flash_attention",
         make_region=_make_region,
         shape_class=shape_class,
+        prescreen_factory=hint_prescreen,
+        tags=("cuda",),
+    ),
+    replace=True,
+)
+
+
+# -- the backward kernel ----------------------------------------------------------
+
+
+def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
+    """(flops, bytes) of the whole backward call — ranking only.  Flops:
+    seven products over the causal (row, key) pairs the dq pass visits,
+    tails included; bytes: q, o, do and dq once per query head, k, v, dk
+    and dv once per KV head."""
+    s, hd, elt = bp["seq"], bp["hd"], _ELT.get(bp["dtype"], 4)
+    bq, bkv = point["block_q"], point["block_kv"]
+    flops = 7 * 2.0 * hd * bq * _keys_visited(s, bq, bkv)
+    bytes_ = elt * s * hd * (4.0 + 4.0 / bp["group"])
+    return bp["heads"] * flops, bp["heads"] * bytes_
+
+
+def _bwd_dims(bp: Mapping[str, Any]):
+    why = head_dim_error(bp["hd"], bp["dtype"])
+    if why is not None:
+        raise ValueError(why)
+    return (
+        TileDim("block_q", bp["seq"], semantic="lane", min_tile=BWD_BLOCK[0],
+                max_tile=BWD_BLOCK[-1], allow_padding=True, pow2_only=True),
+        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=BWD_BLOCK[0],
+                max_tile=BWD_BLOCK[-1], allow_padding=True, pow2_only=True),
+    )
+
+
+FLASH_BWD_POLICY = TilePolicy(
+    kernel="flash_attention_bwd",
+    dims=_bwd_dims,
+    vmem_model=lambda bp, p: bwd_smem_bytes(
+        p["block_q"], p["block_kv"], bp["hd"], _ELT.get(bp["dtype"], 4)
+    ),
+    traffic_model=_bwd_traffic,
+    grid_multiplier=lambda bp: bp["heads"],
+    flop_rate=lambda arch, bp: (
+        arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_tf32 / 3
+    ),
+    point_filter=lambda bp, p: bwd_launchable(bp["hd"], bp["dtype"], p["block_q"],
+                                              p["block_kv"]),
+)
+
+
+def flash_bwd_region(
+    seq_len: int, head_dim: int, dtype: str = "float32",
+    arch: Optional[ArchSpec] = None, heads: int = 1, group: int = 1,
+) -> ATRegion:
+    """The backward's region: ``heads`` is the B·H bucket, ``group`` the
+    query heads a KV head; a head dim off the kernels' rule is offered the
+    padded head dim's points, as the forward's region is."""
+    arch = arch or local_arch()
+    why = head_dim_error(head_dim, dtype)
+    if why is not None:
+        raise ValueError(why)
+    emitted = FLASH_BWD_POLICY.emit(
+        arch, {"seq": seq_len, "hd": padded_hd(head_dim, dtype), "dtype": dtype,
+               "heads": heads, "group": group}
+    )
+
+    def instantiate(point: Mapping[str, Any]):
+        bq, bkv = point["block_q"], point["block_kv"]
+        return lambda q, k, v, o, lse, do: flash_attention_bwd(
+            q, k, v, o, lse, do, block_q=bq, block_kv=bkv)
+
+    return ATRegion(
+        "flash_attention_bwd_cuda", emitted.space, instantiate,
+        oracle=attention_bwd_plain, space_signature=emitted.signature,
+        hints=emitted.hints, arch=arch,
+    )
+
+
+def bwd_shape_class(q, k, v, o, lse, do) -> BasicParams:
+    """The forward's class keys (seq, head_dim, B·H bucket, dtype, device)
+    and the query heads a KV head."""
+    return BasicParams.make(
+        kernel="flash_attention_bwd",
+        seq=int(q.shape[1]),
+        hd=int(q.shape[3]),
+        heads=bucket_pow2(int(q.shape[0]) * int(q.shape[2])),
+        group=int(q.shape[2]) // int(k.shape[2]),
+        dtype=str(q.dtype).replace("torch.", ""),
+        backend=q.device.type,
+        framework="torch",
+    )
+
+
+def _make_bwd_region(bp: BasicParams) -> ATRegion:
+    arch = local_arch() if bp["backend"] == "cuda" else CPU_HOST
+    return flash_bwd_region(bp["seq"], bp["hd"], bp["dtype"], arch=arch, heads=bp["heads"],
+                            group=bp["group"])
+
+
+register_kernel(
+    KernelSpec(
+        "flash_attention_bwd",
+        make_region=_make_bwd_region,
+        shape_class=bwd_shape_class,
         prescreen_factory=hint_prescreen,
         tags=("cuda",),
     ),

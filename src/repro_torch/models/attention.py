@@ -7,8 +7,12 @@ the Pallas kernel") or ``full_attention(causal=True)``.  On the card the
 port's hand-written flash kernel takes their place: :func:`causal_attention`
 sends CUDA tensors to ``autotuned("flash_attention")`` and CPU tensors to
 :func:`full_attention`, the plain version (:mod:`.route`).  So
-``blocked_causal_attention`` and ``flash_attention_xla`` are not ported;
-their backward pass waits for training.
+``blocked_causal_attention`` and ``flash_attention_xla`` are not ported.
+Where autograd wants a gradient of a call on CUDA tensors, it runs
+:class:`FlashAttentionFn`, the counterpart of ``flash_attention_xla``'s
+custom VJP: the forward kernel with its ``lse`` residual, and the
+backward kernel (``autotuned("flash_attention_bwd")``) in place of
+``_flash_bwd``; on CPU tensors autograd runs through the plain version.
 
 What has no kernel stays in torch ops, as the JAX package uses XLA there:
 non-causal attention (the Whisper encoder; the flash op of the registry is
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import flash_attention as fa_mod
 from .config import ModelConfig
 from .layers import dot, mrope_apply, promote, rope_apply
-from .route import on_kernel, run_kernel
+from .route import in_this_context, kernel_state, needs_grad, on_kernel, run_kernel
 from .spec import ParamSpec
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -105,11 +109,51 @@ def output_proj(o: torch.Tensor, p) -> torch.Tensor:
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention with ``Sq == Sk``: the flash kernel (tuned
     and recalled through the registry, :func:`.route.run_kernel`) on CUDA
-    tensors, the plain :func:`full_attention` on CPU tensors."""
+    tensors, through :class:`FlashAttentionFn` where a gradient is wanted;
+    the plain :func:`full_attention` on CPU tensors."""
     if on_kernel(q):
-        return run_kernel("flash_attention", q.contiguous(), k.contiguous(), v.contiguous())
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if needs_grad(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, kernel_forward,
+                                          in_this_context(kernel_backward))
+        return run_kernel("flash_attention", q, k, v)
     fa_mod.counter.ran_plain()
     return full_attention(q, k, v, causal=True)
+
+
+def kernel_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o, lse) from the forward kernel at the point its shape class tuned
+    (or recalled): the class serving uses, so training pays no second tune."""
+    point = kernel_state("flash_attention", q, k, v).region.selected
+    return fa_mod.flash_attention(q, k, v, **point, return_lse=True)
+
+
+def kernel_backward(q, k, v, o, lse, do):
+    """(dq, dk, dv) from the backward kernel, tuned per shape class."""
+    return run_kernel("flash_attention_bwd", q, k, v, o, lse, do)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal GQA attention whose backward recomputes the scores block by
+    block from what the forward saves, ``(q, k, v, o, lse)``, O(S·d) as
+    the JAX ``_flash_fwd`` residuals are.  ``forward_fn(q, k, v)`` returns
+    ``(o, lse)`` and ``backward_fn(q, k, v, o, lse, do)`` returns ``(dq,
+    dk, dv)``: the kernels (:func:`kernel_forward`,
+    :func:`kernel_backward`), or their plain versions
+    (``attention_ref(..., return_lse=True)``, ``attention_bwd_plain``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward_fn, backward_fn):
+        o, lse = forward_fn(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.backward_fn = backward_fn
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.backward_fn(q, k, v, o, lse, do.contiguous())
+        return dq, dk, dv, None, None
 
 
 def full_attention(

@@ -8,10 +8,13 @@ with cross-attention and sinusoidal positions; embeddings are tied.  The
 decoder's causal self-attention takes the kernel route
 (:func:`~.attention.causal_attention`); the encoder's non-causal
 attention and the cross attention are torch ops, as the JAX package uses
-XLA there.
+XLA there.  Remat follows the JAX rule for this family: every encoder and
+decoder layer is recomputed whole (``full``) for any ``remat`` but
+``none``, ``dots`` included.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -24,7 +27,9 @@ from .attention import (
 from .config import ModelConfig
 from .layers import dot, embed, embed_spec, gelu_mlp, gelu_mlp_spec, layernorm, unembed
 from .spec import ParamSpec
-from .transformer import at_most, pad_cap, positions_now, token_positions, write_slot
+from .transformer import (
+    at_most, maybe_checkpoint, pad_cap, positions_now, token_positions, write_slot,
+)
 
 
 def _ln_spec(d: int) -> Dict[str, ParamSpec]:
@@ -73,15 +78,25 @@ def _decoder_inputs(params, tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelC
 # ---------------------------------------------------------------------------
 
 
+def _remat(fn, cfg: ModelConfig):
+    """The JAX rule of this family: ``full`` for any remat but ``none``."""
+    return maybe_checkpoint(fn, cfg.with_(remat="none" if cfg.remat == "none" else "full"))
+
+
+def _encoder_layer(x, lp, cfg: ModelConfig):
+    hh = layernorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = project_qkv(hh, lp["attn"], cfg, positions=None)  # no RoPE
+    x = x + output_proj(full_attention(q, k, v, causal=False), lp["attn"])
+    hh = layernorm(x, lp["ln2"], cfg.norm_eps)
+    return x + gelu_mlp(hh, lp["mlp"])
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, enc_len, d) stubbed embeddings -> encoder states."""
     x = frames.to(torch.bfloat16) + params["enc_pos"].to(torch.bfloat16)
+    body = _remat(functools.partial(_encoder_layer, cfg=cfg), cfg)
     for lp in params["enc_layers"]:
-        hh = layernorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = project_qkv(hh, lp["attn"], cfg, positions=None)  # no RoPE
-        x = x + output_proj(full_attention(q, k, v, causal=False), lp["attn"])
-        hh = layernorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + gelu_mlp(hh, lp["mlp"])
+        x = body(x, lp)
     return layernorm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -114,8 +129,9 @@ def forward(
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = _decoder_inputs(params, tokens, pos, cfg)
+    body = _remat(lambda h, lp: _decoder_layer(h, lp, cfg, enc_out)[0], cfg)
     for lp in params["dec_layers"]:
-        x = _decoder_layer(x, lp, cfg, enc_out)[0]
+        x = body(x, lp)
     x = layernorm(x, params["dec_final_ln"], cfg.norm_eps)
     logits = unembed(x, params["embed"].T)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)

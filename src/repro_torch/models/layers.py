@@ -9,6 +9,7 @@ both as JAX does, since torch's matmul takes one dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Tuple
 
@@ -179,7 +180,48 @@ def unembed_spec(cfg: ModelConfig) -> ParamSpec:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; where a gradient is wanted, through
+    :class:`Embed`, whose backward sums in a fixed order."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return Embed.apply(table, tokens)
     return table[tokens]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Inside, PyTorch takes its deterministic kernels; the setting before
+    is restored after."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+class Embed(torch.autograd.Function):
+    """The embedding gather whose backward is deterministic.  Autograd's own
+    backward of ``table[tokens]`` scatter-adds the rows of repeated tokens
+    with atomics on the card, in an order that changes from run to run; this
+    one runs the same ``index_put_(accumulate=True)`` under
+    :func:`deterministic_algorithms`, where PyTorch sorts the indices and
+    sums each token's rows in order.  So a training run's losses repeat bit
+    for bit (the restart check)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        out = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
+        with deterministic_algorithms():
+            out.index_put_((tokens,), grad, accumulate=True)
+        return out, None
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

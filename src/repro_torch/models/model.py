@@ -5,7 +5,10 @@ The port of ``repro.models.model``.  Entry points:
 * :func:`param_specs` — tree of ParamSpec (no allocation);
   :func:`init_params` draws it on a device from a ``torch.Generator``.
 * :func:`forward` / :func:`train_loss` — logits and CE (+ MoE aux) for one
-  batch, the value only (training, with its backward, is not ported yet).
+  batch, differentiable as the JAX ones are (``repro_torch.runtime.train``
+  takes their gradient); on the card causal attention runs forward and
+  backward on the flash kernels, and the scans raise until their backward
+  kernels exist (:mod:`.route`).
 * :func:`prefill_fn` / :func:`decode_fn` / :func:`init_cache` — serving.
 * :func:`make_concrete_batch` — random inputs of one cell, from a
   ``torch.Generator``.
@@ -168,9 +171,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     )
 
 
-@torch.no_grad()
 def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token CE (+ MoE aux), the value only."""
+    """Mean next-token CE (+ MoE aux)."""
     logits, aux = forward(params, batch, cfg)
     return _ce(logits, batch["targets"], batch.get("loss_mask")) + aux
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..kernels.rglru_scan import rglru_scan as rg_mod
 from .config import ModelConfig
 from .layers import dot, gelu, promote, sigmoid
-from .route import on_kernel, run_kernel
+from .route import no_backward, on_kernel, run_kernel
 from .spec import ParamSpec
 from .ssm import _causal_conv1d, conv_tail
 
@@ -60,6 +60,7 @@ def lru_scan(xs: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tens
     step, (B, S, w) float32."""
     args = tuple(t.float().contiguous() for t in (xs, r, i, lam))
     if on_kernel(xs):
+        no_backward("rglru_scan", *args)
         return run_kernel("rglru_scan", *args)
     rg_mod.counter.ran_plain()
     return rg_mod.rglru_scan_plain(*args)

@@ -9,7 +9,16 @@ the plain version, by the tensors' device; there is no fallback from one
 to the other.  :func:`plain_versions` sends CUDA tensors to the plain
 versions too, for a caller that holds the kernel route against them on the
 card (``chip_smoke.py``); every plain call adds one to its kernel wrapper's
-``counter.plain_calls``.
+``counter.plain_calls``.  Under autograd the plain versions are torch ops
+and differentiate as they are; causal attention on the kernel route takes
+the flash backward kernel (``attention.FlashAttentionFn``), and the two
+scans, whose backward kernels are not written yet, raise
+(:func:`no_backward`) rather than run a plain version or hand back a
+result with no gradient.
+
+The routing is per thread (context variables); what autograd runs later
+on its own thread (a backward, remat's recompute) is bound to the routing
+of the forward that recorded it (:func:`in_this_context`).
 
 Serving never tunes on its hot path, inside the model included: the flash
 shape class keys the exact sequence length, so every new prompt length
@@ -23,6 +32,7 @@ evaluations), or is not tuned at all.
 """
 from __future__ import annotations
 
+import contextvars
 import threading
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -51,8 +61,34 @@ def on_kernel(t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and not _PLAIN.get()
 
 
+def in_this_context(fn):
+    """``fn`` bound to the routing in force now (:func:`plain_versions`,
+    :func:`serving`), wherever it runs later: autograd runs a backward, and
+    remat's recompute, on its own thread, which would see neither."""
+    ctx = contextvars.copy_context()
+    return lambda *args, **kwargs: ctx.run(fn, *args, **kwargs)
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """True where autograd will ask for the gradient of a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def no_backward(name: str, *ts: torch.Tensor) -> None:
+    """Raise where a kernel with no backward kernel yet would be asked for a
+    gradient on the card: the plain version is not run in its place, and
+    no tensor without a gradient is handed back."""
+    if needs_grad(*ts):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet (ROADMAP.md §A item 6a, the scans' "
+            f"backward kernels): a model that calls it trains on the CPU only "
+            f"(device='cpu'), or under plain_versions()"
+        )
+
+
 class ServingRule:
-    """How a kernel call resolves inside :func:`serving`.
+    """How a kernel call resolves inside :func:`serving`.  The trainer
+    runs its steps under one too, ``inline_tune`` on its TuningDB.
 
     Each kernel gets its own op on the serving DB (``autotuned(name,
     db=db)``).  With ``background`` (a

@@ -13,8 +13,11 @@ this one.
 :class:`Params` is the allocated tree: an ``nn.Module`` whose children are
 its keys, each a parameter (a leaf), a :class:`Params` (a dict) or an
 ``nn.ModuleList`` (the layers), indexed as the JAX functions index their
-dicts (``p["attn"]["wq"]``, ``"bq" in p``).  Parameters do not take
-gradients: the models are served; training is not ported yet.
+dicts (``p["attn"]["wq"]``, ``"bq" in p``).  Its parameters take no
+gradients (a served model); training holds the same tensors as a plain tree
+of dicts and lists (``repro_torch.tree.as_tree``), which the model
+functions take as they take a :class:`Params`, and marks the leaves it
+differentiates itself.
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..kernels.ssm_scan import ssm_scan as ssm_mod
 from .config import ModelConfig
 from .layers import dot, promote, silu
-from .route import kernel_state, on_kernel, run_kernel
+from .route import kernel_state, no_backward, on_kernel, run_kernel
 from .spec import ParamSpec
 
 
@@ -75,6 +75,7 @@ def selective_scan(xs, dt, A, Bt, Ct, final_state: bool = False):
     skip = torch.zeros(xs.shape[-1], dtype=torch.float32, device=xs.device)
     args = tuple(t.contiguous() for t in (xs, dt, A, Bt, Ct, skip))
     if on_kernel(xs):
+        no_backward("ssm_scan", *args)
         if not final_state:
             return run_kernel("ssm_scan", *args)
         # the point this shape class tuned (or recalled), with the state out

@@ -6,9 +6,11 @@ cache) and :func:`decode_step` (one token).  Where the JAX package scans
 over a stacked ``layers`` axis (and, for the hybrid family, over
 period-groups of its block pattern plus a tail), the port loops over a
 ``ModuleList`` of layers in order; layer i of a hybrid model is of kind
-``block_pattern[i % period]``.  Left out, as training's or XLA's: remat
-(``_maybe_checkpoint``), ``scan_layers`` and sharding constraints (one
-card).
+``block_pattern[i % period]``.  Remat (:func:`maybe_checkpoint`, the JAX
+``_maybe_checkpoint``) wraps what the JAX package wraps, where a gradient
+is wanted: each layer, and for the hybrid family each period-group of the
+block pattern and each layer of a homogeneous tail.  Left out, as XLA's:
+``scan_layers`` and sharding constraints (one card).
 
 The decode cache keeps the JAX package's layout, key for key: stacked
 (layers, B, capacity, KV, hd) bf16 K/V and an int ``len`` for the
@@ -25,10 +27,14 @@ and masks its own valid keys.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from .attention import (
     attn_spec, causal_attention, decode_attention, local_window_attention, output_proj,
@@ -39,6 +45,7 @@ from .layers import (
     embed, embed_spec, rmsnorm, rmsnorm_spec, swiglu, swiglu_spec, unembed, unembed_spec,
 )
 from .moe import moe_block, moe_spec
+from .route import in_this_context
 from .rglru import rglru_block, rglru_block_with_state, rglru_decode_step, rglru_init_cache, rglru_spec
 from .spec import ParamSpec
 from .ssm import ssm_block, ssm_block_with_state, ssm_decode_step, ssm_init_cache, ssm_spec
@@ -176,6 +183,34 @@ _LAYER_FN = {"dense": _dense_layer, "vlm": _dense_layer, "moe": _moe_layer,
 
 
 # ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots``: keep the outputs of plain 2-D matmuls, recompute the rest
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_checkpoint(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under the config's remat policy, the JAX ``_maybe_checkpoint``:
+    ``none`` as it is, ``full`` recomputed whole in the backward, ``dots``
+    recomputed but for its 2-D matmuls.  Without a gradient to take there
+    is nothing to recompute, and ``fn`` runs as it is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    extra = {} if cfg.remat == "full" else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts, _save_matmuls)}
+    # the recompute runs on autograd's thread: bind it to this call's routing
+    return lambda *args: checkpoint(in_this_context(fn), *args, use_reentrant=False, **extra)
+
+
+# ---------------------------------------------------------------------------
 # Full-sequence forward — logits over all positions
 # ---------------------------------------------------------------------------
 
@@ -188,16 +223,57 @@ def forward(
     """Returns (logits (B,S,V) fp32, aux_loss scalar)."""
     x, positions = _embed_inputs(params, tokens, cfg, positions, vision_embeds)
     aux = _zero(x)
-    for i, lp in enumerate(params["layers"]):
-        if cfg.family == "hybrid":
-            x, _, a = _hybrid_layer(x, lp, cfg, positions, hybrid_kind(cfg, i))
-        elif cfg.family in _LAYER_FN:
-            x, _, a = _LAYER_FN[cfg.family](x, lp, cfg, positions)
-        else:
-            raise ValueError(f"forward: unsupported family {cfg.family}")
-        aux = aux + a
+    if cfg.family == "hybrid":
+        x, aux = _hybrid_trunk(params, x, aux, cfg, positions)
+    elif cfg.family in _LAYER_FN:
+        layer_fn = _LAYER_FN[cfg.family]
+
+        def body(h, lp):
+            h, _, a = layer_fn(h, lp, cfg, positions)
+            return h, a
+
+        body = maybe_checkpoint(body, cfg)
+        for lp in params["layers"]:
+            x, a = body(x, lp)
+            aux = aux + a
+    else:
+        raise ValueError(f"forward: unsupported family {cfg.family}")
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), aux
+
+
+def _hybrid_trunk(params, x, aux, cfg: ModelConfig, positions):
+    """The hybrid stack as the JAX package runs it: period-groups of the
+    block pattern, each under remat as one body, then the tail, each layer
+    under remat when the tail is homogeneous (the JAX package's stacked
+    tail) and as it is otherwise."""
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    layers = list(params["layers"])
+
+    def group_body(h, group):
+        a = _zero(h)
+        for idx, lp in enumerate(group):
+            h, _, ai = _hybrid_layer(h, lp, cfg, positions, cfg.block_pattern[idx])
+            a = a + ai
+        return h, a
+
+    group_body = maybe_checkpoint(group_body, cfg)
+    for g in range(n_groups):
+        x, a = group_body(x, layers[g * period:(g + 1) * period])
+        aux = aux + a
+    tail = layers[n_groups * period:]
+    kinds = cfg.block_pattern[:len(tail)]
+    for idx, lp in enumerate(tail):
+        def tail_body(h, lp, kind=kinds[idx]):
+            h, _, a = _hybrid_layer(h, lp, cfg, positions, kind)
+            return h, a
+
+        if len(set(kinds)) == 1:
+            tail_body = maybe_checkpoint(tail_body, cfg)
+        x, a = tail_body(x, lp)
+        aux = aux + a
+    return x, aux
 
 
 def _embed_inputs(params, tokens, cfg, positions, vision_embeds):

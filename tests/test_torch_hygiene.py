@@ -82,6 +82,42 @@ def test_serving_modules_import_with_jax_absent():
     assert out.returncode == 0, out.stderr
 
 
+TRAINING_MODULES = (
+    "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.manager", "repro_torch.runtime.train",
+    "repro_torch.launch.train",
+)
+
+
+def test_training_modules_import_and_train_with_jax_absent(tmp_path):
+    """The training slice's modules import, and train and checkpoint, in a
+    process where importing jax or the JAX package raises."""
+    assert set(TRAINING_MODULES) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is absent')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        f"for m in {list(TRAINING_MODULES)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.data import SyntheticLMDataset\n"
+        "from repro_torch.optim import AdamWConfig\n"
+        "from repro_torch.runtime import Trainer, TrainLoopConfig\n"
+        "cfg = get_config('tinyllama-1.1b', smoke=True)\n"
+        "loop = TrainLoopConfig(total_steps=2, save_every=1, ckpt_dir=sys.argv[1])\n"
+        "hist = Trainer(cfg, AdamWConfig(), loop, device='cpu').run(\n"
+        "    SyntheticLMDataset(cfg, global_batch=2, seq_len=8))\n"
+        "assert len(hist['loss']) == 2\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [
@@ -99,12 +135,16 @@ def test_every_kernel_source_names_what_it_replaces():
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} == {
         "exb", "flash_attention", "flash_attention_sm90", "stress", "ssm_scan", "rglru_scan",
-        "loop_nest",
+        "loop_nest", "flash_attention_bwd", "flash_attention_bwd_f32",
     }
     for src in sources:
         text = src.read_text()
-        # loop_nest replaces core/exchange.py's LoopNest.variant_fn, not a Pallas kernel
-        where = "src/repro/" if src.stem == "loop_nest" else "src/repro/kernels/"
+        # loop_nest replaces core/exchange.py's LoopNest.variant_fn, and the flash
+        # backward models/attention.py's _flash_bwd: neither is a Pallas kernel
+        where = {"loop_nest": "src/repro/core/",
+                 "flash_attention_bwd": "src/repro/models/",
+                 "flash_attention_bwd_f32": "src/repro/models/"}.get(src.stem,
+                                                                      "src/repro/kernels/")
         assert f"Replaces: {where}" in text
         assert "What bounds it" in text and "Design." in text
 
