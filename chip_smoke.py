@@ -43,8 +43,8 @@ Phases, each of which fails the run:
 
 1. the card: name and power limit as ``nvidia-smi`` prints them;
 2. build: every CUDA source compiled with nvcc, all at once (build time,
-   registers and spills; every flash instantiation, bf16 and f32, and
-   every scan instantiation must not spill);
+   registers and spills; every flash instantiation, forward and
+   backward, bf16 and f32, and every scan instantiation must not spill);
 2a. training (``[train]`` lines), each run with the counts set to 0 just
    before it and read just after: tinyllama-1.1b's gradient at full width,
    2 of 22 layers, B=1, S=2048, wq and wk tempered, on the kernel route
@@ -58,7 +58,9 @@ Phases, each of which fails the run:
    step × n_micro, 0 plain calls, each kernel class's evaluations), a
    second Trainer on the same DB recalling the winner and every kernel
    class with 0 evaluations, whose step then overfits one batch from
-   tempered weights (the loss must fall); a restart drill (2
+   tempered weights (the loss must fall), and one more step profiled
+   (``torch.profiler``: device ms of flash forward, flash backward, GEMMs
+   and the rest); a restart drill (2
    layers, B=2, S=1024, 8 steps, a failure before step 5: losses
    bit-identical to an uninterrupted run's); one step of each trainable
    SMOKE family card vs CPU in float32 (each leaf's update within 2e-2 of
@@ -87,12 +89,14 @@ Phases, each of which fails the run:
    and at the train step's B=4, and S=2000, qwen3-0.6b's (16|8, hd 128) and
    hd 36 (8|2), bf16 and f32, the forward with its lse (o equal to the call
    without it, lse against the plain version's), then every emitted point
-   of ``flash_attention_bwd`` against ``attention_bwd_plain`` in float32
-   (bf16) or float64 (f32), the plain versions a batch row at a time, per
-   element at ``DEFAULT_TOL`` and worst row (dq without query 0); the
-   tinyllama class tuned and recalled with 0 evaluations, its time beside
-   the bound (five causal products), the plain version's and SDPA's
-   backward;
+   of ``flash_attention_bwd`` (``kv_split`` included) against
+   ``attention_bwd_plain`` in float32 (bf16) or float64 (f32), the plain
+   versions a batch row at a time, per element at ``DEFAULT_TOL`` and worst
+   row (dq without query 0), and called twice for the same bits; the
+   tinyllama class of each dtype, and bf16's at B=4, tuned and recalled
+   with 0 evaluations, its time beside the bound (five causal products),
+   the plain version's and SDPA's backward, and in bf16 each pass's time
+   (``[kernel] flash bwd passes``);
 3d. head dims off the kernels' 16-byte rule (C3): every emitted flash point
    at hd 12, 36, 100 (bf16) and 6, 50 (f32), S=2048, 8|2 heads, run padded
    by the wrapper, against the plain version, and the copy's cost (the
@@ -189,7 +193,8 @@ also give ``model_launches`` (a prefill's, per model),
 ``c3`` rows and ``ssm_scan`` its final state's errors; flash also its
 ``lse_ms`` and ``train_launches``, and ``flash_attention_bwd`` its time,
 bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
-bf16 and f32 (``f32_*``) and ``train_launches``.  A ``{"models": ...}``,
+bf16, at B=4 (``b4_*``, with ``passes_ms`` as at B=1) and in f32
+(``f32_*``), and ``train_launches``.  A ``{"models": ...}``,
 a ``{"serve": ...}`` and a ``{"train": ...}`` line before it hold the
 model, serve and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
@@ -533,18 +538,15 @@ def decode_step_bytes(tm, cfg, ctxs) -> float:
     return weights + kv + state * len(ctxs)
 
 
-def kernel_share(torch, fn) -> tuple:
-    """(device ms of the hand-written kernels, device ms of everything, the
-    eight entries with the most device time as (name, ms)) in one
-    ``torch.profiler`` run of ``fn``; (None, None, []) if it saw no device
-    time."""
+def device_rows(torch, fn) -> list:
+    """(kernel name, device ms) of every device kernel in one
+    ``torch.profiler`` run of ``fn``, most time first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ours = total = 0.0
     rows = []
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != DeviceType.CUDA:
@@ -552,13 +554,41 @@ def kernel_share(torch, fn) -> tuple:
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
-        total += t
-        rows.append((evt.key[:80], t / 1e3))
-        if any(name in evt.key for names in KERNEL_ENTRIES.values() for name in names):
-            ours += t
+        rows.append((evt.key, t / 1e3))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def kernel_share(torch, fn) -> tuple:
+    """(device ms of the hand-written kernels, device ms of everything, the
+    eight entries with the most device time as (name, ms)) in one
+    ``torch.profiler`` run of ``fn``; (None, None, []) if it saw no device
+    time."""
+    rows = device_rows(torch, fn)
+    total = sum(t for _, t in rows)
+    ours = sum(t for key, t in rows
+               if any(name in key for names in KERNEL_ENTRIES.values() for name in names))
     if total <= 0:
         return None, None, []
-    return ours / 1e3, total / 1e3, sorted(rows, key=lambda r: -r[1])[:8]
+    return ours, total, [(key[:80], t) for key, t in rows[:8]]
+
+
+# the training step's device time by kind of kernel (first match)
+STEP_KINDS = (("flash_forward", ("flash_fwd",)), ("flash_backward", ("flash_bwd",)),
+              ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def step_profile(torch, fn) -> dict:
+    """Device ms of one run of ``fn`` by :data:`STEP_KINDS` and the rest,
+    with the total and the ten kernels with the most time."""
+    rows = device_rows(torch, fn)
+    kinds = {kind: 0.0 for kind, _ in STEP_KINDS}
+    kinds["rest"] = 0.0
+    for key, t in rows:
+        kind = next((kind for kind, names in STEP_KINDS
+                     if any(n in key.lower() for n in names)), "rest")
+        kinds[kind] += t
+    return {"device_ms": sum(kinds.values()), "by_kind_ms": kinds,
+            "top": [(key[:80], t) for key, t in rows[:10]]}
 
 
 def temper(torch, tm, params) -> None:
@@ -1559,23 +1589,61 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
                 if model != native or model > optin:
                     errors.append(f"flash bwd {point}: smem model {model}, kernel {native}, "
                                   f"limit {optin}")
+                split = point.get("kv_split", 1)
+                if split > 1:
+                    model = fa_mod.bwd_scratch_bytes(B, S, KV, hd_run, split)
+                    native = fa_mod.bwd_scratch_bytes_native(B, S, KV, hd_run, split)
+                    if model != native:
+                        errors.append(f"flash bwd {point}: scratch model {model}, kernel "
+                                      f"{native}")
             err, row, times = sweep(
                 torch, f"flash bwd {dtype_name} {tag}", region,
                 lambda p, args=args: bwd_rows(fa_mod.flash_attention_bwd_cuda(*args, **p)),
                 ref, dtype_name, timer, fa_mod.bwd_counter, errors)
+            # no atomics: two calls of a point give the same bits, kv_split too
+            differ = [p for p in region.space.points()
+                      if not all(torch.equal(a, b) for a, b in zip(
+                          fa_mod.flash_attention_bwd_cuda(*args, **p),
+                          fa_mod.flash_attention_bwd_cuda(*args, **p)))]
+            print(f"[kernel] flash bwd {dtype_name} {tag}: two calls of each of "
+                  f"{len(times)} points bit-identical: {not differ}")
+            if differ:
+                errors.append(f"flash bwd {dtype_name} {tag}: two calls differ at {differ}")
             cases[(dtype_name, B, S, hd)] = {"args": args, "ref": ref, "times": times,
                                           "err": err, "row": row, "shape": shape}
     return cases
 
 
+def bwd_pass_ms(torch, runs, flush, reps: int = 10) -> dict:
+    """Median ms of each pass of ``runs`` (name: launch), the passes run in
+    order after one L2 flush, each between CUDA events."""
+    times = {name: [] for name in runs}
+    for _ in range(reps):
+        flush()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(runs) + 1)]
+        events[0].record()
+        for i, launch in enumerate(runs.values()):
+            launch()
+            events[i + 1].record()
+        events[-1].synchronize()
+        for i, name in enumerate(runs):
+            times[name].append(events[i].elapsed_time(events[i + 1]))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
 def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors) -> dict:
-    """tinyllama's backward shape class of each dtype through the registry
-    (a cold tune, then a fresh op recalling with 0 evaluations through the
-    fast path), and its tuned point's time beside the bound, the plain
-    version's and SDPA's backward (forward + backward less forward)."""
+    """tinyllama's backward shape class of each dtype, and bf16's at the
+    train step's B=4, through the registry (a cold tune, then a fresh op
+    recalling with 0 evaluations through the fast path), and its tuned
+    point's time beside the bound, the plain version's and SDPA's backward
+    (forward + backward less forward); in bf16 also each pass's time at the
+    tuned point (``[kernel] flash bwd passes``)."""
+    from repro_torch.core.cost import l2_flush
+
+    flush = l2_flush(torch.device("cuda:0"), 2 * arch.l2_bytes)
     out = {}
-    for dtype_name in ("bfloat16", "float32"):
-        case = cases[(dtype_name, FLASH_BWD["B"], FLASH_BWD["S"], FLASH_BWD["hd"])]
+    for dtype_name, B in (("bfloat16", 1), ("bfloat16", 4), ("float32", 1)):
+        case = cases[(dtype_name, B, FLASH_BWD["S"], FLASH_BWD["hd"])]
         args = case["args"]
         fa_mod.bwd_counter.reset()
         state, tune_s, recall_s = main_path(torch, "flash_attention_bwd", args, case["ref"],
@@ -1589,24 +1657,35 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
         sdpa_ms = timer.ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - timer.ms(sdpa)
-        bound, by = flash_bwd_bound_ms(arch, dtype_name=dtype_name, **FLASH_BWD)
+        shape = dict(FLASH_BWD, B=B)
+        bound, by = flash_bwd_bound_ms(arch, dtype_name=dtype_name, **shape)
         ms = timer.ms(lambda: fa_mod.flash_attention_bwd_cuda(*args, **point))
-        plain_ms = timer.ms(lambda: fa_ref.attention_bwd_plain(*args), reps=3)
+        plain_ms = timer.ms(lambda: by_batch_row(torch, fa_ref.attention_bwd_plain, args), reps=3)
         best = min(case["times"], key=case["times"].get)
-        out[dtype_name] = {
+        row = {
             "tuned_point": point, "ms": ms, "bound_ms": bound, "bound_by": by,
             "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_ms, "tune_s": tune_s,
             "recall_s": recall_s, "candidates": len(case["times"]),
             "fastest_swept_point": json.loads(best), "fastest_swept_ms": case["times"][best],
             "registry_launches": fa_mod.bwd_counter.launches,
         }
-        print(f"[kernel] flash bwd {dtype_name} (1,4096,32|4,64) tuned {point}: {ms:.4f} ms, "
+        tag = f"({B},{shape['S']},{shape['H']}|{shape['KV']},{shape['hd']})"
+        print(f"[kernel] flash bwd {dtype_name} {tag} tuned {point}: {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), plain {plain_ms:.3f} ms, SDPA backward "
               f"{sdpa_ms:.4f} ms")
-    worst = {d: max(c["row"] for key, c in cases.items() if key[0] == d) for d in out}
-    errs = {d: max(c["err"] for key, c in cases.items() if key[0] == d) for d in out}
-    for d in out:
-        out[d].update({"max_row_err": worst[d], "max_abs_err": errs[d]})
+        if dtype_name == "bfloat16":
+            row["passes_ms"] = bwd_pass_ms(torch, fa_mod.bwd_pass_runs(*args, **point), flush)
+            row["scratch_bytes"] = fa_mod.bwd_scratch_bytes(
+                B, shape["S"], shape["KV"], shape["hd"], point.get("kv_split", 1))
+            print(f"[kernel] flash bwd passes {tag} at {point}: " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in row["passes_ms"].items())
+                + f" (sum {sum(row['passes_ms'].values()):.4f}); SDPA backward {sdpa_ms:.4f} ms; "
+                f"kv_split scratch {row['scratch_bytes'] / 1e6:.1f} MB")
+        out[dtype_name if B == 1 else f"{dtype_name}_b{B}"] = row
+    for key, row in out.items():
+        d = key.split("_")[0]
+        row["max_row_err"] = max(c["row"] for k, c in cases.items() if k[0] == d)
+        row["max_abs_err"] = max(c["err"] for k, c in cases.items() if k[0] == d)
     return out
 
 
@@ -1840,6 +1919,16 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
         for _ in range(TRAIN["overfit"]):
             params, state, metrics = step(params, state, batch0)
             fit.append(float(metrics["loss"]))
+        # one more step at the winner, profiled (its result is dropped)
+        t1 = time.perf_counter()
+        prof = step_profile(torch, lambda: step(params, state, batch0))
+        prof["host_ms"] = (time.perf_counter() - t1) * 1e3
+    dev_ms = prof["device_ms"]
+    print(f"[train] profiled step at the winner: {dev_ms:.1f} ms of device time in a "
+          f"{prof['host_ms']:.1f} ms profiled step; " + ", ".join(
+              f"{kind} {ms:.1f} ms ({ms / dev_ms:.1%})" for kind, ms in prof["by_kind_ms"].items()))
+    for key, ms in prof["top"]:
+        print(f"[train]   {ms:9.3f} ms  {key}")
     del params, state, batch0
     recalled = trainer2.joint_result
     evals2 = sum(st.cost_evaluations for st in trainer2.rule.states().values())
@@ -1864,7 +1953,7 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
         "loss_first": loss0, "loss_last": loss_last, "overfit_losses": fit,
         "flash_launches": fwd,
         "flash_bwd_launches": bwd, "kernel_classes": classes,
-        "recall_evaluations": recalled.evaluations + evals2,
+        "recall_evaluations": recalled.evaluations + evals2, "step_profile": prof,
     }
 
 
@@ -2154,23 +2243,43 @@ def run() -> int:
     # ssm_scan: each states count for N a power of two up to 32, and for any N
     if scan_count != 2 * (2 * len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
-    # the flash backward: two passes a tile in each dtype, and its delta pass
-    bwd_spill, bwd_count = 0, 0
-    for stem in ("flash_attention_bwd", "flash_attention_bwd_f32"):
+    # the flash backward: on mma.sync (float32, bf16 at hd 256) two passes a
+    # tile; on wgmma (bf16 below hd 256) the dq pass and the dk/dv pass with
+    # and without kv_split's partials a tile, and the delta and reduce passes
+    bwd_spill, bwd_count, sm90_count = 0, 0, 0
+    for stem in ("flash_attention_bwd", "flash_attention_bwd_f32", "flash_attention_bwd_sm90"):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         for name, (regs, spill) in sorted(ptxas_entries(log).items()):
             inst = re.search(r"(flash_bwd_dq|flash_bwd_dkv)I(f|13__nv_bfloat16)"
                              r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
-            if not inst:
+            wg = re.search(r"(flash_bwd_dq|flash_bwd_dkv)_sm90ILi(\d+)ELi(\d+)ELi(\d+)E(Lb1E)?",
+                           name)
+            if inst:
+                dtype_name = "f32" if inst.group(2) == "f" else "bf16"
+                print(f"[ptxas] flash bwd {dtype_name} {inst.group(1)[10:]} (hd={inst.group(3)}, "
+                      f"{inst.group(4)}, {inst.group(5)}): {regs} registers, {spill} B spilled")
+                bwd_count += 1
+            elif wg:
+                split = ", kv_split partials" if wg.group(5) else ""
+                print(f"[ptxas] flash bwd bf16 wgmma {wg.group(1)[10:]} (hd={wg.group(2)}, "
+                      f"{wg.group(3)}, {wg.group(4)}{split}): {regs} registers, {spill} B spilled")
+                sm90_count += 1
+            elif "flash_bwd" in name:
+                print(f"[ptxas] flash bwd {stem} {name[-60:]}: {regs} registers, {spill} B "
+                      f"spilled")
+            else:
                 continue
-            dtype_name = "f32" if inst.group(2) == "f" else "bf16"
-            print(f"[ptxas] flash bwd {dtype_name} {inst.group(1)[10:]} (hd={inst.group(3)}, "
-                  f"{inst.group(4)}, {inst.group(5)}): {regs} registers, {spill} B spilled")
-            bwd_spill, bwd_count = max(bwd_spill, spill), bwd_count + 1
-    print(f"[build] flash bwd: {bwd_count} instantiations, max spill {bwd_spill} B")
-    if bwd_count != 2 * 2 * len(fa_mod.BWD_TILES) or bwd_spill:
-        return fail(f"flash bwd: {bwd_count} instantiations for {len(fa_mod.BWD_TILES)} tiles, "
-                    f"spill {bwd_spill} B")
+            bwd_spill = max(bwd_spill, spill)
+        for line in log.splitlines():
+            if "Performance" in line:
+                print(f"[ptxas] flash bwd {stem}: {line.strip()}")
+    mma_tiles = len(fa_mod.BWD_MMA_TILES["float32"]) + len(fa_mod.BWD_MMA_TILES["bfloat16"])
+    print(f"[build] flash bwd: {bwd_count} mma.sync instantiations, {sm90_count} wgmma, max "
+          f"spill {bwd_spill} B")
+    if (bwd_count != 2 * mma_tiles or sm90_count != 3 * len(fa_mod.BWD_SM90_TILES)
+            or bwd_spill):
+        return fail(f"flash bwd: {bwd_count} mma.sync instantiations for {mma_tiles} tiles, "
+                    f"{sm90_count} wgmma for {len(fa_mod.BWD_SM90_TILES)}, spill {bwd_spill} B")
     optin = fa_mod.smem_optin(device)
     if optin < arch.smem_per_block:
         return fail(f"arch plans {arch.smem_per_block} B of shared memory, card allows {optin}")
@@ -2780,7 +2889,8 @@ def run() -> int:
         },
         {
             "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cuh",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+            "hd256_source": "src/repro_torch/csrc/flash_attention_bwd.cuh",
             "f32_source": "src/repro_torch/csrc/flash_attention_bwd_f32.cu",
             "replaces": "src/repro/models/attention.py:260",
             "launches": train["tinyllama"]["flash_bwd_launches"],
@@ -2795,6 +2905,7 @@ def run() -> int:
             "shape": FLASH_BWD, **{k: v for k, v in bwd_main["bfloat16"].items()
                                    if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "sdpa_bwd_ms", "max_abs_err", "max_row_err")},
+            **{f"b4_{k}": v for k, v in bwd_main["bfloat16_b4"].items()},
             **{f"f32_{k}": v for k, v in bwd_main["float32"].items()},
         },
     ]

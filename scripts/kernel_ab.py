@@ -2,7 +2,8 @@
 """Compare versions of the port's kernels on one CUDA card.
 
     python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|flash_attention_f32|
-                                                     exb|ssm_scan|rglru_scan ...]
+                                                     flash_attention_bwd|exb|ssm_scan|
+                                                     rglru_scan ...]
 
 Builds the ``repro_torch`` package under ``<src dir>`` (a copy of ``src/``
 whose ``csrc/*.cu`` may differ) into ``build/ab_<label>/``, prints each
@@ -18,6 +19,11 @@ median of 5).
 * ``flash_attention_f32``: f32 at tinyllama-1.1b width (B=1, S=2048 and
   S=2000), with the time of SDPA's memory-efficient kernel in f32 (K and V
   expanded to the query heads) beside it;
+* ``flash_attention_bwd``: the bf16 backward at tinyllama-1.1b width (B=1
+  and B=4, S=4096, 32|4 heads, hd 64) and qwen3-0.6b width (B=1, S=2048,
+  16|8 heads, hd 128) on the forward kernel's o and lse, held against the
+  plain version in float32 a batch row at a time, with SDPA's backward
+  (its forward and backward less its forward) beside each;
 * ``exb``: the paper's GKV domain (16, 16, 128, 65), f32;
 * ``ssm_scan``: falcon-mamba-7b width (B=1, S=2048, D=8192, N=16), f32 and
   bf16;
@@ -35,20 +41,54 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNELS = ("flash_attention", "flash_attention_f32", "exb", "ssm_scan", "rglru_scan")
-SOURCES = {"flash_attention": "flash_attention_sm90", "flash_attention_f32": "flash_attention",
-           "exb": "exb", "ssm_scan": "ssm_scan", "rglru_scan": "rglru_scan"}
+KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd", "exb", "ssm_scan",
+           "rglru_scan")
+# the sources whose ptxas report a kernel's run prints (those the version has)
+SOURCES = {"flash_attention": ("flash_attention_sm90",),
+           "flash_attention_f32": ("flash_attention",),
+           "flash_attention_bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd"),
+           "exb": ("exb",), "ssm_scan": ("ssm_scan",), "rglru_scan": ("rglru_scan",)}
 
 
 def cases(torch, name, arch, gen, dev):
     """(label, region, run, plain out, dtype, tolerance, counter, library
-    call or None) per shape."""
+    call or None) per shape; a library pair (a, b) is timed as a less b."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from chip_smoke import EXB_DIMS, FLASH, FLASH_B, FLASH_HD128, RGLRU, SCAN_TOL, SSM
+    from chip_smoke import (
+        EXB_DIMS, FLASH, FLASH_B, FLASH_BWD, FLASH_HD128, RGLRU, SCAN_TOL, SSM, by_batch_row,
+        bwd_rows,
+    )
     from repro_torch.core import bucket_pow2
 
+    if name == "flash_attention_bwd":
+        from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref
+
+        for shape in (FLASH_BWD, dict(FLASH_BWD, B=4), FLASH_HD128):
+            B, S, H, KV, hd = (shape[k] for k in ("B", "S", "H", "KV", "hd"))
+            q, k, v = ref.make_inputs(gen, device=dev, **shape)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            args = (q, k, v, o, lse, do)
+            plain = bwd_rows(by_batch_row(torch, ref.attention_bwd_plain,
+                                          tuple(t.float() for t in args)))
+            region = ops.flash_bwd_region(S, hd, "bfloat16", arch=arch,
+                                          heads=bucket_pow2(B * H), group=H // KV)
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            def sdpa(qt=qt, kt=kt, vt=vt):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+            library = (lambda sdpa=sdpa, qt=qt, kt=kt, vt=vt, dot=dot: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), dot), sdpa)
+            yield (f"flash_bwd bfloat16 ({B},{S},{H}|{KV},{hd})", region,
+                   lambda p, args=args: bwd_rows(fa.flash_attention_bwd_cuda(*args, **p)),
+                   plain, "bfloat16", None, fa.bwd_counter, library)
+        return
     if name.startswith("flash_attention"):
         from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref
 
@@ -154,13 +194,15 @@ def main(src: str, label: str, names) -> int:
     dev = torch.device("cuda")
     arch = detect(dev)
     t0 = time.perf_counter()
-    for name in names:
-        _build.library(SOURCES[name])
+    built = _build.sources()
+    for source in built:
+        _build.library(source)
     print(f"{label} build {time.perf_counter() - t0:.1f} s")
     for name in names:
-        log = (_build.build_dir() / _build._digest() / f"{SOURCES[name]}.log").read_text()
-        for entry, (regs, spill) in sorted(ptxas_entries(log).items()):
-            print(f"{label} [ptxas] {entry}: {regs} registers, {spill} B spilled")
+        for source in (s for s in SOURCES[name] if s in built):
+            log = (_build.build_dir() / _build._digest() / f"{source}.log").read_text()
+            for entry, (regs, spill) in sorted(ptxas_entries(log).items()):
+                print(f"{label} [ptxas] {entry}: {regs} registers, {spill} B spilled")
     timer = Timer(torch, dev, arch.l2_bytes)
     gen = torch.Generator(device=dev).manual_seed(0)
     errors: list = []
@@ -169,7 +211,10 @@ def main(src: str, label: str, names) -> int:
                 torch, name, arch, gen, dev):
             times = sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
                           timer, counter, errors, tol=tol)[2]
-            if library is not None:
+            if isinstance(library, tuple):
+                ms = timer.ms(library[0]) - timer.ms(library[1])
+                print(f"{label} {case_label} sdpa {ms:.4f} ms")
+            elif library is not None:
                 print(f"{label} {case_label} sdpa {timer.ms(library):.4f} ms")
             l2_states(torch, f"{label} {case_label}", run, times, timer, arch, dev)
     for e in errors:

@@ -1,7 +1,9 @@
-// Causal GQA flash attention, backward, bf16: the instantiations of
-// flash_attention_bwd.cuh for __nv_bfloat16 and their C entry points (the
-// float32 ones are in flash_attention_bwd_f32.cu, built beside this file so
-// the two compile at once).
+// Causal GQA flash attention, backward, bf16 at tile head dim 256: the
+// instantiations of flash_attention_bwd.cuh for __nv_bfloat16 (its hd-256
+// tiles alone; every smaller head dim runs on flash_attention_bwd_sm90.cu)
+// and their C entry points (the float32 ones are in
+// flash_attention_bwd_f32.cu, built beside this file so the two compile at
+// once).
 //
 // Replaces: src/repro/models/attention.py, _flash_bwd (:260), the custom VJP
 // of flash_attention_xla (no Pallas site).

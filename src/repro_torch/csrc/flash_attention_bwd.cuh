@@ -1,70 +1,42 @@
-// Causal GQA flash attention, backward: dq, dk, dv from q, k, v, o, lse, do.
+// Causal GQA flash attention, backward: dq, dk, dv from q, k, v, o, lse, do,
+// on mma.sync.  It serves float32 (3xTF32) at every tile head dim and bf16
+// at tile hd 256 alone; bf16 below hd 256 runs on the wgmma kernel of
+// flash_attention_bwd_sm90.cu, whose notes hold the design both share.
 //
 // Replaces: src/repro/models/attention.py, _flash_bwd (:260), the custom
-// VJP of flash_attention_xla (:346) that XLA compiles into fused loops; it
-// has no Pallas site.  The forward kernels (flash_attention_sm90.cu, bf16;
-// flash_attention.cu, float32) write the residual lse = m + log l, float32
-// (B, H, S), which this pass reads with q, k, v, o and do.
+// VJP of flash_attention_xla (:346); it has no Pallas site.
 //
 // q, o, do, dq (B,S,H,hd), k, v, dk, dv (B,S,KV,hd), all of one element
-// type E (bf16 or float32); KV head = h / (H/KV), so query head h = kv*G + g
-// is the JAX layout (B, KV, G, S) flattened.  hd is a run-time value, a
-// multiple of 8 (bf16) or 4 (float32) up to 256, run on the least tile head
-// dim HD in {16, 32, 64, 128, 256} at or above it; the tile's columns past
-// hd load as zeros, add nothing to any product, and are never stored.
+// type E; KV head = h / (H/KV).  hd is a run-time multiple of 8 (bf16) or 4
+// (float32) up to 256, run on the least tile head dim HD at or above it;
+// the tile's columns past hd load as zeros and are never stored.
 //
-// What bounds it: operations.  Causal backward is five products of half the
-// S x S square each (S = Q.K^T and dP = dO.V^T recomputed, dV += P^T.dO,
-// dQ += dS.K, dK += dS^T.Q): at tinyllama width (S=4096, H=32, hd=64) ~86
-// GFLOP a batch row against ~100 MB of bf16 traffic, ~850 flops a byte,
-// past the tensor-core ridge.  So every product runs on the tensor cores
-// (mma.sync: bf16 m16n8k16 with float32 accumulators; float32 in 3xTF32
-// m16n8k8, each product split into a TF32 high part and the rest as the
-// forward's float32 kernel does, so float32 accuracy holds).
+// What bounds it: operations (five causal products, each on the tensor
+// cores: bf16 m16n8k16, float32 as three TF32 m16n8k8 products, a TF32
+// high part and the rest, so float32 accuracy holds).
 //
-// Design: three passes, no atomics, so every sum runs in one fixed order and
-// the result is the same bit for bit from run to run.
-//  1. delta = rowsum(do * o) in float32, (B, H, S): one warp a row.
-//  2. dq: one CTA per (q block of BQ rows, head, batch, column chunk), a
-//     warp per 16 rows.  The q and do tiles stay in shared memory; the KV
-//     blocks at or below the diagonal stream through in BKV-row tiles.  Per
-//     block a warp recomputes S and dP (16 x BKV) in registers, forms
-//     dS = P * (dP - delta) * scale with P = exp(S * scale - lse), and adds
-//     dS.K to its dq accumulator, dS taken straight from the S accumulator
-//     as the A fragment (bf16: two n-tiles make one k-step; float32: the
-//     contraction order inside each group of 8 keys is (0,2,4,6,1,3,5,7),
-//     so an n-tile's accumulator is a k-step's A fragment, as in the
-//     forward's P.V).
-//  3. dk, dv: one CTA per (KV block of BKV keys, KV head, batch, column
-//     chunk), a warp per 16 keys.  The K and V tiles stay in shared memory;
-//     the CTA walks the G query heads of its KV head and, for each, the q
-//     blocks at or above the diagonal, recomputing S^T and dP^T (16 x BQ) a
-//     warp and adding P^T.dO and dS^T.Q to its dv and dk accumulators.  The
-//     sum over a group's query heads (GQA) stays inside one CTA: that is
-//     what keeps the pass free of atomics.
-// A column chunk is DC output columns of one CTA (bf16: all of hd up to 128
-// for dq, 64 for dk and dv, whose two accumulators share the registers;
-// float32 half as many); a chunk past the first recomputes S and dP.  Tiles are loaded with 16-byte pieces and plain stores into
-// shared memory (rows padded so a warp's fragment loads fall on distinct
-// banks), then a block barrier; a pipelined ring (cp.async or TMA) and
-// wgmma are the next step, not this one.  Rows and keys past S load as
-// zeros and are masked (P = 0) where they meet a valid row or key; rows and
-// keys past S are never stored.
+// Design: the three passes of flash_attention_bwd_sm90.cu, no atomics:
+//  1. delta = rowsum(do * o), one warp a row.
+//  2. dq: one CTA per (q block, head, batch, column chunk), a warp per 16
+//     rows; K and V blocks stream through shared memory; dS is taken
+//     straight from the S accumulator as the A fragment of dS.K.
+//  3. dk, dv: one CTA per (KV block, KV head, batch, column chunk), a warp
+//     per 16 keys, walking all G query heads of its KV head.
+// A column chunk is the output columns of one CTA (bf16: up to 128 for dq,
+// 64 for dk and dv; float32 half as many); a chunk past the first
+// recomputes S and dP.  Tiles are loaded with 16-byte pieces and plain
+// stores, rows padded so fragment loads fall on distinct banks.
 //
 // Sums: the tensor cores' float32 accumulation rounds toward zero, so a sum
-// carried in one mma accumulator drifts.  Over all of S's blocks a gradient
-// drifted 3e-4 of a row at S = 4096 (float32, on the card), and a block's
-// sum over its rows ~6e-5 of a gradient of size ~5 (the float32 element
-// tolerance is 1e-5 + 2e-4 |x|).  So in float32 every k-step's three TF32
-// products are summed from zero in the tensor core and added to their sum
-// in float32 (round to nearest), and each block's sum to the gradient;
-// bf16 keeps the running sums, whose drift lies far inside its tolerance
-// (and the extra work would spill two of its tiles).
+// carried in one accumulator over all of S drifts (3e-4 of a row at S =
+// 4096 in float32, on the card).  So in float32 every k-step's three TF32
+// products are summed from zero and added in float32 (round to nearest),
+// and each block's sum to the gradient; bf16 keeps the running sums, whose
+// drift lies far inside its tolerance.
 //
-// As the JAX _flash_bwd does in bf16: P is rounded to bf16 before P^T.dO,
-// dS before dS.K and dS^T.Q, and each gradient is accumulated in float32
-// and rounded once when it is stored; S and dP stay float32 here where the
-// JAX einsums round them to bf16 first.
+// Rounding as the JAX _flash_bwd does in bf16: P is rounded before P^T.dO,
+// dS before dS.K and dS^T.Q; S and dP stay float32; each gradient is
+// accumulated in float32 and rounded once when stored.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -655,17 +627,19 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiated tiles (tile hd, block_q, block_kv), both dtypes: block_q
-// is the dq pass's rows (16 a warp) and the dk/dv pass's k-steps over rows,
+// The instantiated tiles (tile hd, block_q, block_kv), by dtype: block_q is
+// the dq pass's rows (16 a warp) and the dk/dv pass's k-steps over rows,
 // block_kv the other way round, so each is at most 64 (the S and dP
 // accumulators of a warp are 16 x the other tile); at hd 256 block_kv 32
 // (float32: the four tiles of 64 rows would not fit the shared memory).
-#define FLASH_BWD_TILES(X)                                                                    \
+// bf16 takes only hd 256 here (flash_attention_bwd_sm90.cu has the rest).
+#define FLASH_BWD_TILES_F32(X)                                                                \
   X(16, 32, 32) X(16, 64, 64)                                                                 \
   X(32, 32, 32) X(32, 64, 64)                                                                 \
   X(64, 32, 32) X(64, 32, 64) X(64, 64, 32) X(64, 64, 64)                                     \
   X(128, 32, 32) X(128, 32, 64) X(128, 64, 32) X(128, 64, 64)                                 \
   X(256, 32, 32) X(256, 64, 32)
+#define FLASH_BWD_TILES_BF16(X) X(256, 32, 32) X(256, 64, 32)
 
 // The tile head dim a call at head dim hd runs on (the least of 16, 32, 64,
 // 128, 256 at or above it); 0 where hd is not a multiple of `multiple` up
@@ -691,7 +665,11 @@ int launch_any(const void* q, const void* k, const void* v, const void* o, const
     return launch<E, HD, BQ, BKV>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, H, KV, hd, \
                                   scale, s);                                                 \
   }
-  FLASH_BWD_TILES(FLASH_BWD_LAUNCH)
+  if constexpr (sizeof(E) == 4) {
+    FLASH_BWD_TILES_F32(FLASH_BWD_LAUNCH)
+  } else {
+    FLASH_BWD_TILES_BF16(FLASH_BWD_LAUNCH)
+  }
 #undef FLASH_BWD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -706,7 +684,11 @@ template <typename E> long long smem_bytes(int hd, int bq, int bkv) {
     const long long b = DkvTile<E, HD, BQ, BKV>::kSmem;                         \
     return a > b ? a : b;                                                        \
   }
-  FLASH_BWD_TILES(FLASH_BWD_SMEM)
+  if constexpr (sizeof(E) == 4) {
+    FLASH_BWD_TILES_F32(FLASH_BWD_SMEM)
+  } else {
+    FLASH_BWD_TILES_BF16(FLASH_BWD_SMEM)
+  }
 #undef FLASH_BWD_SMEM
   return -1;
 }

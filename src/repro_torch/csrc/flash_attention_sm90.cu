@@ -322,53 +322,6 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kThreads, 1) flash_fwd_sm90
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// The (B, S, heads, hd) bf16 tensor at `ptr` as a 4-D map (hd, heads, S, B),
-// boxes of (box_cols, 1, rows, 1), swizzled by the box's row bytes; box
-// columns at or past hd arrive as zeros.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
-                   int box_cols, int rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = 2ull * hd;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1u,
-                             static_cast<cuuint32_t>(rows), 1u};
-  const cuuint32_t step[4] = {1u, 1u, 1u, 1u};
-  const int code = swizzle_code(2 * box_cols);
-  const CUtensorMapSwizzle swizzle = code == 1   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : code == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD, int BQ, int BKV>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
            int KV, int hd, float scale, int causal, cudaStream_t stream) {

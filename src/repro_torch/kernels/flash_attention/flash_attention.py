@@ -5,9 +5,13 @@ tensors and runs the plain version (:func:`attention_plain`, the module's
 copy of ``ref.attention_ref``) on CPU tensors; there is no fallback from
 one to the other.  ``counter`` counts both.  ``return_lse=True`` also
 returns the rows' log-sum-exp (float32 (B, H, S)), the residual of
-:func:`flash_attention_bwd`: dq, dk, dv from (q, k, v, o, lse, do), the
-kernel of ``csrc/flash_attention_bwd.cuh`` on CUDA tensors and
-:func:`attention_bwd_plain` on CPU tensors, counted by ``bwd_counter``.
+:func:`flash_attention_bwd`: dq, dk, dv from (q, k, v, o, lse, do), a
+kernel on CUDA tensors and :func:`attention_bwd_plain` on CPU tensors,
+counted by ``bwd_counter``.  The backward's bf16 calls below tile hd 256
+run on ``csrc/flash_attention_bwd_sm90.cu`` (wgmma, a TMA ring, and the
+tunable ``kv_split`` of the GQA group, :data:`BWD_SM90_TILES`); bf16 at
+tile hd 256 and every float32 call on ``csrc/flash_attention_bwd.cuh``
+(``mma.sync``, :data:`BWD_MMA_TILES`).
 
 Two kernels, by dtype, both one CTA per (q block, head, batch) with
 ``block_kv`` a loop inside the CTA, both masking a sequence the tiles do
@@ -68,6 +72,12 @@ _SM90_ARGTYPES = (
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _BWD_LIB = {"bfloat16": ("flash_attention_bwd", "flash_attention_bwd_bf16"),
             "float32": ("flash_attention_bwd_f32", "flash_attention_bwd_f32")}
+_BWD_SM90_LIB = "flash_attention_bwd_sm90"
+_BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# the passes of one sm90 backward launch, a bit each (kPass* in the source)
+BWD_PASSES = {"delta": 1, "dq": 2, "dkv": 4, "reduce": 8}
+_ALL_PASSES = sum(BWD_PASSES.values())
 
 # The bf16 kernel's instantiations (FLASH_SM90_TILES in the source): a
 # warpgroup owns 64 query rows, so block_q is 64 or 128; block_kv is the n
@@ -110,20 +120,45 @@ F32_TILES = frozenset(
 )
 
 
-# The backward kernel's instantiations (FLASH_BWD_TILES in
-# csrc/flash_attention_bwd.cuh), both dtypes: block_q is the dq pass's rows
-# (16 a warp) and block_kv the dk/dv pass's keys; each is at most 64 (a
-# warp's S and dP accumulators are 16 x the other tile), block_kv 32 at hd
-# 256; tile hd 16 and 32 take the two square tiles.
-BWD_TILES = frozenset(
+# The backward kernels' instantiations.  bf16 below tile hd 256, the wgmma
+# kernel (FLASH_BWD_SM90_TILES in csrc/flash_attention_bwd_sm90.cu): block_q
+# is the dq pass's rows and block_kv the dk/dv pass's keys, a warpgroup per
+# 64 of each, so each is 64 or 128; block_q 64 at tile hd 128, where the
+# dk/dv pass's S^T, dP^T, dK and dV of 128 rows would be 256 floats a thread.
+BWD_SM90_TILES = frozenset(
+    [(t, bq, bkv) for t in (16, 32, 64) for bq in (64, 128) for bkv in (64, 128)]
+    + [(128, 64, bkv) for bkv in (64, 128)]
+)
+# The mma.sync kernel (FLASH_BWD_TILES_F32 / _BF16 in
+# csrc/flash_attention_bwd.cuh): a warp per 16 rows or keys, each tile 32 or
+# 64, block_kv 32 at hd 256; tile hd 16 and 32 take the two square tiles.
+# bf16 takes only its hd-256 tiles.
+_BWD_MMA_F32 = frozenset(
     [(t, b, b) for t in (16, 32) for b in (32, 64)]
     + [(t, bq, bkv) for t in (64, 128) for bq in (32, 64) for bkv in (32, 64)]
     + [(256, bq, 32) for bq in (32, 64)]
 )
-BWD_BLOCK = (32, 64)
-# row padding of the backward's shared tiles, in elements (16 bytes in
-# either dtype)
+BWD_MMA_TILES = {"float32": _BWD_MMA_F32,
+                 "bfloat16": frozenset(t for t in _BWD_MMA_F32 if t[0] == 256)}
+BWD_TILES = {"float32": BWD_MMA_TILES["float32"],
+             "bfloat16": BWD_SM90_TILES | BWD_MMA_TILES["bfloat16"]}
+# row padding of the mma.sync kernel's shared tiles, in elements (16 bytes
+# in either dtype)
 _BWD_PAD = {2: 8, 4: 4}
+
+
+def bwd_sm90(tile: Optional[int], dtype: str) -> bool:
+    """True iff the backward of ``dtype`` at tile head dim ``tile`` runs on
+    the wgmma kernel (bf16 below tile hd 256), which alone takes a
+    ``kv_split`` above 1."""
+    return dtype == "bfloat16" and tile is not None and tile <= 128
+
+
+def bwd_blocks(tile: int, dtype: str) -> tuple:
+    """The (block_q, block_kv) sizes the backward's instantiations at tile
+    head dim ``tile`` take, least first."""
+    tiles = [t for t in BWD_TILES[dtype] if t[0] == tile]
+    return (tuple(sorted({t[1] for t in tiles})), tuple(sorted({t[2] for t in tiles})))
 
 
 def head_dim_error(hd: int, dtype: str) -> Optional[str]:
@@ -169,21 +204,45 @@ def launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
     return tile is not None and (tile, block_q, block_kv) in tiles
 
 
-def bwd_launchable(hd: int, dtype: str, block_q: int, block_kv: int) -> bool:
+def bwd_launchable(hd: int, dtype: str, block_q: int, block_kv: int, kv_split: int = 1,
+                   group: int = 1) -> bool:
     """True iff the backward kernel of ``dtype`` launches (block_q,
-    block_kv) at head dim ``hd``: the emit layer's point filter and the
-    wrapper's check."""
+    block_kv, kv_split) at head dim ``hd`` with ``group`` query heads a KV
+    head: the emit layer's point filter and the wrapper's check.  A
+    ``kv_split`` above 1 runs on the wgmma kernel alone, a power of two
+    dividing ``group``."""
     tile = tile_hd(hd, dtype)
-    return tile is not None and (tile, block_q, block_kv) in BWD_TILES
+    if tile is None or (tile, block_q, block_kv) not in BWD_TILES.get(dtype, ()):
+        return False
+    if kv_split == 1:
+        return True
+    return (bwd_sm90(tile, dtype) and kv_split > 1 and kv_split & (kv_split - 1) == 0
+            and group % kv_split == 0)
 
 
 def bwd_smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
-    """Dynamic shared memory of the backward's larger pass (``DqTile`` and
-    ``DkvTile::kSmem``) at the tile head dim ``hd`` runs on: q, do, k and v
-    tiles of padded rows, and the dk/dv pass's lse and delta of a q block."""
+    """Dynamic shared memory of the backward's larger pass at the tile head
+    dim ``hd`` runs on.  The wgmma kernel (bf16 below tile hd 256,
+    ``Tile::kSmem``): 1 KiB to align the swizzled tiles and 64 bytes of
+    barriers; the dq pass's q and do tiles and two stages of k and v, the
+    dk/dv pass's k and v tiles and two stages of q, do and the q block's lse
+    and delta.  The mma.sync kernel (``DqTile`` and ``DkvTile::kSmem``): q,
+    do, k and v tiles of padded rows, and the dk/dv pass's lse and delta of
+    a q block."""
     t = max(16, 1 << (hd - 1).bit_length())
+    if elt == 2 and t <= 128:
+        dq = 1024 + 4 * t * block_q + 8 * t * block_kv + 64
+        dkv = 1024 + 4 * t * block_kv + 8 * t * block_q + 16 * block_q + 64
+        return max(dq, dkv)
     tiles = elt * (t + _BWD_PAD[elt]) * (2 * block_q + 2 * block_kv)
     return tiles + 2 * block_q * 4
+
+
+def bwd_scratch_bytes(B: int, S: int, KV: int, hd: int, kv_split: int) -> int:
+    """Bytes of the float32 partials of dk and dv a wgmma backward call at
+    ``kv_split`` writes and its reduce pass sums (0 at 1): two of
+    (kv_split, B, S, KV, hd) at the head dim the kernel runs."""
+    return 0 if kv_split == 1 else 2 * kv_split * B * S * KV * hd * 4
 
 
 def smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
@@ -273,16 +332,9 @@ def flash_attention_cuda(
     return (o, lse) if return_lse else o
 
 
-def flash_attention_bwd_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, block_q: int = 64, block_kv: int = 64,
-):
-    """Launch the backward kernel on contiguous CUDA tensors (f32 or bf16):
-    (dq, dk, dv) of causal attention.  An hd off the kernels' rule runs
-    padded, as the forward does: q, k, v, o and do copied into
-    :func:`padded_hd` columns (zero columns add nothing to a score, to
-    delta or to a kept gradient column), the true hd's scale, and the first
-    hd columns of each gradient returned."""
+def _bwd_inputs(q, k, v, o, lse, do, block_q: int, block_kv: int, kv_split: int):
+    """The wrapper's checks of a backward call on CUDA tensors; returns
+    (B, S, H, KV, hd, dtype name)."""
     B, S, H, KV, hd = _check(q, k, v, block_q, block_kv)
     if _build.route((q, k, v, o, lse, do), "flash_attention_bwd") != "cuda":
         raise ValueError("flash_attention_bwd_cuda: inputs must be CUDA tensors")
@@ -299,10 +351,11 @@ def flash_attention_bwd_cuda(
         raise ValueError(f"flash_attention_bwd_cuda: lse must be float32 {(B, H, S)}")
     if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
         raise ValueError("flash_attention_bwd_cuda: q, k, v, o, lse, do must be contiguous")
-    if not bwd_launchable(hd, dtype, block_q, block_kv):
+    if not bwd_launchable(hd, dtype, block_q, block_kv, kv_split, H // KV):
         raise ValueError(
             f"flash_attention_bwd_cuda: {dtype} tile (hd={tile_hd(hd, dtype)}, {block_q}, "
-            f"{block_kv}) is not instantiated"
+            f"{block_kv}) with kv_split {kv_split} over a group of {H // KV} is not "
+            f"instantiated"
         )
     smem = bwd_smem_bytes(block_q, block_kv, hd, q.element_size())
     limit = smem_optin(q.device)
@@ -311,6 +364,17 @@ def flash_attention_bwd_cuda(
             f"flash_attention_bwd_cuda: tiles ({block_q},{block_kv}) need {smem} B "
             f"of shared memory, the card allows {limit} B"
         )
+    return B, S, H, KV, hd, dtype
+
+
+def _bwd_launch(args, block_q: int, block_kv: int, kv_split: int, passes: int = _ALL_PASSES):
+    """Launch the passes ``passes`` of the backward on checked inputs
+    ``args`` = (q, k, v, o, lse, do); returns (dq, dk, dv) at the padded
+    head dim and the buffers the launch used."""
+    q, k, v, o, lse, do = args
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    dtype = _name(q.dtype)
     scale = 1.0 / math.sqrt(hd)
     hd_run = padded_hd(hd, dtype)
     if hd_run != hd:
@@ -320,29 +384,80 @@ def flash_attention_bwd_cuda(
                          "q, k, v, o, do")
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib, prefix = _BWD_LIB[dtype]
-    what = f"{prefix}_launch"
-    code = _build.function(lib, what, _BWD_ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, KV, hd_run, block_q, block_kv, scale, _build.stream_of(dq),
-    )
-    _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
+    stream = _build.stream_of(dq)
+    if bwd_sm90(tile_hd(hd, dtype), dtype):
+        scratch = torch.empty(bwd_scratch_bytes(B, S, KV, hd_run, kv_split) // 4,
+                              dtype=torch.float32, device=q.device)
+        what = "flash_attention_bwd_sm90_launch"
+        launch = _build.function(_BWD_SM90_LIB, what, _BWD_SM90_ARGTYPES)
+        bufs = (q, k, v, o, do, lse, delta, dq, dk, dv)  # alive as long as `run`
+
+        def run(mask: int) -> None:
+            code = launch(*(t.data_ptr() for t in bufs),
+                          scratch.data_ptr() if kv_split > 1 else None,
+                          B, S, H, KV, hd_run, block_q, block_kv, kv_split, scale, mask, stream)
+            _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv}, "
+                               f"kv_split={kv_split})")
+    else:
+        lib, prefix = _BWD_LIB[dtype]
+        what = f"{prefix}_launch"
+        launch = _build.function(lib, what, _BWD_ARGTYPES)
+
+        def run(mask: int) -> None:
+            if mask != _ALL_PASSES:
+                raise ValueError(f"{what}: runs its passes together")
+            code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), B, S, H, KV, hd_run, block_q, block_kv, scale, stream)
+            _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
+    run(passes)
+    return (dq, dk, dv), run
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, block_q: int = 64, block_kv: int = 64, kv_split: int = 1,
+):
+    """Launch the backward kernel on contiguous CUDA tensors (f32 or bf16):
+    (dq, dk, dv) of causal attention.  ``kv_split`` (the wgmma kernel's, a
+    power of two dividing the query heads a KV head) splits each group's
+    dk/dv sum over that many CTAs, whose float32 partials a reduce pass
+    adds in order.  An hd off the kernels' rule runs padded, as the forward
+    does: q, k, v, o and do copied into :func:`padded_hd` columns (zero
+    columns add nothing to a score, to delta or to a kept gradient column),
+    the true hd's scale, and the first hd columns of each gradient
+    returned."""
+    B, S, H, KV, hd, dtype = _bwd_inputs(q, k, v, o, lse, do, block_q, block_kv, kv_split)
+    (dq, dk, dv), _ = _bwd_launch((q, k, v, o, lse, do), block_q, block_kv, kv_split)
     bwd_counter.launched()
-    if hd_run != hd:
+    if padded_hd(hd, dtype) != hd:
         dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
+def bwd_pass_runs(q, k, v, o, lse, do, block_q: int = 64, block_kv: int = 64,
+                  kv_split: int = 1) -> dict:
+    """The wgmma backward's passes one at a time, for timing: runs the whole
+    call once (not counted as a launch), then returns {pass name: a
+    function launching that pass alone on the call's buffers}; "reduce"
+    only where ``kv_split`` is above 1."""
+    B, S, H, KV, hd, dtype = _bwd_inputs(q, k, v, o, lse, do, block_q, block_kv, kv_split)
+    if not bwd_sm90(tile_hd(hd, dtype), dtype):
+        raise ValueError("bwd_pass_runs: the passes of the wgmma kernel only (bf16, hd <= 128)")
+    _, run = _bwd_launch((q, k, v, o, lse, do), block_q, block_kv, kv_split)
+    return {name: (lambda bit=bit: run(bit)) for name, bit in BWD_PASSES.items()
+            if name != "reduce" or kv_split > 1}
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor, block_q: int = 64, block_kv: int = 64,
+    do: torch.Tensor, block_q: int = 64, block_kv: int = 64, kv_split: int = 1,
 ):
     """(dq, dk, dv) of causal GQA attention: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors (tiles are checked either
     way)."""
     if _build.route((q, k, v, o, lse, do), "flash_attention_bwd") == "cuda":
-        return flash_attention_bwd_cuda(q, k, v, o, lse, do, block_q, block_kv)
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, block_q, block_kv, kv_split)
     _check(q, k, v, block_q, block_kv)
     bwd_counter.ran_plain()
     return attention_bwd_plain(q, k, v, o, lse, do)
@@ -418,6 +533,37 @@ def smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
 def bwd_smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
     """What the compiled backward source computes for
     :func:`bwd_smem_bytes`; -1 for a tile that is not instantiated."""
-    lib, prefix = _BWD_LIB[_name(dtype)]
-    fn = _build.function(lib, f"{prefix}_smem_bytes", [ctypes.c_int] * 3, ctypes.c_longlong)
+    name = _name(dtype)
+    if bwd_sm90(tile_hd(hd, name), name):
+        lib, entry = _BWD_SM90_LIB, "flash_attention_bwd_sm90_smem_bytes"
+    else:
+        lib, prefix = _BWD_LIB[name]
+        entry = f"{prefix}_smem_bytes"
+    fn = _build.function(lib, entry, [ctypes.c_int] * 3, ctypes.c_longlong)
     return int(fn(hd, block_q, block_kv))
+
+
+def bwd_scratch_bytes_native(B: int, S: int, KV: int, hd: int, kv_split: int) -> int:
+    """What the compiled wgmma backward computes for :func:`bwd_scratch_bytes`."""
+    fn = _build.function(_BWD_SM90_LIB, "flash_attention_bwd_sm90_scratch_bytes",
+                         [ctypes.c_int] * 5, ctypes.c_longlong)
+    return int(fn(B, S, KV, hd, kv_split))
+
+
+_BWD_CTAS = {}
+
+
+def bwd_ctas_per_sm(hd: int, block_q: int, block_kv: int, which: str) -> int:
+    """CTAs of the wgmma backward's pass ``which`` ("dq" or "dkv") one SM of
+    the current card holds at once, as CUDA's occupancy calculator counts
+    them (builds the kernels)."""
+    key = (torch.cuda.current_device(), hd, block_q, block_kv, which)
+    if key not in _BWD_CTAS:
+        fn = _build.function(_BWD_SM90_LIB, "flash_attention_bwd_sm90_ctas_per_sm",
+                             [ctypes.c_int] * 4)
+        n = int(fn(hd, block_q, block_kv, 0 if which == "dq" else 1))
+        if n < 1:
+            raise RuntimeError(f"flash_attention_bwd_sm90_ctas_per_sm({hd}, {block_q}, "
+                               f"{block_kv}, {which}) returned {n}")
+        _BWD_CTAS[key] = n
+    return _BWD_CTAS[key]

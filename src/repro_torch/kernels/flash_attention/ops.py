@@ -32,13 +32,20 @@ it): the card runs one CTA per (q block, head, batch), so the hint's CTA
 count and traffic cover the whole call, and a call with many heads does
 not recall the winner of one with few.
 
-``flash_attention_bwd`` (the backward kernel, ``csrc/flash_attention_bwd.cuh``)
-is a registry op of its own: the same shape class with the query heads a
-KV head (``group``: the dk/dv pass walks them in one CTA), the instantiated
-(block_q, block_kv) tiles its :func:`~.flash_attention.bwd_launchable`
-takes (32 or 64 each; block_kv 32 at hd 256), and a hint of seven causal
-products (S and dP recomputed in each of its two passes, then dS.K, P^T.dO
-and dS^T.Q) at the dtype's rate.
+``flash_attention_bwd`` (the backward kernels) is a registry op of its
+own: the same shape class with the query heads a KV head (``group``), the
+instantiated (block_q, block_kv) tiles its
+:func:`~.flash_attention.bwd_launchable` takes (the wgmma kernel, bf16 below
+tile hd 256: 64 or 128 each, block_q 64 at hd 128; the ``mma.sync`` kernel:
+32 or 64, block_kv 32 at hd 256) and, on the wgmma kernel where the group
+has more than one head, ``kv_split`` (a "pieces" dim: the powers of two
+dividing ``group``, each group's dk/dv sum spread over that many CTAs).
+Its hint: seven causal products (S and dP recomputed in each of its two
+passes, then dS.K, P^T.dO and dS^T.Q) at the dtype's rate, the bytes of
+the inputs, the gradients and ``kv_split``'s float32 partials, and on the
+wgmma kernel a latency term for each pass's longest CTA (the dk/dv pass's
+first key block walks ``group / kv_split`` heads of every q block), which
+is what the split shortens.
 """
 from __future__ import annotations
 
@@ -50,10 +57,10 @@ from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_ker
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .flash_attention import (
-    BWD_BLOCK, F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, bwd_launchable,
-    bwd_smem_bytes, ctas_per_sm, f32_max_block_kv, f32_max_block_q, flash_attention,
-    flash_attention_bwd, head_dim_error, launchable, padded_hd, sm90_max_block_kv, smem_bytes,
-    tile_hd,
+    F32_BLOCK_KV, F32_BLOCK_Q, SM90_BLOCK_KV, SM90_BLOCK_Q, bwd_blocks, bwd_ctas_per_sm,
+    bwd_launchable, bwd_scratch_bytes, bwd_sm90, bwd_smem_bytes, ctas_per_sm, f32_max_block_kv,
+    f32_max_block_q, flash_attention, flash_attention_bwd, head_dim_error, launchable,
+    padded_hd, sm90_max_block_kv, smem_bytes, tile_hd,
 )
 from .ref import attention_bwd_plain, attention_ref
 
@@ -227,24 +234,94 @@ def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
     """(flops, bytes) of the whole backward call — ranking only.  Flops:
     seven products over the causal (row, key) pairs the dq pass visits,
     tails included; bytes: q, o, do and dq once per query head, k, v, dk
-    and dv once per KV head."""
+    and dv once per KV head, and at a ``kv_split`` above 1 its dk and dv
+    partials (float32) written once and read once by the reduce pass."""
     s, hd, elt = bp["seq"], bp["hd"], _ELT.get(bp["dtype"], 4)
     bq, bkv = point["block_q"], point["block_kv"]
     flops = 7 * 2.0 * hd * bq * _keys_visited(s, bq, bkv)
     bytes_ = elt * s * hd * (4.0 + 4.0 / bp["group"])
+    bytes_ += 2.0 * bwd_scratch_bytes(1, s, 1, hd, point.get("kv_split", 1)) / bp["group"]
     return bp["heads"] * flops, bp["heads"] * bytes_
+
+
+# One warpgroup's trip of 64 streamed rows in either pass of the wgmma
+# backward (wait for the tile, the two scoring products and their wait, P
+# and dS in registers, the two (dk/dv) or one (dq) accumulating products and
+# their wait, the block barrier); a trip of n rows takes (1 + n/64)/2 of it
+# (the waits and the barrier do not grow with n).  With it, chip_smoke.py's
+# bf16 backward sweeps on an H100 SXM measure 0.85-1.37 of the estimate (the
+# median over a shape's points), and the staged prescreen's survivors hold
+# the fastest point at every swept shape.
+BWD_TRIP_S = 1.7e-6
+
+
+def _trip_s(rows: int) -> float:
+    return BWD_TRIP_S * (1 + rows / 64) / 2
+
+
+def _dkv_trips(seq: int, bq: int, bkv: int):
+    """(warpgroup trips of the dk/dv pass over one query head's q blocks,
+    summed over its key blocks; q blocks the longest CTA walks for one
+    head): a CTA's keys walk the q blocks from the one holding its first
+    key; a warpgroup skips a block wholly above its 64 keys."""
+    nq = -(-seq // bq)
+    total = 0
+    for k0 in range(0, seq, bkv):
+        for w0 in range(k0, k0 + bkv, 64):
+            total += sum(1 for i in range(k0 // bq, nq) if i * bq + bq - 1 >= w0)
+    return total, nq
+
+
+def _bwd_resident(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any],
+                  which: str) -> int:
+    """Warpgroups of pass ``which`` one SM holds at once: CUDA's occupancy
+    of the compiled tile on the card; without the card, the bound the
+    shared memory and threads give (registers, which the compiled tile
+    alone knows, may bind first)."""
+    bq, bkv = point["block_q"], point["block_kv"]
+    groups = (bq if which == "dq" else bkv) // 64
+    if arch.backend == "cuda" and torch.cuda.is_available():
+        return bwd_ctas_per_sm(bp["hd"], bq, bkv, which) * groups
+    smem = bwd_smem_bytes(bq, bkv, bp["hd"], 2)
+    return groups * max(1, min((arch.smem_per_block + 1024) // (smem + 1024),
+                               2048 // (128 * groups)))
+
+
+def _bwd_latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
+    """Least time of the wgmma backward's dependent chains, its two passes
+    one after the other: each pass's warpgroup trips spread over the
+    warpgroups the SMs hold at once, and no less than its longest CTA's
+    trips (the dk/dv pass's walks ``group / kv_split`` heads)."""
+    tile = tile_hd(bp["hd"], bp["dtype"])
+    if not bwd_sm90(tile, bp["dtype"]):
+        return 0.0
+    bq, bkv = point["block_q"], point["block_kv"]
+    heads, group, split = bp["heads"], bp["group"], point.get("kv_split", 1)
+    dq_total, dq_longest = _warpgroup_trips(bp["seq"], bq, bkv)
+    kv_total, kv_longest = _dkv_trips(bp["seq"], bq, bkv)
+    sms = arch.sm_count
+    dq = max(heads * dq_total / (sms * _bwd_resident(arch, bp, point, "dq")), dq_longest)
+    dkv = max(heads * kv_total / (sms * _bwd_resident(arch, bp, point, "dkv")),
+              kv_longest * group // split)
+    return _trip_s(bkv) * dq + _trip_s(bq) * dkv
 
 
 def _bwd_dims(bp: Mapping[str, Any]):
     why = head_dim_error(bp["hd"], bp["dtype"])
     if why is not None:
         raise ValueError(why)
-    return (
-        TileDim("block_q", bp["seq"], semantic="lane", min_tile=BWD_BLOCK[0],
-                max_tile=BWD_BLOCK[-1], allow_padding=True, pow2_only=True),
-        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=BWD_BLOCK[0],
-                max_tile=BWD_BLOCK[-1], allow_padding=True, pow2_only=True),
-    )
+    tile = tile_hd(bp["hd"], bp["dtype"])
+    block_q, block_kv = bwd_blocks(tile, bp["dtype"])
+    dims = [
+        TileDim("block_q", bp["seq"], semantic="lane", min_tile=block_q[0],
+                max_tile=block_q[-1], allow_padding=True, pow2_only=True),
+        TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=block_kv[0],
+                max_tile=block_kv[-1], allow_padding=True, pow2_only=True),
+    ]
+    if bwd_sm90(tile, bp["dtype"]) and bp["group"] > 1:
+        dims.append(TileDim("kv_split", bp["group"], semantic="pieces", min_tile=1,
+                            max_tile=bp["group"], pow2_only=True))
+    return tuple(dims)
 
 
 FLASH_BWD_POLICY = TilePolicy(
@@ -258,8 +335,10 @@ FLASH_BWD_POLICY = TilePolicy(
     flop_rate=lambda arch, bp: (
         arch.peak_flops if bp["dtype"] == "bfloat16" else arch.peak_flops_tf32 / 3
     ),
+    latency_model=_bwd_latency,
     point_filter=lambda bp, p: bwd_launchable(bp["hd"], bp["dtype"], p["block_q"],
-                                              p["block_kv"]),
+                                              p["block_kv"], p.get("kv_split", 1),
+                                              bp["group"]),
 )
 
 
@@ -280,9 +359,9 @@ def flash_bwd_region(
     )
 
     def instantiate(point: Mapping[str, Any]):
-        bq, bkv = point["block_q"], point["block_kv"]
+        bq, bkv, split = point["block_q"], point["block_kv"], point.get("kv_split", 1)
         return lambda q, k, v, o, lse, do: flash_attention_bwd(
-            q, k, v, o, lse, do, block_q=bq, block_kv=bkv)
+            q, k, v, o, lse, do, block_q=bq, block_kv=bkv, kv_split=split)
 
     return ATRegion(
         "flash_attention_bwd_cuda", emitted.space, instantiate,

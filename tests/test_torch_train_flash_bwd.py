@@ -217,15 +217,18 @@ def test_bwd_emitted_points_are_the_instantiated_tiles(hd, dtype):
     region = fa_ops.flash_bwd_region(4096, hd, dtype, heads=128, group=8)
     points = list(region.space.points())
     tile = fa_mod.tile_hd(fa_mod.padded_hd(hd, dtype), dtype)
-    want = {(bq, bkv) for t, bq, bkv in fa_mod.BWD_TILES if t == tile}
+    want = {(bq, bkv) for t, bq, bkv in fa_mod.BWD_TILES[dtype] if t == tile}
     assert {(p["block_q"], p["block_kv"]) for p in points} == want
     elt = 2 if dtype == "bfloat16" else 4
     for p in points:
-        assert fa_mod.bwd_launchable(fa_mod.padded_hd(hd, dtype), dtype, **p)
+        assert fa_mod.bwd_launchable(fa_mod.padded_hd(hd, dtype), dtype, group=8, **p)
         assert fa_mod.bwd_smem_bytes(p["block_q"], p["block_kv"], hd, elt) <= 227 * 1024
 
 
 def test_bwd_smem_model_counts_the_sources_tiles():
-    # DkvTile: q, do, k, v tiles of (tile hd + pad) elements and lse, delta
-    assert fa_mod.bwd_smem_bytes(64, 64, 64, 2) == 2 * 72 * 256 + 512
+    # mma.sync DkvTile: q, do, k, v tiles of (tile hd + pad) elements and lse, delta
+    assert fa_mod.bwd_smem_bytes(64, 32, 256, 2) == 2 * 264 * 192 + 512
     assert fa_mod.bwd_smem_bytes(64, 32, 256, 4) == 4 * 260 * 192 + 512
+    # bf16 below hd 256, the wgmma kernel's dk/dv pass: 1 KiB of alignment, k
+    # and v, two stages of q, do, lse and delta, 64 B of barriers
+    assert fa_mod.bwd_smem_bytes(64, 64, 64, 2) == 1024 + 2 * 8192 + 2 * (2 * 8192 + 512) + 64
