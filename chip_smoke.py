@@ -37,7 +37,11 @@ runs for all five ported kernels at real sizes:
   run with its own TuningDB and ``BackgroundTuner``;
 * the training slice (``repro_torch.runtime.Trainer``), run first while
   the card's memory is empty: tinyllama-1.1b uncut, bf16, B=4, S=4096,
-  causal attention forward and backward on the flash kernels.
+  causal attention forward and backward on the flash kernels; then the
+  scans' families on their backward kernels (``ssm_scan_bwd``,
+  ``rglru_scan_bwd``): recurrentgemma-2b uncut (B=1, S=2048; flash at hd
+  256 forward and backward) and falcon-mamba-7b at full width, 8 of 64
+  layers (B=2, S=2048).
 
 Phases, each of which fails the run:
 
@@ -65,9 +69,20 @@ Phases, each of which fails the run:
    bit-identical to an uninterrupted run's); one step of each trainable
    SMOKE family card vs CPU in float32 (each leaf's update within 2e-2 of
    the CPU's in norm; in Whisper, whose gradients all run through its bf16
-   encoder, 0.25, and the encoder's bf16 leaves' worst row 4·2⁻⁸), and the
-   SSM and hybrid families raising the scans' missing backward kernel's
-   error;
+   encoder, 0.25, and the encoder's bf16 leaves' worst row 4·2⁻⁸), the SSM and
+   hybrid families among them on the scans' backward kernels; the same
+   gradient check on falcon-mamba-7b (2 of 64 layers) and recurrentgemma-2b
+   (3 of 26) at full width, B=1, S=2048, every kernel's forward and
+   backward launches exact; recurrentgemma-2b uncut (B=1, S=2048) and
+   falcon-mamba-7b at full width and 8 of 64 layers (B=2, S=2048) through
+   the ``Trainer`` at remat none, bf16 parameters: a warm step that tunes
+   the kernel classes inline, then 10 steps (step ms beside
+   ``analytic_step_flops`` at the bf16 peak, MFU, tokens/s, peak memory;
+   launches exactly rglru_scan 18 forward and 18 backward and flash 8 and
+   8 a step, or ssm_scan 8 and 8; 0 plain calls), a second Trainer
+   recalling every kernel class with 0 evaluations, the step overfitting
+   one batch from tempered weights (the loss must fall) and one profiled
+   step; the restart drill again on recurrentgemma-2b at 3 layers;
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
    width, 16 query heads, 8 KV heads, head_dim 128; both scans also in
@@ -89,7 +104,9 @@ Phases, each of which fails the run:
    and at the train step's B=4, and S=2000, qwen3-0.6b's (16|8, hd 128) and
    hd 36 (8|2), bf16 and f32, the forward with its lse (o equal to the call
    without it, lse against the plain version's), then every emitted point
-   of ``flash_attention_bwd`` (``kv_split`` included) against
+   of ``flash_attention_bwd`` (``kv_split`` included; at recurrentgemma-2b's
+   (10|1, hd 256) too, bf16 and f32, the mma.sync kernel, its fastest point
+   beside SDPA's backward) against
    ``attention_bwd_plain`` in float32 (bf16) or float64 (f32), the plain
    versions a batch row at a time, per element at ``DEFAULT_TOL`` and worst
    row (dq without query 0), and called twice for the same bits; the
@@ -97,6 +114,18 @@ Phases, each of which fails the run:
    with 0 evaluations, its time beside the bound (five causal products),
    the plain version's and SDPA's backward, and in bf16 each pass's time
    (``[kernel] flash bwd passes``);
+3f. the scans' backward kernels: every emitted point of ``ssm_scan_bwd``
+   at falcon-mamba-7b's width (B=1 f32 and bf16, B=2, S=2047), N = 12 and
+   64 on a narrow width and S = 1, 7, and of ``rglru_scan_bwd`` at
+   recurrentgemma-2b's (B=1 f32 and bf16, B=2, S=2047) and S = 1, 7, against
+   the plain backward on the same inputs in float64 (f32) or float32 (bf16):
+   the per-position gradients per element at the scans' tolerance, the
+   summed ones (dA, dB_t, dC_t, dD; dλ) to a worst row of 1e-4, bf16 at
+   the bf16 tolerances; every point called twice for the same bits, its
+   shared memory and scratch against the source's, the fastest point beside
+   the bound (bytes, and ``ssm_scan``'s exps on the SFU) and the forward's
+   time at the same shape; ``[ptxas]`` lines for every instantiation (0 B
+   spilled);
 3d. head dims off the kernels' 16-byte rule (C3): every emitted flash point
    at hd 12, 36, 100 (bf16) and 6, 50 (f32), S=2048, 8|2 heads, run padded
    by the wrapper, against the plain version, and the copy's cost (the
@@ -194,7 +223,12 @@ also give ``model_launches`` (a prefill's, per model),
 ``lse_ms`` and ``train_launches``, and ``flash_attention_bwd`` its time,
 bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
 bf16, at B=4 (``b4_*``, with ``passes_ms`` as at B=1) and in f32
-(``f32_*``), and ``train_launches``.  A ``{"models": ...}``,
+(``f32_*``) and at hd 256 (``hd256_*``, ``f32_hd256_*``), and
+``train_launches``; ``ssm_scan_bwd`` and ``rglru_scan_bwd`` their
+launches in the falcon-mamba-7b and recurrentgemma-2b ``[train]`` runs,
+the time of the point the Trainer tuned at that run's shape in float32, the
+bound, the plain backward's time, the forward's time beside it and every
+swept shape's fastest point.  A ``{"models": ...}``,
 a ``{"serve": ...}`` and a ``{"train": ...}`` line before it hold the
 model, serve and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
@@ -258,6 +292,29 @@ RGLRU_SHORT = [(dict(B=2, S=7, W=24), [dict(block_w=8, chunk=7, split=2),
                (dict(B=1, S=1, W=24), [dict(block_w=3, chunk=1, split=1)]),
                (dict(B=1, S=64, W=128), [dict(block_w=8, chunk=24, split=2)])]
 
+
+# the scans' backward kernels, every emitted point of each (shape, dtype):
+# falcon-mamba-7b's width at B=1 (f32, bf16), at the train step's B=2 and at
+# S=2047 (a short last chunk); N=12 and 64 on a narrow width; S=1 and 7;
+# recurrentgemma-2b's width likewise
+SSM_BWD_SHAPES = ((SSM, ("float32", "bfloat16")), (dict(SSM, B=2), ("float32",)),
+                  (dict(SSM, S=2047), ("float32",)),
+                  (dict(B=2, S=300, D=256, N=12), ("float32", "bfloat16")),
+                  (dict(B=2, S=300, D=256, N=64), ("float32", "bfloat16")),
+                  (dict(B=2, S=7, D=64, N=16), ("float32", "bfloat16")),
+                  (dict(B=1, S=1, D=64, N=16), ("float32", "bfloat16")))
+RGLRU_BWD_SHAPES = ((RGLRU, ("float32", "bfloat16")), (dict(RGLRU, B=2), ("float32",)),
+                    (dict(RGLRU, S=2047), ("float32",)),
+                    (dict(B=2, S=7, W=24), ("float32", "bfloat16")),
+                    (dict(B=1, S=1, W=24), ("float32", "bfloat16")))
+# the backward's gradients that add up many float32 terms in another order
+# than the plain version's (ssm_scan's dA and dD over B·S, dB_t and dC_t
+# over the D channels; rglru_scan's dlam over B·S): in float32 each is held
+# to a worst row of SUM_ROW_TOL (the CPU tests hold the plain versions' sums
+# to a relative norm of 1e-4), the per-position gradients to SCAN_TOL per
+# element; bf16 all to the bf16 tolerances
+SCAN_BWD_SUMMED = {"ssm_scan": (2, 3, 4, 5), "rglru_scan": (3,)}
+SUM_ROW_TOL = 1e-4
 
 # the model zoo on the card: (arch, depth or None for the full depth,
 # decode steps) at full width, B=1, a 2048-token prompt
@@ -472,6 +529,174 @@ def sweep_once(torch, label, region, run, plain_out, timer, counter, errors):
     return worst, worst_row, times
 
 
+def bwd_err(torch, out, ref, dtype: str, summed) -> tuple:
+    """(max abs error, worst row error, list of the checks failed) of a scan
+    backward's gradients against the plain version's: in float32 the
+    outputs ``summed`` (indices) to a worst row of SUM_ROW_TOL and the rest
+    to SCAN_TOL per element and the float32 row rule; in bf16 every output
+    to the bf16 element and row tolerances."""
+    worst, worst_row, failed = 0.0, 0.0, []
+    for i, (o, r) in enumerate(zip(out, ref)):
+        o, r = o.double(), r.double()
+        if o.shape != r.shape or not bool(torch.isfinite(o).all()):
+            return math.inf, math.inf, [f"output {i} shape/finite"]
+        diff = (o - r).abs()
+        worst = max(worst, float(diff.max()))
+        rows = (diff.reshape(-1, diff.shape[-1]).norm(dim=-1)
+                / r.reshape(-1, r.shape[-1]).norm(dim=-1).clamp_min(1e-30))
+        row = float(rows.max())
+        worst_row = max(worst_row, row)
+        if dtype == "float32" and i in summed:
+            if row > SUM_ROW_TOL:
+                failed.append(f"output {i} row {SUM_ROW_TOL}")
+            continue
+        rtol, atol = SCAN_TOL if dtype == "float32" else TOL[dtype]
+        if not bool((diff <= atol + rtol * r.abs()).all()):
+            failed.append(f"output {i} element {(rtol, atol)}")
+        if row > ROW_TOL[dtype]:
+            failed.append(f"output {i} row {ROW_TOL[dtype]}")
+    return worst, worst_row, failed
+
+
+def scan_bwd_bound_ms(arch, name, shape, elt) -> tuple:
+    """(ms, what bounds it, the SFU's ms) of a scan backward: the bytes its
+    inputs and gradients must move once at the memory rate, against, for
+    ssm_scan, one exp per (t, d, n) on the SFU, for rglru_scan its
+    operations at the float32 rate."""
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg_mod
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm_mod
+
+    if name == "ssm_scan":
+        B, S, D, N = (shape[k] for k in ("B", "S", "D", "N"))
+        _, bytes_ = ssm_mod.bwd_traffic(B, S, D, N, elt)
+        ops = ssm_mod.sfu_seconds(B, S, D, N, arch.peak_flops_fp32)
+    else:
+        B, S, W = (shape[k] for k in ("B", "S", "W"))
+        flops, bytes_ = rg_mod.bwd_traffic(B, S, W, elt)
+        ops = flops / arch.peak_flops_fp32
+    by_bytes = bytes_ / arch.hbm_bandwidth
+    return max(by_bytes, ops) * 1e3, ("bytes" if by_bytes >= ops else "operations"), ops * 1e3
+
+
+def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
+    """Every emitted point of ``ssm_scan_bwd`` and ``rglru_scan_bwd`` at
+    SSM_BWD_SHAPES and RGLRU_BWD_SHAPES against the plain backward run on
+    the same inputs in float64 (float32 inputs) or float32 (bf16), each
+    called twice for the same bits and timed; its shared memory and scratch
+    against the compiled source's; the fastest point beside the bound and
+    the forward kernel's time at the same shape (at the forward hint's
+    first point).  Returns {(name, dtype, tag): case}."""
+    from repro_torch.core import pp_key
+    from repro_torch.kernels.rglru_scan import ops as rg_ops, ref as rg_ref, rglru_scan as rg_mod
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_mod
+
+    device = torch.device("cuda:0")
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    cases = {}
+    for name, shapes in (("ssm_scan", SSM_BWD_SHAPES), ("rglru_scan", RGLRU_BWD_SHAPES)):
+        for shape, dtypes in shapes:
+            if name == "ssm_scan":
+                B, S, D, N = (shape[k] for k in ("B", "S", "D", "N"))
+                x, dt, A, Bc, Cc, Dp = ssm_ref.make_inputs(gen, device=device, **shape)
+                dy = torch.randn((B, S, D), generator=gen, device=device)
+                dh = torch.randn((B, D, N), generator=gen, device=device)
+                tag = f"({B},{S},{D},N={N})"
+            else:
+                B, S, W = (shape[k] for k in ("B", "S", "W"))
+                x, r, i, lam = rg_ref.make_inputs(gen, device=device, **shape)
+                dy = torch.randn((B, S, W), generator=gen, device=device)
+                tag = f"({B},{S},{W})"
+            for dtype_name in dtypes:
+                dtype = getattr(torch, dtype_name)
+                elt = 2 if dtype == torch.bfloat16 else 4
+                work = torch.float64 if dtype == torch.float32 else torch.float32
+                if name == "ssm_scan":
+                    args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), Dp,
+                            dy.to(dtype), dh)
+                    plain, kernel = ssm_mod.ssm_scan_bwd_plain, ssm_mod.ssm_scan_bwd_cuda
+                    region = ssm_ops.ssm_bwd_region(D, S, N, B, arch=arch, dtype=dtype_name)
+                    fregion = ssm_ops.ssm_region(D, S, N, B, arch=arch, dtype=dtype_name)
+                    forward = ssm_mod.ssm_scan_cuda
+                    for p in region.space.points():
+                        model = ssm_mod.bwd_smem_bytes(p["block_d"], p["chunk"], N, p["states"],
+                                                       elt)
+                        native = ssm_mod.bwd_smem_bytes_native(p["block_d"], p["chunk"], N,
+                                                               p["states"], elt)
+                        scratch = (ssm_mod.bwd_scratch_bytes(B, S, D, N, p["block_d"], p["chunk"]),
+                                   ssm_mod.bwd_scratch_bytes_native(B, S, D, N, p["block_d"],
+                                                                    p["chunk"]))
+                        if model != native or model > optin or scratch[0] != scratch[1]:
+                            errors.append(f"ssm_scan bwd {tag} {p}: smem model {model}, kernel "
+                                          f"{native}, limit {optin}; scratch {scratch}")
+                else:
+                    args = (x.to(dtype), r.to(dtype), i.to(dtype), lam, dy.to(dtype))
+                    plain, kernel = rg_mod.rglru_scan_bwd_plain, rg_mod.rglru_scan_bwd_cuda
+                    region = rg_ops.rglru_bwd_region(W, S, B, arch=arch, dtype=dtype_name)
+                    fregion = rg_ops.rglru_region(W, S, B, arch=arch, dtype=dtype_name)
+                    forward = rg_mod.rglru_scan_cuda
+                    for p in region.space.points():
+                        model = rg_mod.bwd_smem_bytes(p["block_w"], p["chunk"], p["split"], elt)
+                        native = rg_mod.bwd_smem_bytes_native(p["block_w"], p["chunk"],
+                                                              p["split"], elt)
+                        scratch = (rg_mod.bwd_scratch_bytes(B, S, W, min(p["chunk"], S)),
+                                   rg_mod.bwd_scratch_bytes_native(B, S, W, min(p["chunk"], S)))
+                        if model != native or model > optin or scratch[0] != scratch[1]:
+                            errors.append(f"rglru_scan bwd {tag} {p}: smem model {model}, "
+                                          f"kernel {native}, limit {optin}; scratch {scratch}")
+                ref = plain(*(t.to(work) for t in args))
+                counter = ssm_mod.bwd_counter if name == "ssm_scan" else rg_mod.bwd_counter
+                before = counter.launches
+                points = list(region.space.points())
+                worst, worst_row, times, differ = 0.0, 0.0, {}, []
+                for point in points:
+                    out = kernel(*args, **point)
+                    torch.cuda.synchronize()
+                    err, row, failed = bwd_err(torch, out, ref, dtype_name,
+                                               SCAN_BWD_SUMMED[name])
+                    worst, worst_row = max(worst, err), max(worst_row, row)
+                    if failed:
+                        errors.append(f"{name} bwd {dtype_name} {tag} {point}: max abs error "
+                                      f"{err}, row error {row}; failed {failed}")
+                    if not all(torch.equal(a, b) for a, b in zip(out, kernel(*args, **point))):
+                        differ.append(point)
+                    del out
+                    times[pp_key(point)] = timer.ms(lambda: kernel(*args, **point), reps=3)
+                if counter.launches - before < 2 * len(points):
+                    errors.append(f"{name} bwd {tag}: {counter.launches - before} launches for "
+                                  f"{len(points)} points")
+                if differ:
+                    errors.append(f"{name} bwd {dtype_name} {tag}: two calls differ at {differ}")
+                best = min(times, key=times.get)
+                bound, by, sfu = scan_bwd_bound_ms(arch, name, shape, elt)
+                floor = "the SFU's exps" if name == "ssm_scan" else "operations"
+                fpoint = min(fregion.space.points(),
+                             key=lambda p: fregion.hints[pp_key(p)]["est_s"])
+                fwd_ms = timer.ms(lambda: forward(*args[:6 if name == "ssm_scan" else 4],
+                                                  **fpoint), reps=5)
+                print(f"[kernel] {name} bwd {dtype_name} {tag}: {len(points)} candidates, max "
+                      f"abs err {worst:.3e}, row error {worst_row:.3e}; two calls of each "
+                      f"bit-identical: {not differ}; fastest {best} {times[best]:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by}; {floor} {sfu:.4f} ms), "
+                      f"{times[best] / bound:.2f}x; forward at {pp_key(fpoint)} {fwd_ms:.4f} ms, "
+                      f"backward / forward {times[best] / fwd_ms:.2f}")
+                print(f"[sweep] {name} bwd {dtype_name} {tag}: " + json.dumps(
+                    {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
+                for point in points:  # the hint's rank beside the card's
+                    hint = region.hints[pp_key(point)]
+                    print(f"[hint] {name} bwd {dtype_name} {tag} {pp_key(point)}: est "
+                          f"{hint['est_s'] * 1e3:.4f} ms (latency {hint['latency_s'] * 1e3:.4f}), "
+                          f"measured {times[pp_key(point)]:.4f} ms")
+                cases[(name, dtype_name, tag)] = {
+                    "shape": shape, "dtype": dtype_name, "times": times,
+                    "candidates": len(points), "max_abs_err": worst, "max_row_err": worst_row,
+                    "fastest_point": json.loads(best), "fastest_ms": times[best],
+                    "bound_ms": bound, "bound_by": by, "sfu_ms": sfu,
+                    "forward_point": fpoint, "forward_ms": fwd_ms}
+                del ref
+            torch.cuda.empty_cache()
+    return cases
+
+
 def event_ms(torch, fn, reps: int = 5) -> float:
     """Median device time of ``fn`` over ``reps`` runs after a warm one,
     CUDA events around each, in ms (no flush: a model step's own state)."""
@@ -574,6 +799,9 @@ def kernel_share(torch, fn) -> tuple:
 
 # the training step's device time by kind of kernel (first match)
 STEP_KINDS = (("flash_forward", ("flash_fwd",)), ("flash_backward", ("flash_bwd",)),
+              ("ssm_scan_forward", ("ssm_kernel",)), ("ssm_scan_backward", ("ssm_bwd",)),
+              ("rglru_scan_forward", ("rglru_kernel",)),
+              ("rglru_scan_backward", ("rglru_bwd",)),
               ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -1500,11 +1728,12 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
 
 # tinyllama-1.1b's width at the [train] phase's S, at its B = 4 (the batch
 # offsets of every pass) and at S = 2000 (a tail no tile divides),
-# qwen3-0.6b's (16|8, hd 128) and a C3 head dim (hd 36, padded to 40 by the
-# wrapper)
+# qwen3-0.6b's (16|8, hd 128), a C3 head dim (hd 36, padded to 40 by the
+# wrapper) and recurrentgemma-2b's (10|1, hd 256: the mma.sync kernel in
+# bf16 too), which its [train] phase launches
 FLASH_BWD = dict(B=1, S=4096, H=32, KV=4, hd=64)
 FLASH_BWD_SHAPES = (FLASH_BWD, dict(FLASH_BWD, B=4), dict(FLASH_BWD, S=2000), FLASH_HD128,
-                    dict(B=1, S=2048, H=8, KV=2, hd=36))
+                    dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256)
 
 
 def bwd_rows(outs) -> tuple:
@@ -1553,12 +1782,18 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
             tag = f"({B},{S},{H}|{KV},{hd})"
             q, k, v = fa_ref.make_inputs(gen, dtype=dtype, device=device, **shape)
             do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
-            o, lse = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
-            same = torch.equal(o, fa_mod.flash_attention_cuda(q, k, v))
+            # the forward at (64, 64), or where its tile hd has no such tile (f32
+            # at hd 256), at the first emitted point
+            fwd = dict(block_q=64, block_kv=64)
+            if not fa_mod.launchable(hd, dtype_name, **fwd):
+                fwd = next(iter(fa_ops.flash_region(S, hd, dtype_name, arch=arch,
+                                                    heads=bucket_pow2(B * H)).space.points()))
+            o, lse = fa_mod.flash_attention_cuda(q, k, v, **fwd, return_lse=True)
+            same = torch.equal(o, fa_mod.flash_attention_cuda(q, k, v, **fwd))
             _, lse_ref = by_batch_row(
                 torch, lambda *a: fa_ref.attention_ref(*a, return_lse=True), (q, k, v))
             err, row, failed = max_err(torch, (lse,), (lse_ref,), "float32")
-            print(f"[kernel] flash {dtype_name} lse {tag} (64,64): o equal to the call "
+            print(f"[kernel] flash {dtype_name} lse {tag} {fwd}: o equal to the call "
                   f"without lse {same}, lse max abs err {err:.3e} (tol {TOL['float32']}), "
                   f"row {row:.3e}")
             if failed or not same:
@@ -1686,6 +1921,31 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
         d = key.split("_")[0]
         row["max_row_err"] = max(c["row"] for k, c in cases.items() if k[0] == d)
         row["max_abs_err"] = max(c["err"] for k, c in cases.items() if k[0] == d)
+    # recurrentgemma-2b's hd 256 (the mma.sync kernel in both dtypes): the
+    # fastest swept point beside SDPA's backward and the bound
+    for dtype_name in ("bfloat16", "float32"):
+        case = cases[(dtype_name, FLASH_HD256["B"], FLASH_HD256["S"], FLASH_HD256["hd"])]
+        q, k, v, o, lse, do = case["args"]
+        qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        sdpa_ms = timer.ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - timer.ms(sdpa)
+        best = min(case["times"], key=case["times"].get)
+        bound, by = flash_bwd_bound_ms(arch, dtype_name=dtype_name, **FLASH_HD256)
+        plain_ms = timer.ms(lambda: by_batch_row(torch, fa_ref.attention_bwd_plain,
+                                                 case["args"]), reps=3)
+        ms = case["times"][best]
+        tag = "(1,2048,10|1,256)"
+        print(f"[kernel] flash bwd {dtype_name} {tag} fastest {best}: {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), {ms / bound:.2f}x; plain {plain_ms:.3f} ms, SDPA "
+              f"backward {sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x)")
+        out[f"{dtype_name}_hd256"] = {
+            "fastest_swept_point": json.loads(best), "ms": ms, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_ms, "candidates": len(case["times"]),
+            "max_abs_err": case["err"], "max_row_err": case["row"]}
     return out
 
 
@@ -1696,7 +1956,26 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
 TRAIN = dict(arch="tinyllama-1.1b", B=4, S=4096, steps=20, micro=(1, 2, 4),
              remat=("none", "full"), overfit=10)
 TRAIN_GRADS = dict(layers=2, B=1, S=2048)
+# the scans' families at full width in the gradient check: falcon-mamba-7b at
+# 2 of 64 layers, recurrentgemma-2b at 3 of 26 (one (rec, rec, attn) group)
+TRAIN_GRADS_SCANS = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
 TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=2, fail_at=5)
+# the restart drill on the hybrid family: recurrentgemma-2b at 3 layers.  A
+# checkpoint of it holds 0.86 B parameters and their moments (8.6 GB, the
+# 256000 x 2560 embedding most of it), so it saves twice (at step 4 and at
+# the end) and its uninterrupted reference saves none: ~17 GB of
+# checkpoint writes beside the tinyllama drill's ~22 GB (every checkpoint
+# of both saved, it would write ~86 GB)
+TRAIN_RESTART_HYBRID = dict(TRAIN_RESTART, arch="recurrentgemma-2b", layers=3, steps=6,
+                            save_every=4, fail_at=5, ref_checkpoints=False)
+# the scans' families through the Trainer at remat none, bf16 parameters and
+# float32 AdamW moments: recurrentgemma-2b uncut (26 layers, 2.9 B params);
+# falcon-mamba-7b at full width, 8 of 64 layers (7.27 B params uncut take
+# ~101 GB with float32 gradients and moments; 8 layers ~1.37 B, ~19 GB)
+TRAIN_SCANS = (dict(arch="recurrentgemma-2b", layers=None, B=1, S=2048),
+               dict(arch="falcon-mamba-7b", layers=8, B=2, S=2048))
+TRAIN_SCAN_STEPS = 10
+TRAIN_SCAN_OVERFIT = 6
 # the worst gradient leaf's ||g - r|| / ||r||, kernel route against plain versions
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 # train SMOKE card vs CPU: the loss's relative error, and each leaf's update
@@ -1708,8 +1987,8 @@ GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 # wk, 1.9e-2 in its embedding; the float32 archs 7e-5..1.4e-4.  A wrong
 # gradient gives 1 or more (1 if zero, 2 if its sign is flipped)
 SMOKE_LOSS_TOL, SMOKE_UPDATE_TOL, SMOKE_BF16_UPDATE_TOL = 1e-4, 2e-2, 0.25
-TRAIN_SMOKE = ("tinyllama-1.1b", "granite-moe-1b-a400m", "qwen2-vl-2b", "whisper-large-v3")
-TRAIN_SMOKE_RAISE = (("falcon-mamba-7b", "ssm_scan"), ("recurrentgemma-2b", "rglru_scan"))
+TRAIN_SMOKE = ("tinyllama-1.1b", "granite-moe-1b-a400m", "qwen2-vl-2b", "whisper-large-v3",
+               "falcon-mamba-7b", "recurrentgemma-2b")
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -1726,58 +2005,113 @@ def flash_counts(fa_mod) -> tuple:
             fa_mod.counter.plain_calls + fa_mod.bwd_counter.plain_calls)
 
 
-def train_grads(torch, device, errors) -> dict:
-    """tinyllama-1.1b at full width, 2 of 22 layers, B=1, S=2048, wq and wk
-    tempered: the loss and every gradient leaf on the kernel route against
-    the same under ``plain_versions()``, float32 then bf16 parameters, under
-    remat ``full`` and ``dots`` (selective checkpointing, which sees
-    ``FlashAttentionFn`` as one op: its forward runs again in the recompute,
-    and its saved o and lse must reach the backward)."""
+def train_counters() -> dict:
+    """{kernel: (forward counter, backward counter)} of the kernels a train
+    step reaches."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg_mod
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm_mod
+
+    return {"flash_attention": (fa_mod.counter, fa_mod.bwd_counter),
+            "ssm_scan": (ssm_mod.counter, ssm_mod.bwd_counter),
+            "rglru_scan": (rg_mod.counter, rg_mod.bwd_counter)}
+
+
+def reset_train_counts() -> None:
+    for pair in train_counters().values():
+        for counter in pair:
+            counter.reset()
+
+
+def train_counts() -> tuple:
+    """({kernel: (forward launches, backward launches)} of the kernels that
+    launched, plain calls of any of them)."""
+    counts = {name: (f.launches, b.launches) for name, (f, b) in train_counters().items()
+              if f.launches or b.launches}
+    plain = sum(c.plain_calls for pair in train_counters().values() for c in pair)
+    return counts, plain
+
+
+def step_launches(cfg, remat: str, n_micro: int = 1) -> dict:
+    """{kernel: (forward, backward) launches of one train step}: one of each
+    a layer that calls the kernel and microbatch, the forward twice where
+    remat recomputes it (``full``, and ``dots``, which sees each kernel's
+    autograd Function as one op to recompute)."""
+    if cfg.family == "ssm":
+        layers = {"ssm_scan": cfg.n_layers}
+    elif cfg.family == "hybrid":
+        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)] for i in range(cfg.n_layers)]
+        layers = {"rglru_scan": kinds.count("rec"), "flash_attention": kinds.count("attn")}
+    else:
+        layers = {"flash_attention": cfg.n_layers}
+    again = 2 if remat in ("full", "dots") else 1
+    return {name: (n * n_micro * again, n * n_micro) for name, n in layers.items() if n}
+
+
+def train_grads(torch, device, errors, archs=((TRAIN["arch"], TRAIN_GRADS["layers"]),)) -> dict:
+    """Each of ``archs`` (arch, layers) at full width, B=1, S=2048, wq and
+    wk tempered: the loss and every gradient leaf on the kernel route
+    against the same under ``plain_versions()``, float32 then bf16
+    parameters, under remat ``full`` and ``dots`` (selective checkpointing,
+    which sees each kernel's autograd Function, ``FlashAttentionFn``,
+    ``SelectiveScanFn``, ``LruScanFn``, as one op: its forward runs again in
+    the recompute, and what it saves must reach the backward); each
+    kernel's launches exact (:func:`step_launches`) and no plain call."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.runtime.train import _loss_and_grads, batch_tensors
     from repro_torch.tree import as_tree, flatten, tree_map
 
-    cfg = get_config(TRAIN["arch"]).with_(n_layers=TRAIN_GRADS["layers"])
-    params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
-    temper(torch, tm, params)
-    base = as_tree(params)
-    batch = batch_tensors(SyntheticLMDataset(cfg, TRAIN_GRADS["B"], TRAIN_GRADS["S"],
-                                             seed=SEED).batch(0), device)
     out = {}
-    for dtype_name, remat in itertools.product(("float32", "bfloat16"), ("full", "dots")):
-        cfg = cfg.with_(remat=remat)
-        tree = tree_map(lambda t: t.to(getattr(torch, dtype_name)), base)
-        leaves, structure = flatten(tree)
-        names = leaf_names(tree)
-        _loss_and_grads(leaves, structure, batch, cfg)  # the kernel classes resolved first
-        fa_mod.counter.reset()
-        fa_mod.bwd_counter.reset()
-        loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
-        torch.cuda.synchronize()
-        fwd, bwd, plain = flash_counts(fa_mod)
-        with tm.plain_versions():
-            ref_loss, ref = _loss_and_grads(leaves, structure, batch, cfg)
-        rel = [(float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)), n)
-               for g, r, n in zip(grads, ref, names)]
-        worst, name = max(rel)
-        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
-        layers = cfg.n_layers * (1 if cfg.remat == "none" else 2)
-        print(f"[train] grads {dtype_name} params (2 layers, remat {cfg.remat}): loss "
-              f"{float(loss):.6f} vs plain {float(ref_loss):.6f} (rel {loss_rel:.2e}); worst "
-              f"leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); flash forward "
-              f"{fwd} launches (expect {layers}), backward {bwd} (expect {cfg.n_layers}), "
-              f"plain calls on the kernel route {plain}")
-        out[f"{dtype_name} {remat}"] = {"loss": float(loss), "plain_loss": float(ref_loss),
-                           "worst_leaf": name, "worst_leaf_rel": worst,
-                           "flash_launches": fwd, "flash_bwd_launches": bwd}
-        if (worst > GRAD_TOL[dtype_name] or loss_rel > GRAD_TOL[dtype_name]
-                or fwd != layers or bwd != cfg.n_layers or plain):
-            errors.append(f"train grads {dtype_name} {remat}: worst leaf {name} {worst}, loss "
-                          f"{loss_rel}, launches {fwd}/{bwd}, plain {plain}")
-        del grads, ref, tree, leaves
+    for arch, layers in archs:
+        cfg = get_config(arch).with_(n_layers=layers)
+        params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+        temper(torch, tm, params)
+        base = as_tree(params)
+        del params
+        batch = batch_tensors(SyntheticLMDataset(cfg, TRAIN_GRADS["B"], TRAIN_GRADS["S"],
+                                                 seed=SEED).batch(0), device)
+        refs = {}
+        for dtype_name, remat in itertools.product(("float32", "bfloat16"), ("full", "dots")):
+            cfg = cfg.with_(remat=remat)
+            tree = tree_map(lambda t: t.to(getattr(torch, dtype_name)), base)
+            leaves, structure = flatten(tree)
+            names = leaf_names(tree)
+            _loss_and_grads(leaves, structure, batch, cfg)  # the kernel classes resolved first
+            reset_train_counts()
+            loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
+            torch.cuda.synchronize()
+            counts, plain = train_counts()
+            if dtype_name not in refs:  # remat changes no value: one plain run a dtype
+                with tm.plain_versions():
+                    refs[dtype_name] = _loss_and_grads(leaves, structure, batch, cfg)
+            ref_loss, ref = refs[dtype_name]
+            rel = [(float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)), n)
+                   for g, r, n in zip(grads, ref, names)]
+            worst, name = max(rel)
+            loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+            want = step_launches(cfg, remat)
+            print(f"[train] grads {arch} {dtype_name} params ({layers} layers, remat {remat}): "
+                  f"loss {float(loss):.6f} vs plain {float(ref_loss):.6f} (rel {loss_rel:.2e}); "
+                  f"worst leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); launches "
+                  f"(forward, backward) {counts} (expect {want}), plain calls on the kernel "
+                  f"route {plain}")
+            key = f"{dtype_name} {remat}" if arch == TRAIN["arch"] else f"{arch} {dtype_name} {remat}"
+            out[key] = {"loss": float(loss), "plain_loss": float(ref_loss), "worst_leaf": name,
+                        "worst_leaf_rel": worst, "launches": counts}
+            if arch == TRAIN["arch"]:
+                out[key].update(flash_launches=counts["flash_attention"][0],
+                                flash_bwd_launches=counts["flash_attention"][1])
+            if (worst > GRAD_TOL[dtype_name] or loss_rel > GRAD_TOL[dtype_name]
+                    or counts != want or plain):
+                errors.append(f"train grads {arch} {dtype_name} {remat}: worst leaf {name} "
+                              f"{worst}, loss {loss_rel}, launches {counts} (expect {want}), "
+                              f"plain {plain}")
+            del grads, ref, tree, leaves
+            if remat == "dots":
+                del refs[dtype_name]
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1957,11 +2291,135 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
     }
 
 
-def train_restart(torch, device, errors) -> dict:
-    """tinyllama-1.1b at full width, 2 layers, B=2, S=1024, 8 steps saving
-    every 2, a SimulatedFailure before step 5: one restart, resumed from the
-    step-4 checkpoint, losses equal bit for bit to an uninterrupted run's
-    (both on one TuningDB, so both run the same kernel points)."""
+def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> dict:
+    """``arch`` at full width (``layers`` of its layers, or uncut), bf16
+    parameters and float32 AdamW moments, remat none, on
+    ``SyntheticLMDataset(seed 0)`` through the ``Trainer``: one warm step
+    (the kernel classes tuned inline), then TRAIN_SCAN_STEPS steps with the
+    counts set to 0 just before and read just after (each kernel's forward
+    and backward launches exact, :func:`step_launches`, and no plain call),
+    the step's time beside ``analytic_step_flops`` at the bf16 peak, its
+    peak memory and one profiled step; a second Trainer on the same DB
+    recalling every kernel class with 0 evaluations; and the step
+    overfitting the first batch from tempered weights (its loss must
+    fall)."""
+    import dataclasses
+    import os
+
+    from repro_torch import models as tm
+    from repro_torch.configs import get_config
+    from repro_torch.core import TuningDB
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import analytic_param_count, analytic_step_flops, serving
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    from repro_torch.runtime.train import batch_tensors, make_train_step
+    from repro_torch.tree import as_tree
+
+    cfg = get_config(arch)
+    cfg = (cfg.with_(n_layers=layers) if layers else cfg).with_(remat="none")
+    steps = TRAIN_SCAN_STEPS
+    opt = AdamWConfig(warmup_steps=2, total_steps=steps)
+    loop = TrainLoopConfig(total_steps=steps, n_microbatches=1, microbatch_candidates=(1,),
+                           seed=SEED)
+    ds = SyntheticLMDataset(cfg, B, S, seed=SEED)
+    db_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_train_scan_"), "train_db.json")
+    label = f"{cfg.name} ({cfg.n_layers} layers) B={B} S={S}"
+    trainer = Trainer(cfg, opt, loop, tuning_db=TuningDB(db_path), device=device)
+    params, state = trainer.init_state()
+    t0 = time.perf_counter()
+    trainer.warm(params, state, batch_tensors(ds.batch(0), device))
+    warm_s = time.perf_counter() - t0
+    del params, state
+    torch.cuda.empty_cache()
+    reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.run(ds)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts, plain = train_counts()
+    step_ms = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2] * 1e3
+    bound_ms = analytic_step_flops(cfg, "train", B, S) / arch_spec.peak_flops * 1e3
+    per = step_launches(cfg, "none")
+    want = {name: (f * steps, b * steps) for name, (f, b) in per.items()}
+    classes = [{"kernel": st.bp["kernel"], "dtype": st.bp["dtype"], "point": st.region.selected,
+                "evaluations": st.cost_evaluations}
+               for st in trainer.rule.states().values()]
+    loss0, loss_last = hist["loss"][0], hist["loss"][-1]
+    print(f"[train] {label}: {analytic_param_count(cfg) / 1e9:.3f} B params; warm step (the "
+          f"kernel classes tuned inline) {warm_s:.1f} s; {len(hist['loss'])} steps, step "
+          f"{step_ms:.1f} ms (median after the first) against a bound of {bound_ms:.1f} ms "
+          f"(analytic_step_flops at the bf16 peak), MFU {bound_ms / step_ms:.3f}, "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB; loss "
+          f"{loss0:.4f} at step 0, {loss_last:.4f} at step {steps - 1}")
+    print(f"[train] {label} launches over the run (forward, backward): {counts}, expect "
+          f"{want} ({per} a step); plain calls {plain}")
+    for c in classes:
+        print(f"[train] {cfg.name} kernel class {c['kernel']} {c['dtype']}: point {c['point']}, "
+              f"{c['evaluations']} evaluations")
+    if not all(math.isfinite(x) for x in hist["loss"]):
+        errors.append(f"train {label}: a loss is not finite: {hist['loss']}")
+    if counts != want or plain:
+        errors.append(f"train {label}: launches {counts}, expected {want}, plain {plain}")
+    trainer._final_params = None
+    torch.cuda.empty_cache()
+
+    # a second Trainer on the same DB recalls every kernel class
+    trainer2 = Trainer(cfg, opt, dataclasses.replace(loop, total_steps=1),
+                       tuning_db=TuningDB(db_path), device=device)
+    trainer2.run(ds)
+    trainer2._final_params = None
+    torch.cuda.empty_cache()
+    evals2 = sum(st.cost_evaluations for st in trainer2.rule.states().values())
+    recalled = len(trainer2.rule.states())
+    # the step overfitting one batch from tempered weights, then one step
+    # profiled (its result dropped)
+    tempered = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
+    temper(torch, tm, tempered)
+    params = as_tree(tempered)
+    del tempered
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt, 1)
+    batch0, fit = batch_tensors(ds.batch(0), device), []
+    with serving(trainer2.rule):
+        for _ in range(TRAIN_SCAN_OVERFIT):
+            params, state, metrics = step(params, state, batch0)
+            fit.append(float(metrics["loss"]))
+        prof = step_profile(torch, lambda: step(params, state, batch0))
+    dev_ms = prof["device_ms"]
+    print(f"[train] {label} profiled step: {dev_ms:.1f} ms of device time; " + ", ".join(
+        f"{kind} {ms:.1f} ms ({ms / dev_ms:.1%})" for kind, ms in prof["by_kind_ms"].items()))
+    for key, ms in prof["top"]:
+        print(f"[train]   {ms:9.3f} ms  {key}")
+    print(f"[train] {label} second Trainer on the same DB: {recalled} kernel classes, {evals2} "
+          f"evaluations; overfitting one batch from tempered weights, loss {fit[0]:.4f} at step "
+          f"0, {fit[-1]:.4f} at step {len(fit) - 1}")
+    if evals2 or recalled != len(classes):
+        errors.append(f"train {label}: the second Trainer recalled {recalled} of "
+                      f"{len(classes)} classes with {evals2} evaluations")
+    if not fit[-1] < fit[0] or not all(math.isfinite(x) for x in fit):
+        errors.append(f"train {label}: the loss did not fall on one batch ({fit})")
+    del params, state, batch0
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "B": B, "S": S, "remat": "none",
+        "params_b": analytic_param_count(cfg) / 1e9, "warm_s": warm_s,
+        "steps": len(hist["loss"]), "step_ms": step_ms,
+        "step_times_ms": [x * 1e3 for x in hist["step_time"]], "bound_ms": bound_ms,
+        "mfu": bound_ms / step_ms, "tokens_per_s": B * S / step_ms * 1e3, "peak_gb": peak_gb,
+        "loss_first": loss0, "loss_last": loss_last, "overfit_losses": fit,
+        "launches": counts, "launches_a_step": per, "kernel_classes": classes,
+        "recall_evaluations": evals2, "recalled_classes": recalled, "step_profile": prof,
+    }
+
+
+def train_restart(torch, device, errors, r=TRAIN_RESTART) -> dict:
+    """``r["arch"]`` (tinyllama-1.1b by default) at full width, 2 layers,
+    B=2, S=1024, 8 steps saving every 2 (recurrentgemma-2b: 3 layers, 6
+    steps saving every 4), a SimulatedFailure before step 5: one restart,
+    resumed from the step-4 checkpoint, losses equal bit for bit to an
+    uninterrupted run's (both on one TuningDB, so both run the same kernel
+    points)."""
     import os
 
     from repro_torch.configs import get_config
@@ -1970,8 +2428,7 @@ def train_restart(torch, device, errors) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import SimulatedFailure, Trainer, TrainLoopConfig
 
-    r = TRAIN_RESTART
-    cfg = get_config(TRAIN["arch"]).with_(n_layers=r["layers"])
+    cfg = get_config(r.get("arch", TRAIN["arch"])).with_(n_layers=r["layers"])
     opt = AdamWConfig(warmup_steps=2, total_steps=r["steps"])
     ds = SyntheticLMDataset(cfg, r["B"], r["S"], seed=SEED)
     db = TuningDB()
@@ -1981,7 +2438,9 @@ def train_restart(torch, device, errors) -> dict:
         return TrainLoopConfig(total_steps=r["steps"], save_every=r["save_every"],
                                ckpt_dir=os.path.join(tmp, name), seed=SEED)
 
-    ref = Trainer(cfg, opt, loop("ref"), tuning_db=db, device=device).run(ds)
+    ref_loop = (loop("ref") if r.get("ref_checkpoints", True)
+                else TrainLoopConfig(total_steps=r["steps"], seed=SEED))
+    ref = Trainer(cfg, opt, ref_loop, tuning_db=db, device=device).run(ds)
     fired = []
 
     def hook(step):
@@ -1995,11 +2454,12 @@ def train_restart(torch, device, errors) -> dict:
     want_steps = list(range(r["fail_at"])) + list(range(resumed, r["steps"]))
     want_loss = ref["loss"][:r["fail_at"]] + ref["loss"][resumed:]
     same = hist["loss"] == want_loss
-    print(f"[train] restart: {trainer.restarts} restart(s), steps {hist['step']}, resumed from "
+    print(f"[train] restart {cfg.name} ({r['layers']} layers): {trainer.restarts} restart(s), "
+          f"steps {hist['step']}, resumed from "
           f"step {resumed}; losses bit-identical to the uninterrupted run's: {same} "
           f"(last {hist['loss'][-1]!r} vs {ref['loss'][-1]!r})")
     if trainer.restarts != 1 or hist["step"] != want_steps or not same:
-        errors.append(f"train restart: restarts {trainer.restarts}, steps {hist['step']}, "
+        errors.append(f"train restart {cfg.name}: restarts {trainer.restarts}, steps {hist['step']}, "
                       f"losses {hist['loss']} vs {want_loss}")
     return {"restarts": trainer.restarts, "steps": hist["step"], "bit_identical": same,
             "losses": hist["loss"], "reference_losses": ref["loss"]}
@@ -2015,9 +2475,8 @@ def train_smoke(torch, device, errors) -> dict:
     against JAX's: one AdamW step moves an element by about lr, so a wrong
     gradient shows in the update, not in the parameter), SMOKE_BF16_UPDATE_TOL
     in Whisper, whose gradients all run through its bf16 encoder, and that
-    encoder's bf16 leaves' worst row within 4·2⁻⁸.
-    The SSM and hybrid families must raise the missing backward kernel's
-    error."""
+    encoder's bf16 leaves' worst row within 4·2⁻⁸.  The SSM and hybrid
+    families run their scans' backward kernels on the card."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
@@ -2027,7 +2486,7 @@ def train_smoke(torch, device, errors) -> dict:
 
     out = {}
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
-    for arch in TRAIN_SMOKE + tuple(a for a, _ in TRAIN_SMOKE_RAISE):
+    for arch in TRAIN_SMOKE:
         cfg = get_config(arch, smoke=True)
         params = tm.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
         temper(torch, tm, params)
@@ -2036,19 +2495,6 @@ def train_smoke(torch, device, errors) -> dict:
         card = tree_map(lambda t: t.to(device), cpu)
         batch = SyntheticLMDataset(cfg, 2, 32, seed=SEED).batch(0)
         step = make_train_step(cfg, opt, 1)
-        if arch not in TRAIN_SMOKE:
-            kernel = dict(TRAIN_SMOKE_RAISE)[arch]
-            try:
-                step(card, adamw_init(card, opt), batch_tensors(batch, device))
-                raised = "nothing"
-            except NotImplementedError as e:
-                raised = str(e)
-            ok = raised.startswith(f"{kernel} has no backward kernel")
-            print(f"[train] smoke {arch}: a step on the card raises: {raised[:90]!r}")
-            if not ok:
-                errors.append(f"train smoke {arch}: expected {kernel}'s error, got {raised}")
-            out[arch] = {"raises": ok}
-            continue
         p_cpu, _, m_cpu = step(cpu, adamw_init(cpu, opt), batch_tensors(batch, "cpu"))
         p_card, _, m_card = step(card, adamw_init(card, opt), batch_tensors(batch, device))
         loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
@@ -2078,19 +2524,24 @@ def train_smoke(torch, device, errors) -> dict:
 
 
 def train_phases(torch, device, arch_spec, errors) -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
-
+    """tinyllama's gradient check and its B=4 step first, while the card's
+    memory is empty; then the scans' families; each phase's time."""
+    phases = [("grads", lambda: train_grads(torch, device, errors)),
+              ("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors)),
+              ("grads_scans", lambda: train_grads(torch, device, errors, TRAIN_GRADS_SCANS))]
+    for run in TRAIN_SCANS:
+        phases.append((run["arch"], lambda run=run: train_scan_model(
+            torch, device, arch_spec, errors, **run)))
+    phases += [("restart", lambda: train_restart(torch, device, errors)),
+               ("restart_hybrid", lambda: train_restart(torch, device, errors,
+                                                        TRAIN_RESTART_HYBRID)),
+               ("smoke", lambda: train_smoke(torch, device, errors))]
     out = {}
-    for name, phase in (("grads", lambda: train_grads(torch, device, errors)),
-                        ("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors)),
-                        ("restart", lambda: train_restart(torch, device, errors)),
-                        ("smoke", lambda: train_smoke(torch, device, errors))):
+    for name, phase in phases:
         t0 = time.perf_counter()
         out[name] = phase()
         torch.cuda.empty_cache()
         print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
-    out["launch_counters"] = {"flash_attention": fa_mod.counter.launches,
-                              "flash_attention_bwd": fa_mod.bwd_counter.launches}
     return out
 
 
@@ -2186,7 +2637,8 @@ def run() -> int:
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
         if log.stem in ("flash_attention", "flash_attention_sm90", "ssm_scan", "rglru_scan",
-                        "flash_attention_bwd", "flash_attention_bwd_f32"):
+                        "flash_attention_bwd", "flash_attention_bwd_f32", "ssm_scan_bwd",
+                        "rglru_scan_bwd"):
             continue  # per instantiation below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -2243,6 +2695,34 @@ def run() -> int:
     # ssm_scan: each states count for N a power of two up to 32, and for any N
     if scan_count != 2 * (2 * len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
+    # the scans' backward kernels: ssm_scan_bwd's main kernel at each states
+    # count and its reduce, rglru_scan_bwd's at each segment length and its
+    # reduce, in both dtypes
+    bwd_scan_spill, bwd_scan_count = 0, 0
+    for stem, kernel, knob in (("ssm_scan_bwd", "ssm_bwd_kernel", "states"),
+                               ("rglru_scan_bwd", "rglru_bwd_kernel", "segment")):
+        log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
+        for name, (regs, spill) in sorted(ptxas_entries(log).items()):
+            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", name)
+            red = re.search(r"(ssm_bwd_reduce|rglru_bwd_reduce)", name)
+            if inst:
+                dtype_name = "f32" if inst.group(1) == "f" else "bf16"
+                what = f"{dtype_name} ({knob} {inst.group(2)})"
+            elif red:
+                what = "reduce" + (" f32" if "IfE" in name else " bf16" if "bfloat16" in name
+                                   else "")
+            else:
+                continue
+            print(f"[ptxas] {stem} {what}: {regs} registers, {spill} B spilled")
+            bwd_scan_spill, bwd_scan_count = max(bwd_scan_spill, spill), bwd_scan_count + 1
+    print(f"[build] scans' backward: {bwd_scan_count} instantiations, max spill "
+          f"{bwd_scan_spill} B")
+    # ssm_scan_bwd: 5 states counts and a reduce a dtype; rglru_scan_bwd: 4
+    # segment lengths a dtype and one reduce
+    want = 2 * (len(ssm_mod.STATES) + 1) + 2 * len(rg_mod.SEGMENTS) + 1
+    if bwd_scan_count != want or bwd_scan_spill:
+        return fail(f"scans' backward: {bwd_scan_count} instantiations for {want}, spill "
+                    f"{bwd_scan_spill} B")
     # the flash backward: on mma.sync (float32, bf16 at hd 256) two passes a
     # tile; on wgmma (bf16 below hd 256) the dq pass and the dk/dv pass with
     # and without kv_split's partials a tile, and the delta and reduce passes
@@ -2398,10 +2878,14 @@ def run() -> int:
                   f"the copy {times[best] - kernel_ms:.4f} ms")
     print(f"[c3] hd 300 raises: {fa_mod.head_dim_error(300, 'bfloat16')}")
 
-    # the flash backward: every emitted point, both dtypes, four shapes
+    # the flash backward: every emitted point, both dtypes, six shapes
     t0 = time.perf_counter()
     bwd_cases = flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors)
     print(f"[time] flash bwd sweep: {time.perf_counter() - t0:.1f} s")
+    # the scans' backward kernels: every emitted point at their shapes
+    t0 = time.perf_counter()
+    scan_bwd = scan_bwd_phase(torch, arch, timer, optin, errors)
+    print(f"[time] scan bwd sweep: {time.perf_counter() - t0:.1f} s")
 
     st_inp = st_ref.make_inputs(gen, dims=STRESS_DIMS, device=device)
     st_plain_out = outputs(st_mod.stress_plain(st_inp))
@@ -2907,8 +3391,61 @@ def run() -> int:
                                                 "sdpa_bwd_ms", "max_abs_err", "max_row_err")},
             **{f"b4_{k}": v for k, v in bwd_main["bfloat16_b4"].items()},
             **{f"f32_{k}": v for k, v in bwd_main["float32"].items()},
+            **{f"hd256_{k}": v for k, v in bwd_main["bfloat16_hd256"].items()},
+            **{f"f32_hd256_{k}": v for k, v in bwd_main["float32_hd256"].items()},
+            "recurrentgemma_train_launches":
+                train["recurrentgemma-2b"]["launches"]["flash_attention"][1],
         },
     ]
+    # the scans' backward kernels at their [train] phases' shapes, float32
+    # (the models' scans run in float32): the point the Trainer tuned, its
+    # time in this run's sweep, the bound, the plain backward's time
+    from repro_torch.kernels.rglru_scan import ref as rg_ref_mod
+    from repro_torch.kernels.ssm_scan import ref as ssm_ref_mod
+
+    bwd_gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    for name, source, arch_name, tag in (
+            ("ssm_scan", "ssm_scan_bwd.cu", "falcon-mamba-7b", "(2,2048,8192,N=16)"),
+            ("rglru_scan", "rglru_scan_bwd.cu", "recurrentgemma-2b", "(1,2048,2560)")):
+        run_ = train[arch_name]
+        case = scan_bwd[(name, "float32", tag)]
+        point = next(c["point"] for c in run_["kernel_classes"] if c["kernel"] == f"{name}_bwd")
+        shape = case["shape"]
+        if name == "ssm_scan":
+            x, dt, A, Bc, Cc, Dp = ssm_ref_mod.make_inputs(bwd_gen, device=device, **shape)
+            args = (x, dt, A, Bc, Cc, Dp, torch.randn_like(x), None)
+            plain = ssm_mod.ssm_scan_bwd_plain
+            replaces = "src/repro/models/ssm.py:95"
+        else:
+            x, r, i, lam = rg_ref_mod.make_inputs(bwd_gen, device=device, **shape)
+            args = (x, r, i, lam, torch.randn_like(x))
+            plain = rg_mod.rglru_scan_bwd_plain
+            replaces = "src/repro/models/rglru.py:82"
+        scan_cases = [c for (n, _, _), c in scan_bwd.items() if n == name]
+        bf16 = scan_bwd[(name, "bfloat16", tag.replace("(2,", "(1,"))]
+        kernels.append({
+            "name": f"{name}_bwd", "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": run_["launches"][name][1],
+            "max_abs_err": max(c["max_abs_err"] for c in scan_cases),
+            "max_row_err": max(c["max_row_err"] for c in scan_cases),
+            "ms": case["times"][pp_key(point)],
+            "plain_ms": timer.ms(lambda: plain(*args), reps=1),
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes it
+            "shape": shape, "dtype": "float32", "tuned_point": point,
+            "sfu_floor_ms": case["sfu_ms"], "candidates": case["candidates"],
+            "fastest_swept_point": case["fastest_point"], "fastest_swept_ms": case["fastest_ms"],
+            "forward_point": case["forward_point"], "forward_ms": case["forward_ms"],
+            "launches_a_step": run_["launches_a_step"][name][1],
+            "bf16_fastest_ms": bf16["fastest_ms"], "bf16_bound_ms": bf16["bound_ms"],
+            "bf16_forward_ms": bf16["forward_ms"],
+            "shapes": [{"shape": c["shape"], "dtype": c["dtype"], "fastest_point": c["fastest_point"],
+                        "ms": c["fastest_ms"], "bound_ms": c["bound_ms"],
+                        "forward_ms": c["forward_ms"], "max_abs_err": c["max_abs_err"],
+                        "max_row_err": c["max_row_err"]} for c in scan_cases],
+        })
+        del args
     # stress and the scans: (name, source, TPU kernel, kernel, plain version, args,
     # (flops, bytes) of the call, max errors, swept times)
     ssm_args, _, _, ssm_err, ssm_row, ssm_times = scans[("ssm_scan", "float32")]

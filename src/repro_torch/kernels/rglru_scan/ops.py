@@ -26,6 +26,14 @@ The shape class keeps a power-of-two bucket of the batch (the JAX package
 drops it): the card runs ``batch`` times the CTAs of one sequence, so the
 hint's CTA count and traffic cover the whole call, and a B = 8 call does
 not recall a B = 1 winner.
+
+``rglru_scan_bwd`` (the backward kernel) is a registry op of its own, with
+the forward's class keys and tunables and its point filter on the
+backward's shared memory (a fourth tile, dy, a stage).  Its hint is the
+larger of the bytes' time (x, r, i, dy read; dx, dr, di written) and the
+chain's: per tile, sweep 1's pass over a thread's segment and its join,
+and sweep 2's four passes (the forward's two, the adjoint's composition,
+the gradients) and two joins, at the forward's STEP_S and TILE_S.
 """
 from __future__ import annotations
 
@@ -34,10 +42,11 @@ from typing import Any, Mapping, Optional
 from ...core import ATRegion, BasicParams, KernelSpec, bucket_pow2, register_kernel
 from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 from .rglru_scan import (
-    DTYPES, MAX_SPLIT, MAX_THREADS, SEGMENTS, WARP, chain_steps, rglru_scan, smem_bytes,
-    takes_split, traffic,
+    COMBINE_STEPS, DTYPES, MAX_SPLIT, MAX_THREADS, SEGMENTS, WARP, bwd_max_threads,
+    bwd_smem_bytes, bwd_traffic,
+    chain_steps, rglru_scan, rglru_scan_bwd, seg_len, smem_bytes, takes_split, traffic,
 )
 
 _ELT = {str(dt).replace("torch.", ""): elt for dt, elt in DTYPES.items()}
@@ -118,13 +127,13 @@ def rglru_region(
     )
 
 
-def shape_class(x, r, i, lam) -> BasicParams:
+def shape_class(x, r, i, lam, kernel: str = "rglru_scan") -> BasicParams:
     """(width, seq, dtype) fix the candidate family; the batch enters as a
     power-of-two bucket, which sets the CTA count.  ``framework`` and a
     ``backend`` of ``cuda``/``cpu`` keep the port's keys apart from the JAX
     package's in a shared file."""
     return BasicParams.make(
-        kernel="rglru_scan",
+        kernel=kernel,
         width=int(x.shape[-1]),
         seq=int(x.shape[1]),
         batch=bucket_pow2(int(x.shape[0])),
@@ -144,6 +153,96 @@ register_kernel(
         "rglru_scan",
         make_region=_make_region,
         shape_class=shape_class,
+        prescreen_factory=hint_prescreen,
+        tags=("cuda",),
+    ),
+    replace=True,
+)
+
+
+# -- the backward kernel ----------------------------------------------------------
+
+
+def bwd_chain_steps(S: int, chunk: int, split: int) -> float:
+    """Dependent steps on one backward CTA's chain: per tile, sweep 1's pass
+    over a thread's segment and one join, sweep 2's four passes and two
+    joins (the forward's and the adjoint's)."""
+    tiles = -(-S // chunk)
+    joins = (split.bit_length() - 1) * COMBINE_STEPS
+    return tiles * (5.0 * seg_len(chunk, split) + 3 * joins)
+
+
+def _bwd_takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
+    chunk = min(point["chunk"], bp["seq"])
+    return (_takes(bp, point)
+            and point["block_w"] * point["split"] <= bwd_max_threads(chunk, point["split"]))
+
+
+def _bwd_latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
+    """One CTA's chain, times the CTAs that share the busiest SM."""
+    chunk = point["chunk"]
+    chain = (bwd_chain_steps(bp["seq"], chunk, point["split"]) * STEP_S
+             + 2 * -(-bp["seq"] // chunk) * TILE_S)
+    ctas = bp["batch"] * (bp["width"] // point["block_w"])
+    return chain * -(-ctas // arch.sm_count)
+
+
+def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
+    """(flops, bytes) of the call, a row narrower than an ATOM counted as
+    the whole atom, and sweep 1's second read of x, r and i."""
+    row = point["block_w"] * _elt(bp)
+    flops, bytes_ = bwd_traffic(bp["batch"], bp["seq"], bp["width"], _elt(bp))
+    bytes_ += 3.0 * _elt(bp) * bp["batch"] * bp["seq"] * bp["width"]
+    return flops, bytes_ * ATOM * -(-row // ATOM) / row
+
+
+RGLRU_BWD_POLICY = TilePolicy(
+    kernel="rglru_scan_bwd",
+    dims=RGLRU_POLICY.dims,
+    vmem_model=lambda bp, p: bwd_smem_bytes(p["block_w"], p["chunk"], p["split"], _elt(bp)),
+    traffic_model=_bwd_traffic,
+    grid_multiplier=lambda bp: bp["batch"],
+    latency_model=_bwd_latency,
+    point_filter=_bwd_takes,
+)
+
+
+def rglru_bwd_region(
+    width: int, seq_len: int, batch: int = 1,
+    arch: Optional[ArchSpec] = None, dtype: str = "float32",
+) -> ATRegion:
+    arch = arch or local_arch()
+    emitted = RGLRU_BWD_POLICY.emit(
+        arch, {"width": width, "seq": seq_len, "batch": batch, "dtype": dtype}
+    )
+
+    def instantiate(point: Mapping[str, Any]):
+        bw, ck, sp = point["block_w"], point["chunk"], point["split"]
+        return lambda x, r, i, lam, dy: rglru_scan_bwd(x, r, i, lam, dy, block_w=bw, chunk=ck,
+                                                       split=sp)
+
+    return ATRegion(
+        "rglru_scan_bwd_cuda", emitted.space, instantiate,
+        oracle=rglru_scan_bwd_ref, space_signature=emitted.signature,
+        hints=emitted.hints, arch=arch,
+    )
+
+
+def bwd_shape_class(x, r, i, lam, dy) -> BasicParams:
+    """The forward's class keys (width, seq, batch bucket, dtype, device)."""
+    return shape_class(x, r, i, lam, kernel="rglru_scan_bwd")
+
+
+def _make_bwd_region(bp: BasicParams) -> ATRegion:
+    arch = local_arch() if bp["backend"] == "cuda" else CPU_HOST
+    return rglru_bwd_region(bp["width"], bp["seq"], bp["batch"], arch=arch, dtype=bp["dtype"])
+
+
+register_kernel(
+    KernelSpec(
+        "rglru_scan_bwd",
+        make_region=_make_bwd_region,
+        shape_class=bwd_shape_class,
         prescreen_factory=hint_prescreen,
         tags=("cuda",),
     ),

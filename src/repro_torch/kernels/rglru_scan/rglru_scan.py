@@ -16,6 +16,13 @@ divide W, while ``chunk`` need not divide S: the kernel sets the steps
 past the sequence's end to 0 in shared memory, which makes them the
 identity, so every S runs.  ``split``
 defaults to the least that keeps a segment at most 32 steps.
+
+``rglru_scan_bwd(x, r, i, lam, dy, block_w, chunk, split)`` is the
+backward (``csrc/rglru_scan_bwd.cu`` on CUDA tensors, the plain
+:func:`rglru_scan_bwd_plain` on CPU tensors, counted by ``bwd_counter``):
+(dx, dr, di, dlam) from the output's gradient dy, on the forward's tiles
+and rules.  It recomputes h in float32 (the state at each tile's start
+goes to float32 scratch), so it never reads a rounded bf16 output.
 """
 from __future__ import annotations
 
@@ -25,10 +32,12 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 rglru_scan_plain = rglru_scan_ref
+rglru_scan_bwd_plain = rglru_scan_bwd_ref
 counter = _build.Counter()
+bwd_counter = _build.Counter()
 
 WARP = 32
 MAX_THREADS = 512  # threads of one CTA, block_w * split: the kernel's launch bound
@@ -38,6 +47,7 @@ DTYPES = {torch.float32: 4, torch.bfloat16: 2}  # input dtype -> element bytes
 SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def seg_pad(block_w: int, seg_len: int, split: int, elt: int) -> int:
@@ -188,3 +198,104 @@ def chain_steps(S: int, chunk: int, split: int) -> float:
     combines of COMBINE_STEPS steps each."""
     tiles = -(-S // chunk)
     return tiles * (2.0 * seg_len(chunk, split) + (split.bit_length() - 1) * COMBINE_STEPS)
+
+
+# -- the backward ------------------------------------------------------------
+
+
+def bwd_max_threads(chunk: int, split: int) -> int:
+    """The backward's launch bound at a segment of ``seg_len(chunk,
+    split)`` steps: 512 threads (128 registers), 256 at 32 steps, whose a_t
+    and h_{t-1} take 64 registers."""
+    return 256 if seg_len(chunk, split) >= SEGMENTS[-1] else MAX_THREADS
+
+
+def bwd_smem_bytes(block_w: int, chunk: int, split: int, elt: int = 4) -> int:
+    """Dynamic shared memory of one backward CTA (``smem_bytes`` in
+    ``rglru_scan_bwd.cu``): the forward's layout with a fourth tile, dy,
+    in each of the two stages."""
+    return smem_bytes(block_w, chunk, split, elt) // 3 * 4
+
+
+def bwd_scratch_bytes(B: int, S: int, W: int, chunk: int) -> int:
+    """Float32 scratch of one backward call: the state at each tile's
+    start (B, ceil(S / chunk), W), a whole number of 16 bytes, and dlam's
+    per batch row (B, W)."""
+    return 4 * (-(-B * -(-S // chunk) * W // 4) * 4 + B * W)
+
+
+def _bwd_check(x, r, i, lam, dy, block_w: int, chunk: int, split: Optional[int]):
+    B, S, W, bw, ck, sp = _check(x, r, i, lam, block_w, chunk, split)
+    if bw * sp > bwd_max_threads(ck, sp):
+        raise ValueError(f"rglru_scan_bwd: block_w {bw} x split {sp} = {bw * sp} threads; "
+                         f"the backward takes up to {bwd_max_threads(ck, sp)} at chunk {ck}")
+    if tuple(dy.shape) != (B, S, W) or dy.dtype != x.dtype:
+        raise ValueError(f"rglru_scan_bwd: dy must be x's shape {(B, S, W)} and dtype "
+                         f"{x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    elt = DTYPES[x.dtype]
+    if bwd_smem_bytes(bw, ck, sp, elt) > SMEM_LIMIT:
+        raise ValueError(
+            f"rglru_scan_bwd: tiles ({bw},{ck},{sp}) need {bwd_smem_bytes(bw, ck, sp, elt)} B "
+            f"of shared memory, over {SMEM_LIMIT} B"
+        )
+    return B, S, W, bw, ck, sp
+
+
+def rglru_scan_bwd_cuda(
+    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor, dy: torch.Tensor,
+    block_w: int = 128, chunk: int = 128, split: Optional[int] = None,
+):
+    """Launch the backward kernel on contiguous CUDA tensors: (dx, dr, di,
+    dlam), each in its input's dtype."""
+    B, S, W, bw, ck, sp = _bwd_check(x, r, i, lam, dy, block_w, chunk, split)
+    tensors = (x, r, i, lam, dy)
+    if _build.route(tensors, "rglru_scan_bwd") != "cuda":
+        raise ValueError("rglru_scan_bwd_cuda: inputs must be CUDA tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rglru_scan_bwd_cuda: x, r, i, lam, dy must be contiguous")
+    dx, dr, di, dlam = (torch.empty_like(t) for t in (x, r, i, lam))
+    scratch = torch.empty(bwd_scratch_bytes(B, S, W, ck) // 4, dtype=torch.float32,
+                          device=x.device)
+    code = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch", _BWD_ARGTYPES)(
+        *[t.data_ptr() for t in (x, r, i, lam, dy, dx, dr, di, dlam, scratch)],
+        B, S, W, bw, ck, sp, DTYPES[x.dtype], _build.stream_of(dx),
+    )
+    _build.check(code, f"rglru_scan_bwd_launch(block_w={bw}, chunk={ck}, split={sp})")
+    bwd_counter.launched()
+    return dx, dr, di, dlam
+
+
+def rglru_scan_bwd(
+    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor, dy: torch.Tensor,
+    block_w: int = 128, chunk: int = 128, split: Optional[int] = None,
+):
+    """The RG-LRU scan's backward: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors (tiles are checked either way)."""
+    if _build.route((x, r, i, lam, dy), "rglru_scan_bwd") == "cuda":
+        return rglru_scan_bwd_cuda(x, r, i, lam, dy, block_w, chunk, split)
+    _bwd_check(x, r, i, lam, dy, block_w, chunk, split)
+    bwd_counter.ran_plain()
+    return rglru_scan_bwd_plain(x, r, i, lam, dy)
+
+
+def bwd_smem_bytes_native(block_w: int, chunk: int, split: int, elt: int = 4) -> int:
+    """What the compiled source computes for :func:`bwd_smem_bytes`."""
+    fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_smem_bytes",
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    return int(fn(block_w, chunk, split, elt))
+
+
+def bwd_scratch_bytes_native(B: int, S: int, W: int, chunk: int) -> int:
+    """What the compiled source computes for :func:`bwd_scratch_bytes`."""
+    fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_scratch_bytes",
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    return int(fn(B, S, W, chunk))
+
+
+def bwd_traffic(B: int, S: int, W: int, elt: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call: the forward's 11 operations a
+    step and channel again and 20 of the adjoint's (exp, sqrt and rsqrt
+    counted as one each); x, r, i and dy read once and dx, dr, di written
+    once at ``elt`` bytes an element, lam read and dlam written in
+    float32."""
+    return 31.0 * B * S * W, elt * 7.0 * B * S * W + 8.0 * W

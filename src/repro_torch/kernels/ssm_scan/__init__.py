@@ -1,2 +1,5 @@
 from . import ops, ref
-from .ssm_scan import counter, ssm_scan_cuda, ssm_scan_plain
+from .ssm_scan import (
+    bwd_counter, counter, ssm_scan_bwd, ssm_scan_bwd_cuda, ssm_scan_bwd_plain, ssm_scan_cuda,
+    ssm_scan_plain,
+)

@@ -22,19 +22,31 @@ sequence's end to dt = 0 (decay 1, input 0) in shared memory, so every S
 runs.  With ``final_state=True`` the call also returns the state after the
 last step, (B, D, N) float32, which the kernel writes where it keeps it
 (a model's prefill hands it to decode).
+
+``ssm_scan_bwd(x, dt, A, Bc, Cc, D, dy, dh, block_d, chunk, states)`` is
+the backward (``csrc/ssm_scan_bwd.cu`` on CUDA tensors, the plain
+:func:`ssm_scan_bwd_plain` on CPU tensors, counted by ``bwd_counter``):
+(dx, ddt, dA, dBc, dCc, dD) from the output's gradient dy and, where the
+final state was asked for, its gradient dh.  It takes the forward's tiles
+(the same ``block_d``, ``states`` and rules), and ``chunk`` is the steps
+of one checkpoint: the kernel writes the state at each chunk's start to
+float32 scratch and recomputes the states of a chunk from it, in groups of
+:func:`bwd_group` steps.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
-from .ref import ssm_scan_ref
+from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 ssm_scan_plain = ssm_scan_ref
+ssm_scan_bwd_plain = ssm_scan_bwd_ref
 counter = _build.Counter()
+bwd_counter = _build.Counter()
 
 WARP = 32            # block_d * NP / states is a whole number of warps
 N_MAX = 256          # NP / states lanes a channel, at most a warp's 32
@@ -43,6 +55,7 @@ DTYPES = {torch.float32: 4, torch.bfloat16: 2}  # input dtype -> element bytes
 SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def max_threads(states: int) -> int:
@@ -205,3 +218,135 @@ def sfu_seconds(B: int, S: int, D: int, N: int, peak_flops_fp32: float) -> float
     SFU's 16 a clock per SM, which is ``peak_flops_fp32 / 16`` (an SM's
     128 float32 lanes do 2 operations a clock each)."""
     return B * S * D * N / (peak_flops_fp32 / 16.0)
+
+
+# -- the backward ------------------------------------------------------------
+
+
+BWD_MAX_THREADS = 256  # the backward's launch bound: 255 registers a thread
+
+
+def bwd_group(states: int) -> int:
+    """Steps of one group of the backward (``group_steps`` in the source):
+    their decays and the states before them stay in registers, 16 values of
+    each a thread."""
+    return max(1, 16 // states)
+
+
+def bwd_smem_bytes(block_d: int, chunk: int, n_state: int, states: int, elt: int = 4) -> int:
+    """Dynamic shared memory of one backward CTA (``smem_bytes`` in
+    ``ssm_scan_bwd.cu``): two stages of ``chunk`` steps rounded up to a
+    group, x, dt and dy for ``block_d`` channels and B_t, C_t in rows of
+    :func:`pad_states` values at ``elt`` bytes, each array 16-byte aligned;
+    the state at each group's start (``states`` floats a thread); the
+    warps' float32 sums of dB_t and dC_t over a chunk's steps."""
+    np_, U = pad_states(n_state), bwd_group(states)
+    rows = -(-chunk // U) * U
+    threads = block_d * np_ // states
+    stage = 3 * _align16(rows * block_d * elt) + 2 * _align16(rows * np_ * elt)
+    return (2 * stage + 4 * (rows // U) * states * threads
+            + 4 * 2 * rows * (threads // WARP) * np_)
+
+
+def bwd_scratch_bytes(B: int, S: int, D: int, N: int, block_d: int, chunk: int) -> int:
+    """Float32 scratch of one backward call (``scratch_bytes`` in the
+    source): the state at each chunk's start (B, ceil(S / chunk), D, NP),
+    the CTAs' dB and dC partials (B, D / block_d, S, N) each, dA's and dD's
+    per batch row, each region a whole number of 16 bytes."""
+    def whole(n: int) -> int:
+        return -(-n // 4) * 4
+
+    trips = -(-S // chunk)
+    return 4 * (whole(B * trips * D * pad_states(N)) + 2 * whole(B * (D // block_d) * S * N)
+                + whole(B * D * N) + whole(B * D))
+
+
+def _bwd_check(x, dt, A, Bc, Cc, D, dy, dh, block_d: int, chunk: int, states: int):
+    Bsz, S, Dd, N, bd, ck, k = _check(x, dt, A, Bc, Cc, D, block_d, chunk, states)
+    if tuple(dy.shape) != (Bsz, S, Dd) or dy.dtype != x.dtype:
+        raise ValueError(f"ssm_scan_bwd: dy must be x's shape {(Bsz, S, Dd)} and dtype "
+                         f"{x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    if dh is not None and (tuple(dh.shape) != (Bsz, Dd, N) or dh.dtype != torch.float32):
+        raise ValueError(f"ssm_scan_bwd: dh must be float32 {(Bsz, Dd, N)}, got "
+                         f"{tuple(dh.shape)} {dh.dtype}")
+    threads = bd * pad_states(N) // k
+    if threads > BWD_MAX_THREADS:
+        raise ValueError(f"ssm_scan_bwd: block_d {bd} x N {pad_states(N)} / states {k} = "
+                         f"{threads} threads; the backward takes up to {BWD_MAX_THREADS}")
+    elt = DTYPES[x.dtype]
+    if bwd_smem_bytes(bd, ck, N, k, elt) > SMEM_LIMIT:
+        raise ValueError(
+            f"ssm_scan_bwd: tiles ({bd},{ck},{k}) need {bwd_smem_bytes(bd, ck, N, k, elt)} B "
+            f"of shared memory, over {SMEM_LIMIT} B"
+        )
+    return Bsz, S, Dd, N, bd, ck, k
+
+
+def ssm_scan_bwd_cuda(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+    Cc: torch.Tensor, D: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+    block_d: int = 32, chunk: int = 128, states: int = 1,
+):
+    """Launch the backward kernel on contiguous CUDA tensors: (dx, ddt, dA,
+    dBc, dCc, dD), each in its input's dtype."""
+    Bsz, S, Dd, N, bd, ck, k = _bwd_check(x, dt, A, Bc, Cc, D, dy, dh, block_d, chunk, states)
+    tensors = (x, dt, A, Bc, Cc, D, dy) + (() if dh is None else (dh,))
+    if _build.route(tensors, "ssm_scan_bwd") != "cuda":
+        raise ValueError("ssm_scan_bwd_cuda: inputs must be CUDA tensors")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssm_scan_bwd_cuda: x, dt, A, Bc, Cc, D, dy, dh must be contiguous")
+    dx, ddt, dBc, dCc = (torch.empty_like(t) for t in (x, dt, Bc, Cc))
+    dA, dD = torch.empty_like(A), torch.empty_like(D)
+    scratch = torch.empty(bwd_scratch_bytes(Bsz, S, Dd, N, bd, ck) // 4, dtype=torch.float32,
+                          device=x.device)
+    code = _build.function("ssm_scan_bwd", "ssm_scan_bwd_launch", _BWD_ARGTYPES)(
+        *[t.data_ptr() for t in (x, dt, A, Bc, Cc, D, dy)],
+        None if dh is None else dh.data_ptr(),
+        *[t.data_ptr() for t in (dx, ddt, dA, dBc, dCc, dD, scratch)],
+        Bsz, S, Dd, N, bd, ck, k, DTYPES[x.dtype], _build.stream_of(dx),
+    )
+    _build.check(code, f"ssm_scan_bwd_launch(block_d={bd}, chunk={ck}, states={k}, N={N})")
+    bwd_counter.launched()
+    return dx, ddt, dA, dBc, dCc, dD
+
+
+def ssm_scan_bwd(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+    Cc: torch.Tensor, D: torch.Tensor, dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+    block_d: int = 32, chunk: int = 128, states: int = 1,
+):
+    """The selective scan's backward: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors (tiles are checked either way)."""
+    tensors = (x, dt, A, Bc, Cc, D, dy) + (() if dh is None else (dh,))
+    if _build.route(tensors, "ssm_scan_bwd") == "cuda":
+        return ssm_scan_bwd_cuda(x, dt, A, Bc, Cc, D, dy, dh, block_d, chunk, states)
+    _bwd_check(x, dt, A, Bc, Cc, D, dy, dh, block_d, chunk, states)
+    bwd_counter.ran_plain()
+    return ssm_scan_bwd_plain(x, dt, A, Bc, Cc, D, dy, dh)
+
+
+def bwd_smem_bytes_native(block_d: int, chunk: int, n_state: int, states: int,
+                          elt: int = 4) -> int:
+    """What the compiled source computes for :func:`bwd_smem_bytes`."""
+    fn = _build.function("ssm_scan_bwd", "ssm_scan_bwd_smem_bytes",
+                         [ctypes.c_int] * 5, ctypes.c_longlong)
+    return int(fn(block_d, chunk, n_state, states, elt))
+
+
+def bwd_scratch_bytes_native(B: int, S: int, D: int, N: int, block_d: int, chunk: int) -> int:
+    """What the compiled source computes for :func:`bwd_scratch_bytes`."""
+    fn = _build.function("ssm_scan_bwd", "ssm_scan_bwd_scratch_bytes",
+                         [ctypes.c_int] * 6, ctypes.c_longlong)
+    return int(fn(B, S, D, N, block_d, chunk))
+
+
+def bwd_traffic(B: int, S: int, D: int, N: int, elt: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of one backward call: the forward's 7 operations a
+    step and state again, and 12 of the adjoint's (the exp counted as one),
+    and 8 a step and channel; x, dt, dy, Bc, Cc and dh read once, dx, ddt,
+    dBc, dCc written once at ``elt`` bytes an element (dh float32), A and D
+    read and dA and dD written in float32."""
+    flops = 19.0 * B * S * D * N + 8.0 * B * S * D
+    bytes_ = (elt * (5.0 * B * S * D + 4.0 * B * S * N) + 4.0 * B * D * N
+              + 8.0 * (D * N + D))
+    return flops, bytes_

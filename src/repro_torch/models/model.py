@@ -6,9 +6,8 @@ The port of ``repro.models.model``.  Entry points:
   :func:`init_params` draws it on a device from a ``torch.Generator``.
 * :func:`forward` / :func:`train_loss` — logits and CE (+ MoE aux) for one
   batch, differentiable as the JAX ones are (``repro_torch.runtime.train``
-  takes their gradient); on the card causal attention runs forward and
-  backward on the flash kernels, and the scans raise until their backward
-  kernels exist (:mod:`.route`).
+  takes their gradient); on the card causal attention and the two scans
+  run forward and backward on their kernels (:mod:`.route`).
 * :func:`prefill_fn` / :func:`decode_fn` / :func:`init_cache` — serving.
 * :func:`make_concrete_batch` — random inputs of one cell, from a
   ``torch.Generator``.

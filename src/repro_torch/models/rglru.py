@@ -13,8 +13,12 @@ The residual block is: RMSNorm → {conv1d(4) → RG-LRU} ⊙ GeLU(gate branch)
 ``autotuned("rglru_scan")``, on CPU tensors its plain version.  Its inputs
 are float32 (r and i are float32 in the JAX block, x_t is cast to float32
 in its step, bf16 to float32 being exact), so its y is h itself at every
-step, and ``y[:, -1]`` is the JAX block's final float32 state.  Decode
-(one token) stays in torch ops, as in the JAX package.
+step, and ``y[:, -1]`` is the JAX block's final float32 state.  Where
+autograd wants a gradient of the recurrence on CUDA tensors it runs
+:class:`LruScanFn`: the forward kernel, and the backward kernel
+(``autotuned("rglru_scan_bwd")``) in place of XLA's derivative of the JAX
+``lax.scan``; on CPU tensors autograd runs through the plain version.
+Decode (one token) stays in torch ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 from ..kernels.rglru_scan import rglru_scan as rg_mod
 from .config import ModelConfig
 from .layers import dot, gelu, promote, sigmoid
-from .route import no_backward, on_kernel, run_kernel
+from .route import in_this_context, needs_grad, on_kernel, run_kernel
 from .spec import ParamSpec
 from .ssm import _causal_conv1d, conv_tail
 
@@ -60,10 +64,42 @@ def lru_scan(xs: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tens
     step, (B, S, w) float32."""
     args = tuple(t.float().contiguous() for t in (xs, r, i, lam))
     if on_kernel(xs):
-        no_backward("rglru_scan", *args)
+        if needs_grad(*args):
+            return LruScanFn.apply(*args, kernel_forward, in_this_context(kernel_backward))
         return run_kernel("rglru_scan", *args)
     rg_mod.counter.ran_plain()
     return rg_mod.rglru_scan_plain(*args)
+
+
+def kernel_forward(x, r, i, lam):
+    """h at every step from the forward kernel, tuned per shape class."""
+    return run_kernel("rglru_scan", x, r, i, lam)
+
+
+def kernel_backward(x, r, i, lam, dy):
+    """(dx, dr, di, dlam) from the backward kernel, tuned per shape class."""
+    return run_kernel("rglru_scan_bwd", x, r, i, lam, dy)
+
+
+class LruScanFn(torch.autograd.Function):
+    """The RG-LRU recurrence whose backward recomputes h (in float32) from
+    what the forward saves, its inputs, as XLA's derivative of the JAX
+    ``lax.scan`` does from its residuals.  ``forward_fn(x, r, i, lam)``
+    returns h at every step and ``backward_fn(x, r, i, lam, dy)`` the four
+    gradients: the kernels (:func:`kernel_forward`, :func:`kernel_backward`)
+    or their plain versions (``rglru_scan_plain``, ``rglru_scan_bwd_plain``)."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, lam, forward_fn, backward_fn):
+        y = forward_fn(x, r, i, lam)
+        ctx.save_for_backward(x, r, i, lam)
+        ctx.backward_fn = backward_fn
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, r, i, lam = ctx.saved_tensors
+        return (*ctx.backward_fn(x, r, i, lam, dy.contiguous()), None, None)
 
 
 def _rglru(x: torch.Tensor, p, cfg: ModelConfig):

@@ -10,11 +10,10 @@ to the other.  :func:`plain_versions` sends CUDA tensors to the plain
 versions too, for a caller that holds the kernel route against them on the
 card (``chip_smoke.py``); every plain call adds one to its kernel wrapper's
 ``counter.plain_calls``.  Under autograd the plain versions are torch ops
-and differentiate as they are; causal attention on the kernel route takes
-the flash backward kernel (``attention.FlashAttentionFn``), and the two
-scans, whose backward kernels are not written yet, raise
-(:func:`no_backward`) rather than run a plain version or hand back a
-result with no gradient.
+and differentiate as they are; on the kernel route each kernel's gradient
+is its backward kernel, through an ``autograd.Function``: causal attention
+``attention.FlashAttentionFn``, the Mamba scan ``ssm.SelectiveScanFn``, the
+RG-LRU scan ``rglru.LruScanFn``.
 
 The routing is per thread (context variables); what autograd runs later
 on its own thread (a backward, remat's recompute) is bound to the routing
@@ -72,18 +71,6 @@ def in_this_context(fn):
 def needs_grad(*ts: torch.Tensor) -> bool:
     """True where autograd will ask for the gradient of a call on ``ts``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def no_backward(name: str, *ts: torch.Tensor) -> None:
-    """Raise where a kernel with no backward kernel yet would be asked for a
-    gradient on the card: the plain version is not run in its place, and
-    no tensor without a gradient is handed back."""
-    if needs_grad(*ts):
-        raise NotImplementedError(
-            f"{name} has no backward kernel yet (ROADMAP.md §A item 6a, the scans' "
-            f"backward kernels): a model that calls it trains on the CPU only "
-            f"(device='cpu'), or under plain_versions()"
-        )
 
 
 class ServingRule:

@@ -15,8 +15,12 @@ version.  Its inputs are float32, as the JAX step casts x_t, Δ, B_t and
 C_t (bf16 to float32 is exact), so the kernel's float32 instance computes
 what the JAX step computes.  The kernel's skip term is given D = 0: the
 JAX block rounds y to the activations' dtype first and adds ``xs * D``
-there, which the port then does the same way.  Decode (one token) stays
-in torch ops, as in the JAX package.
+there, which the port then does the same way.  Where autograd wants a
+gradient of the recurrence on CUDA tensors it runs :class:`SelectiveScanFn`:
+the forward kernel, and the backward kernel
+(``autotuned("ssm_scan_bwd")``) in place of XLA's derivative of the JAX
+``lax.scan``; on CPU tensors autograd runs through the plain version.
+Decode (one token) stays in torch ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from ..kernels.ssm_scan import ssm_scan as ssm_mod
 from .config import ModelConfig
 from .layers import dot, promote, silu
-from .route import kernel_state, no_backward, on_kernel, run_kernel
+from .route import in_this_context, kernel_state, needs_grad, on_kernel, run_kernel
 from .spec import ParamSpec
 
 
@@ -71,18 +75,62 @@ def conv_tail(xs_raw: torch.Tensor, K: int) -> torch.Tensor:
 def selective_scan(xs, dt, A, Bt, Ct, final_state: bool = False):
     """The recurrence over float32 (B, S, di) x and Δ, (di, N) A and
     (B, S, N) B_t, C_t, with no skip term: y (B, S, di) float32, and with
-    ``final_state`` also h after the last step (B, di, N) float32."""
+    ``final_state`` also h after the last step (B, di, N) float32.  On
+    CUDA tensors the kernel (through :class:`SelectiveScanFn` where a
+    gradient is wanted), on CPU tensors the plain version."""
     skip = torch.zeros(xs.shape[-1], dtype=torch.float32, device=xs.device)
     args = tuple(t.contiguous() for t in (xs, dt, A, Bt, Ct, skip))
     if on_kernel(xs):
-        no_backward("ssm_scan", *args)
+        if needs_grad(*args):
+            return SelectiveScanFn.apply(*args, final_state, kernel_forward,
+                                         in_this_context(kernel_backward))
         if not final_state:
             return run_kernel("ssm_scan", *args)
-        # the point this shape class tuned (or recalled), with the state out
-        point = kernel_state("ssm_scan", *args).region.selected
-        return ssm_mod.ssm_scan_cuda(*args, **point, final_state=True)
+        return kernel_forward(*args, True)
     ssm_mod.counter.ran_plain()
     return ssm_mod.ssm_scan_plain(*args, final_state=final_state)
+
+
+def kernel_forward(x, dt, A, Bc, Cc, skip, final_state: bool):
+    """y, or (y, h), from the forward kernel at the point its shape class
+    tuned (or recalled): the class serving uses, so training pays no
+    second tune."""
+    point = kernel_state("ssm_scan", x, dt, A, Bc, Cc, skip).region.selected
+    return ssm_mod.ssm_scan(x, dt, A, Bc, Cc, skip, **point, final_state=final_state)
+
+
+def kernel_backward(x, dt, A, Bc, Cc, skip, dy, dh):
+    """(dx, ddt, dA, dBc, dCc, dskip) from the backward kernel, tuned per
+    shape class."""
+    return run_kernel("ssm_scan_bwd", x, dt, A, Bc, Cc, skip, dy, dh)
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The selective scan whose backward recomputes the states from what
+    the forward saves, its inputs (O(S·d), no (S, d, N) state), as XLA's
+    derivative of the JAX ``lax.scan`` does from its residuals.
+    ``forward_fn(x, dt, A, Bc, Cc, skip, final_state)`` returns y, or
+    ``(y, h)``; ``backward_fn(x, dt, A, Bc, Cc, skip, dy, dh)`` returns the
+    six gradients: the kernels (:func:`kernel_forward`,
+    :func:`kernel_backward`), or their plain versions (``ssm_scan_plain``,
+    ``ssm_scan_bwd_plain``).  A gradient through
+    the final state seeds the adjoint (``dh``; None where none flows)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, skip, final_state, forward_fn, backward_fn):
+        ctx.set_materialize_grads(False)
+        out = forward_fn(x, dt, A, Bc, Cc, skip, final_state)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, skip)
+        ctx.backward_fn = backward_fn
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        x, dt, A, Bc, Cc, skip = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        grads = ctx.backward_fn(x, dt, A, Bc, Cc, skip, dy, dh)
+        return (*grads, None, None, None)
 
 
 def _ssm(x: torch.Tensor, p, cfg: ModelConfig, final_state: bool):

@@ -11,16 +11,19 @@ parameters rounded back to their own dtype.
 The functions are pure, as the JAX ones are: :func:`adamw_update` returns
 new parameters and a new state and leaves its arguments as they were (the
 joint tuner runs trial steps on the live state).  The update runs as
-``torch._foreach_*`` ops over all leaves (the JAX package leaves it to XLA;
-no kernel replaces it), with the step's scalars (learning rate, clip scale,
-bias corrections) read to the host once a step.  ``adamw_init_specs`` (the
+``torch._foreach_*`` ops (the JAX package leaves it to XLA; no kernel
+replaces it) over runs of leaves of at most ``GROUP_ELEMENTS`` elements,
+so its float32 temporaries stay bounded at any model size (every op is
+elementwise, so the groups change no bit), with the step's scalars
+(learning rate, clip scale, bias corrections) read to the host once a
+step.  ``adamw_init_specs`` (the
 dry-run's state specs) is left out until the dry-run is ported.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -76,6 +79,26 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+# Leaves a group of the update takes at once, by elements: each of its
+# float32 temporaries (the gradient scaled, the step, the parameters
+# upcast, the update) is at most 1 GiB, whatever the model's size.
+GROUP_ELEMENTS = 1 << 28
+
+
+def _groups(leaves: List[torch.Tensor]) -> Iterator[List[int]]:
+    """Runs of consecutive leaf indices of at most GROUP_ELEMENTS elements
+    (a larger leaf alone)."""
+    part, size = [], 0
+    for i, t in enumerate(leaves):
+        if part and size + t.numel() > GROUP_ELEMENTS:
+            yield part
+            part, size = [], 0
+        part.append(i)
+        size += t.numel()
+    if part:
+        yield part
+
+
 def adamw_update(
     grads: Any, opt_state: Dict[str, Any], params: Any, cfg: AdamWConfig,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -96,32 +119,39 @@ def adamw_update(
     flat_m = flatten(opt_state["m"])[0]
     flat_v = flatten(opt_state["v"])[0]
 
-    # every list below is fresh (out-of-place first op), so the in-place
-    # ops that follow never touch a caller's tensor
-    gf = torch._foreach_mul([g.float() for g in flat_g], scale_f)
-    m_new = torch._foreach_mul([m.float() for m in flat_m], cfg.b1)
-    torch._foreach_add_(m_new, gf, alpha=1 - cfg.b1)
-    v_new = torch._foreach_mul([v.float() for v in flat_v], cfg.b2)
-    torch._foreach_addcmul_(v_new, gf, gf, value=1 - cfg.b2)
-    del gf
-    step = torch._foreach_div(m_new, bc1_f)
-    den = torch._foreach_div(v_new, bc2_f)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, cfg.eps)
-    torch._foreach_div_(step, den)
-    del den
-    pf = [p.float() for p in flat_p]
-    upd = torch._foreach_mul(pf, cfg.weight_decay)
-    torch._foreach_add_(upd, step)
-    torch._foreach_mul_(upd, lr_f)
-    del step
-    new_p = torch._foreach_sub(pf, upd)
-    del upd, pf
+    out_p, out_m, out_v = [], [], []
+    for part in _groups(flat_p):
+        p_, g_, m_, v_ = ([flat[i] for i in part] for flat in (flat_p, flat_g, flat_m, flat_v))
+        # every list below is fresh (out-of-place first op), so the in-place
+        # ops that follow never touch a caller's tensor
+        gf = torch._foreach_mul([g.float() for g in g_], scale_f)
+        m_new = torch._foreach_mul([m.float() for m in m_], cfg.b1)
+        torch._foreach_add_(m_new, gf, alpha=1 - cfg.b1)
+        v_new = torch._foreach_mul([v.float() for v in v_], cfg.b2)
+        torch._foreach_addcmul_(v_new, gf, gf, value=1 - cfg.b2)
+        del gf
+        step = torch._foreach_div(m_new, bc1_f)
+        den = torch._foreach_div(v_new, bc2_f)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, cfg.eps)
+        torch._foreach_div_(step, den)
+        del den
+        pf = [p.float() for p in p_]
+        upd = torch._foreach_mul(pf, cfg.weight_decay)
+        torch._foreach_add_(upd, step)
+        torch._foreach_mul_(upd, lr_f)
+        del step
+        new_p = torch._foreach_sub(pf, upd)
+        del upd, pf
+        out_p += [x.to(p.dtype) for x, p in zip(new_p, p_)]
+        out_m += [x.to(mdt) for x in m_new]
+        out_v += [x.to(mdt) for x in v_new]
+        del new_p, m_new, v_new
 
-    new_params = unflatten(structure, [x.to(p.dtype) for x, p in zip(new_p, flat_p)])
+    new_params = unflatten(structure, out_p)
     new_state = {
-        "m": unflatten(structure, [x.to(mdt) for x in m_new]),
-        "v": unflatten(structure, [x.to(mdt) for x in v_new]),
+        "m": unflatten(structure, out_m),
+        "v": unflatten(structure, out_v),
         "count": count,
     }
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -136,17 +136,19 @@ def test_every_kernel_source_names_what_it_replaces():
     assert {p.stem for p in sources} == {
         "exb", "flash_attention", "flash_attention_sm90", "stress", "ssm_scan", "rglru_scan",
         "loop_nest", "flash_attention_bwd", "flash_attention_bwd_f32",
-        "flash_attention_bwd_sm90",
+        "flash_attention_bwd_sm90", "ssm_scan_bwd", "rglru_scan_bwd",
     }
     for src in sources:
         text = src.read_text()
-        # loop_nest replaces core/exchange.py's LoopNest.variant_fn, and the flash
-        # backward models/attention.py's _flash_bwd: neither is a Pallas kernel
+        # loop_nest replaces core/exchange.py's LoopNest.variant_fn, the flash
+        # backward models/attention.py's _flash_bwd and the scans' backwards
+        # XLA's derivatives of the models' lax.scan: none is a Pallas kernel
         where = {"loop_nest": "src/repro/core/",
                  "flash_attention_bwd": "src/repro/models/",
                  "flash_attention_bwd_f32": "src/repro/models/",
-                 "flash_attention_bwd_sm90": "src/repro/models/"}.get(src.stem,
-                                                                      "src/repro/kernels/")
+                 "flash_attention_bwd_sm90": "src/repro/models/",
+                 "ssm_scan_bwd": "src/repro/models/",
+                 "rglru_scan_bwd": "src/repro/models/"}.get(src.stem, "src/repro/kernels/")
         assert f"Replaces: {where}" in text
         assert "What bounds it" in text and "Design." in text
 

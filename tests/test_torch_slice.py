@@ -152,7 +152,8 @@ def test_fast_dispatch_keys_on_the_device():
 
 def test_one_registry_per_package():
     assert tcore.REGISTRY is not jcore.REGISTRY
-    # the five ported kernels and the flash backward (no JAX registry name)
-    assert set(tcore.kernel_names()) == set(NAMES) | {"flash_attention_bwd"}
+    # the five ported kernels and the three backwards (no JAX registry name)
+    assert set(tcore.kernel_names()) == set(NAMES) | {"flash_attention_bwd", "ssm_scan_bwd",
+                                                      "rglru_scan_bwd"}
     assert "exb" in jcore.kernel_names()
     assert tcore.get_kernel("exb").make_region is not jcore.get_kernel("exb").make_region

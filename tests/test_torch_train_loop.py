@@ -5,8 +5,7 @@ bit for bit to an uninterrupted run's, tunes (microbatch degree × remat)
 jointly and a second Trainer on the same TuningDB recalls the winner with
 0 evaluations (the counterparts of ``tests/test_runtime.py:100-147`` and
 ``tests/test_program.py:454``); the train CLI runs on ``--device cpu``;
-and what the card's route refuses (the scans' gradient, fleet keying)
-raises."""
+and fleet keying, which waits for the fleet, raises."""
 from __future__ import annotations
 
 import contextlib
@@ -24,7 +23,6 @@ from repro.data import SyntheticLMDataset as JaxDataset
 from repro_torch.configs import get_config
 from repro_torch.core import TuningDB
 from repro_torch.data import SyntheticLMDataset
-from repro_torch.models import route
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import SimulatedFailure, Trainer, TrainLoopConfig
 from repro_torch.tree import flatten
@@ -148,15 +146,6 @@ def test_parameters_take_the_configs_dtype():
 def test_device_key_waits_for_the_fleet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(SMOKE, _opt_cfg(), TrainLoopConfig(device_key=True), device="cpu")
-
-
-def test_a_kernel_without_a_backward_refuses_a_gradient():
-    x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ssm_scan has no backward kernel"):
-        route.no_backward("ssm_scan", x)
-    with torch.no_grad():
-        route.no_backward("ssm_scan", x)  # serving: no gradient wanted
-    route.no_backward("ssm_scan", x.detach())
 
 
 def test_train_cli_runs_on_the_cpu():

@@ -136,3 +136,28 @@ def test_adamw_bf16_moment_compression():
                                       params, cfg)
     assert state2["v"]["w"].dtype == torch.bfloat16
     assert params2["w"].dtype == torch.bfloat16
+
+
+def test_the_update_in_groups_of_leaves_changes_no_bit(monkeypatch):
+    """The update runs over runs of leaves of at most GROUP_ELEMENTS
+    elements (its float32 temporaries bounded at any model size); every op
+    is elementwise, so any grouping gives the same bits as one group."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    gen = torch.Generator().manual_seed(3)
+    shapes = ((300, 100), (50,), (7, 7), (4000,))
+    params = {"a": [torch.randn(s, generator=gen).to(torch.bfloat16 if len(s) == 2 else
+                                                        torch.float32) for s in shapes]}
+    grads = {"a": [torch.randn(s, generator=gen).to(p.dtype) for s, p in
+                   zip(shapes, params["a"])]}
+    cfg = adamw_mod.AdamWConfig()
+    state = adamw_mod.adamw_init(params, cfg)
+    whole = adamw_mod.adamw_update(grads, state, params, cfg)
+    monkeypatch.setattr(adamw_mod, "GROUP_ELEMENTS", 100)
+    leaves = adamw_mod.flatten(params)[0]
+    assert list(adamw_mod._groups(leaves)) == [[0], [1, 2], [3]]
+    grouped = adamw_mod.adamw_update(grads, state, params, cfg)
+    for tree_w, tree_g in ((whole[0], grouped[0]), (whole[1]["m"], grouped[1]["m"]),
+                           (whole[1]["v"], grouped[1]["v"])):
+        for w, g in zip(adamw_mod.flatten(tree_w)[0], adamw_mod.flatten(tree_g)[0]):
+            assert w.dtype == g.dtype and torch.equal(w, g)
