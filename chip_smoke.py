@@ -105,8 +105,8 @@ Phases, each of which fails the run:
    hd 36 (8|2), bf16 and f32, the forward with its lse (o equal to the call
    without it, lse against the plain version's), then every emitted point
    of ``flash_attention_bwd`` (``kv_split`` included; at recurrentgemma-2b's
-   (10|1, hd 256) too, bf16 and f32, the mma.sync kernel, its fastest point
-   beside SDPA's backward) against
+   (10|1, hd 256) too, bf16 and f32, tuned through the registry beside its
+   fastest swept point and SDPA's backward, bf16's passes timed) against
    ``attention_bwd_plain`` in float32 (bf16) or float64 (f32), the plain
    versions a batch row at a time, per element at ``DEFAULT_TOL`` and worst
    row (dq without query 0), and called twice for the same bits; the
@@ -224,7 +224,8 @@ also give ``model_launches`` (a prefill's, per model),
 bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
 bf16, at B=4 (``b4_*``, with ``passes_ms`` as at B=1) and in f32
 (``f32_*``) and at hd 256 (``hd256_*``, ``f32_hd256_*``), and
-``train_launches``; ``ssm_scan_bwd`` and ``rglru_scan_bwd`` their
+``train_launches`` (flash's forward also SDPA's forward time at hd 256,
+``hd256_library_ms``); ``ssm_scan_bwd`` and ``rglru_scan_bwd`` their
 launches in the falcon-mamba-7b and recurrentgemma-2b ``[train]`` runs,
 the time of the point the Trainer tuned at that run's shape in float32, the
 bound, the plain backward's time, the forward's time beside it and every
@@ -1729,8 +1730,8 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
 # tinyllama-1.1b's width at the [train] phase's S, at its B = 4 (the batch
 # offsets of every pass) and at S = 2000 (a tail no tile divides),
 # qwen3-0.6b's (16|8, hd 128), a C3 head dim (hd 36, padded to 40 by the
-# wrapper) and recurrentgemma-2b's (10|1, hd 256: the mma.sync kernel in
-# bf16 too), which its [train] phase launches
+# wrapper) and recurrentgemma-2b's (10|1, hd 256: kv_split 1, 2, 5 and 10
+# in bf16), which its [train] phase launches
 FLASH_BWD = dict(B=1, S=4096, H=32, KV=4, hd=64)
 FLASH_BWD_SHAPES = (FLASH_BWD, dict(FLASH_BWD, B=4), dict(FLASH_BWD, S=2000), FLASH_HD128,
                     dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256)
@@ -1771,7 +1772,7 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
     o and lse against ``attention_bwd_plain`` run on the same inputs in
     float32 (bf16) or float64 (float32), the plain versions a batch row at a
     time; returns {(dtype, B, S, hd): case}."""
-    from repro_torch.core import bucket_pow2
+    from repro_torch.core import bucket_pow2, pp_key
 
     device = torch.device("cuda:0")
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
@@ -1842,6 +1843,11 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
                           fa_mod.flash_attention_bwd_cuda(*args, **p)))]
             print(f"[kernel] flash bwd {dtype_name} {tag}: two calls of each of "
                   f"{len(times)} points bit-identical: {not differ}")
+            for point in region.space.points():  # the hint's rank beside the card's
+                hint = region.hints[pp_key(point)]
+                print(f"[hint] flash bwd {dtype_name} {tag} {pp_key(point)}: est "
+                      f"{hint['est_s'] * 1e3:.4f} ms (latency {hint['latency_s'] * 1e3:.4f}), "
+                      f"measured {times[pp_key(point)]:.4f} ms")
             if differ:
                 errors.append(f"flash bwd {dtype_name} {tag}: two calls differ at {differ}")
             cases[(dtype_name, B, S, hd)] = {"args": args, "ref": ref, "times": times,
@@ -1921,11 +1927,15 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
         d = key.split("_")[0]
         row["max_row_err"] = max(c["row"] for k, c in cases.items() if k[0] == d)
         row["max_abs_err"] = max(c["err"] for k, c in cases.items() if k[0] == d)
-    # recurrentgemma-2b's hd 256 (the mma.sync kernel in both dtypes): the
-    # fastest swept point beside SDPA's backward and the bound
+    # recurrentgemma-2b's hd 256 (bf16 on the wgmma kernel, float32 on
+    # mma.sync): its class tuned through the registry, the tuned point beside
+    # the fastest swept one, SDPA's backward and the bound; bf16's passes
+    from repro_torch.core import pp_key
+
     for dtype_name in ("bfloat16", "float32"):
         case = cases[(dtype_name, FLASH_HD256["B"], FLASH_HD256["S"], FLASH_HD256["hd"])]
-        q, k, v, o, lse, do = case["args"]
+        args = case["args"]
+        q, k, v, o, lse, do = args
         qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
 
@@ -1933,19 +1943,33 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
         sdpa_ms = timer.ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot)) - timer.ms(sdpa)
+        fa_mod.bwd_counter.reset()
+        state, tune_s, recall_s = main_path(torch, "flash_attention_bwd", args, case["ref"],
+                                            dtype_name, db_path, errors, view=bwd_rows)
+        point = state.region.selected
         best = min(case["times"], key=case["times"].get)
         bound, by = flash_bwd_bound_ms(arch, dtype_name=dtype_name, **FLASH_HD256)
-        plain_ms = timer.ms(lambda: by_batch_row(torch, fa_ref.attention_bwd_plain,
-                                                 case["args"]), reps=3)
-        ms = case["times"][best]
+        plain_ms = timer.ms(lambda: by_batch_row(torch, fa_ref.attention_bwd_plain, args), reps=3)
+        ms = timer.ms(lambda: fa_mod.flash_attention_bwd_cuda(*args, **point))
+        swept = case["times"][pp_key(point)]
         tag = "(1,2048,10|1,256)"
-        print(f"[kernel] flash bwd {dtype_name} {tag} fastest {best}: {ms:.4f} ms, bound "
+        print(f"[kernel] flash bwd {dtype_name} {tag} tuned {point}: {ms:.4f} ms, bound "
               f"{bound:.4f} ms ({by}), {ms / bound:.2f}x; plain {plain_ms:.3f} ms, SDPA "
-              f"backward {sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x)")
-        out[f"{dtype_name}_hd256"] = {
-            "fastest_swept_point": json.loads(best), "ms": ms, "bound_ms": bound, "bound_by": by,
-            "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_ms, "candidates": len(case["times"]),
+              f"backward {sdpa_ms:.4f} ms ({ms / sdpa_ms:.2f}x); fastest swept {best} "
+              f"{case['times'][best]:.4f} ms, the tuned point {swept:.4f} ms in the sweep, "
+              f"within 10%: {swept <= 1.1 * case['times'][best]}")
+        row = {
+            "tuned_point": point, "ms": ms, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_ms, "sdpa_bwd_ms": sdpa_ms, "tune_s": tune_s,
+            "recall_s": recall_s, "candidates": len(case["times"]),
+            "fastest_swept_point": json.loads(best), "fastest_swept_ms": case["times"][best],
             "max_abs_err": case["err"], "max_row_err": case["row"]}
+        if dtype_name == "bfloat16":
+            row["passes_ms"] = bwd_pass_ms(torch, fa_mod.bwd_pass_runs(*args, **point), flush)
+            print(f"[kernel] flash bwd passes {tag} at {point}: " + ", ".join(
+                f"{name} {t:.4f} ms" for name, t in row["passes_ms"].items())
+                + f" (sum {sum(row['passes_ms'].values()):.4f}); SDPA backward {sdpa_ms:.4f} ms")
+        out[f"{dtype_name}_hd256"] = row
     return out
 
 
@@ -2723,21 +2747,22 @@ def run() -> int:
     if bwd_scan_count != want or bwd_scan_spill:
         return fail(f"scans' backward: {bwd_scan_count} instantiations for {want}, spill "
                     f"{bwd_scan_spill} B")
-    # the flash backward: on mma.sync (float32, bf16 at hd 256) two passes a
-    # tile; on wgmma (bf16 below hd 256) the dq pass and the dk/dv pass with
-    # and without kv_split's partials a tile, and the delta and reduce passes
+    # the flash backward, on mma.sync (float32) and on wgmma (bf16): the dq
+    # pass and the dk/dv pass with and without kv_split's partials a tile,
+    # and the delta and reduce passes
     bwd_spill, bwd_count, sm90_count = 0, 0, 0
-    for stem in ("flash_attention_bwd", "flash_attention_bwd_f32", "flash_attention_bwd_sm90"):
+    for stem in ("flash_attention_bwd_f32", "flash_attention_bwd_sm90"):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         for name, (regs, spill) in sorted(ptxas_entries(log).items()):
-            inst = re.search(r"(flash_bwd_dq|flash_bwd_dkv)I(f|13__nv_bfloat16)"
-                             r"Li(\d+)ELi(\d+)ELi(\d+)E", name)
+            inst = re.search(r"(flash_bwd_dq|flash_bwd_dkv)ILi(\d+)ELi(\d+)ELi(\d+)E(Lb1E)?",
+                             name)
             wg = re.search(r"(flash_bwd_dq|flash_bwd_dkv)_sm90ILi(\d+)ELi(\d+)ELi(\d+)E(Lb1E)?",
                            name)
             if inst:
-                dtype_name = "f32" if inst.group(2) == "f" else "bf16"
-                print(f"[ptxas] flash bwd {dtype_name} {inst.group(1)[10:]} (hd={inst.group(3)}, "
-                      f"{inst.group(4)}, {inst.group(5)}): {regs} registers, {spill} B spilled")
+                split = ", kv_split partials" if inst.group(5) else ""
+                print(f"[ptxas] flash bwd f32 {inst.group(1)[10:]} (hd={inst.group(2)}, "
+                      f"{inst.group(3)}, {inst.group(4)}{split}): {regs} registers, {spill} B "
+                      f"spilled")
                 bwd_count += 1
             elif wg:
                 split = ", kv_split partials" if wg.group(5) else ""
@@ -2753,10 +2778,10 @@ def run() -> int:
         for line in log.splitlines():
             if "Performance" in line:
                 print(f"[ptxas] flash bwd {stem}: {line.strip()}")
-    mma_tiles = len(fa_mod.BWD_MMA_TILES["float32"]) + len(fa_mod.BWD_MMA_TILES["bfloat16"])
+    mma_tiles = len(fa_mod.BWD_F32_TILES)
     print(f"[build] flash bwd: {bwd_count} mma.sync instantiations, {sm90_count} wgmma, max "
           f"spill {bwd_spill} B")
-    if (bwd_count != 2 * mma_tiles or sm90_count != 3 * len(fa_mod.BWD_SM90_TILES)
+    if (bwd_count != 3 * mma_tiles or sm90_count != 3 * len(fa_mod.BWD_SM90_TILES)
             or bwd_spill):
         return fail(f"flash bwd: {bwd_count} mma.sync instantiations for {mma_tiles} tiles, "
                     f"{sm90_count} wgmma for {len(fa_mod.BWD_SM90_TILES)}, spill {bwd_spill} B")
@@ -3149,6 +3174,11 @@ def run() -> int:
           f"{times256[pp_key(hd256_pt)]:.4f} ms in the sweep")
     if fa_mod.counter.launches <= 0 or hd256_plain != 0:
         errors.append("flash_attention hd 256: main path did not run through its kernel alone")
+    q256, k256, v256 = (t.transpose(1, 2) for t in qkv256)
+    hd256_sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        q256, k256, v256, is_causal=True, enable_gqa=True))
+    print(f"[main] flash_attention hd 256: the tuned point {times256[pp_key(hd256_pt)]:.4f} ms "
+          f"in the sweep, SDPA's forward {hd256_sdpa_ms:.4f} ms")
 
     # the flash backward's tinyllama class of each dtype: tuned, recalled, timed
     bwd_main = flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, bwd_cases, db_path, errors)
@@ -3374,7 +3404,7 @@ def run() -> int:
         {
             "name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
-            "hd256_source": "src/repro_torch/csrc/flash_attention_bwd.cuh",
+            "hd256_source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
             "f32_source": "src/repro_torch/csrc/flash_attention_bwd_f32.cu",
             "replaces": "src/repro/models/attention.py:260",
             "launches": train["tinyllama"]["flash_bwd_launches"],
@@ -3537,6 +3567,7 @@ def run() -> int:
         "hd256_tuned_point": hd256_pt, "hd256_launches": launches["flash_attention hd256"],
         "hd256_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(*qkv256, **hd256_pt)),
         "hd256_bound_ms": flash_bound_ms(**FLASH_HD256, dtype_name="bfloat16"),
+        "hd256_library_ms": hd256_sdpa_ms,
         "hd256_tune_s": hd256_tune_s, "hd256_recall_s": hd256_recall_s,
     })
     # ssm_scan at the 3b state sizes

@@ -20,10 +20,13 @@ median of 5).
   S=2000), with the time of SDPA's memory-efficient kernel in f32 (K and V
   expanded to the query heads) beside it;
 * ``flash_attention_bwd``: the bf16 backward at tinyllama-1.1b width (B=1
-  and B=4, S=4096, 32|4 heads, hd 64) and qwen3-0.6b width (B=1, S=2048,
-  16|8 heads, hd 128) on the forward kernel's o and lse, held against the
-  plain version in float32 a batch row at a time, with SDPA's backward
-  (its forward and backward less its forward) beside each;
+  and B=4, S=4096, 32|4 heads, hd 64), qwen3-0.6b width (B=1, S=2048,
+  16|8 heads, hd 128) and recurrentgemma-2b's (B=1, S=2048, 10|1 heads,
+  hd 256), and the float32 backward at tinyllama-1.1b width (B=1) and
+  recurrentgemma-2b's, on the forward kernel's o and lse, held against the
+  plain version in float32 (bf16) or float64 (float32) a batch row at a
+  time, with SDPA's backward (its forward and backward less its forward)
+  beside each;
 * ``exb``: the paper's GKV domain (16, 16, 128, 65), f32;
 * ``ssm_scan``: falcon-mamba-7b width (B=1, S=2048, D=8192, N=16), f32 and
   bf16;
@@ -46,7 +49,8 @@ KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd", "exb
 # the sources whose ptxas report a kernel's run prints (those the version has)
 SOURCES = {"flash_attention": ("flash_attention_sm90",),
            "flash_attention_f32": ("flash_attention",),
-           "flash_attention_bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd"),
+           "flash_attention_bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd",
+                                   "flash_attention_bwd_f32"),
            "exb": ("exb",), "ssm_scan": ("ssm_scan",), "rglru_scan": ("rglru_scan",)}
 
 
@@ -57,23 +61,30 @@ def cases(torch, name, arch, gen, dev):
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from chip_smoke import (
-        EXB_DIMS, FLASH, FLASH_B, FLASH_BWD, FLASH_HD128, RGLRU, SCAN_TOL, SSM, by_batch_row,
-        bwd_rows,
+        EXB_DIMS, FLASH, FLASH_B, FLASH_BWD, FLASH_HD128, FLASH_HD256, RGLRU, SCAN_TOL, SSM,
+        by_batch_row, bwd_rows,
     )
     from repro_torch.core import bucket_pow2
 
     if name == "flash_attention_bwd":
         from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref
 
-        for shape in (FLASH_BWD, dict(FLASH_BWD, B=4), FLASH_HD128):
+        for dt_name, shape in (("bfloat16", FLASH_BWD), ("bfloat16", dict(FLASH_BWD, B=4)),
+                               ("bfloat16", FLASH_HD128), ("bfloat16", FLASH_HD256),
+                               ("float32", FLASH_BWD), ("float32", FLASH_HD256)):
             B, S, H, KV, hd = (shape[k] for k in ("B", "S", "H", "KV", "hd"))
-            q, k, v = ref.make_inputs(gen, device=dev, **shape)
+            dtype = getattr(torch, dt_name)
+            q, k, v = ref.make_inputs(gen, dtype=dtype, device=dev, **shape)
             do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            # the forward on its first emitted tile (f32 at hd 256 has no (64, 64))
+            fwd = next(iter(ops.flash_region(S, hd, dt_name, arch=arch,
+                                             heads=bucket_pow2(B * H)).space.points()))
+            o, lse = fa.flash_attention_cuda(q, k, v, **fwd, return_lse=True)
             args = (q, k, v, o, lse, do)
+            work = torch.float64 if dt_name == "float32" else torch.float32
             plain = bwd_rows(by_batch_row(torch, ref.attention_bwd_plain,
-                                          tuple(t.float() for t in args)))
-            region = ops.flash_bwd_region(S, hd, "bfloat16", arch=arch,
+                                          tuple(t.to(work) for t in args)))
+            region = ops.flash_bwd_region(S, hd, dt_name, arch=arch,
                                           heads=bucket_pow2(B * H), group=H // KV)
             qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                           for t in (q, k, v))
@@ -85,9 +96,9 @@ def cases(torch, name, arch, gen, dev):
 
             library = (lambda sdpa=sdpa, qt=qt, kt=kt, vt=vt, dot=dot: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot), sdpa)
-            yield (f"flash_bwd bfloat16 ({B},{S},{H}|{KV},{hd})", region,
+            yield (f"flash_bwd {dt_name} ({B},{S},{H}|{KV},{hd})", region,
                    lambda p, args=args: bwd_rows(fa.flash_attention_bwd_cuda(*args, **p)),
-                   plain, "bfloat16", None, fa.bwd_counter, library)
+                   plain, dt_name, None, fa.bwd_counter, library)
         return
     if name.startswith("flash_attention"):
         from repro_torch.kernels.flash_attention import flash_attention as fa, ops, ref

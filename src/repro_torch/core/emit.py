@@ -23,6 +23,8 @@ Hopper meanings (the JAX package's floors are TPU lane/sublane shapes):
 A dim's ``max_tile`` caps its ladder where the kernel maps the tile onto
 threads (at most 1024 a CTA), a dim with ``pow2_only`` ladders over
 powers of two alone (a kernel whose tiles are compile-time instantiations),
+a dim with ``divisors`` over the divisors of its extent (a count that must
+cut it evenly),
 and a policy's ``grid_multiplier`` counts the CTAs a launch repeats every
 tile over (the batch, the heads), so the hint sees the whole call.
 
@@ -66,6 +68,8 @@ class TileDim:
     ``pow2_only`` marks a kernel that takes power-of-two tiles alone: the
     ladder never falls back to the full extent, and with ``allow_padding``
     it runs up to the first power of two at or past the extent.
+    ``divisors`` marks a count that must divide the extent: the ladder is
+    every divisor from the minimum to ``max_tile``.
     """
 
     name: str
@@ -75,6 +79,7 @@ class TileDim:
     allow_padding: bool = False
     max_tile: Optional[int] = None
     pow2_only: bool = False
+    divisors: bool = False
 
     def __post_init__(self) -> None:
         if self.semantic not in _SEMANTICS:
@@ -134,6 +139,10 @@ def pow2_ladder(dim: TileDim, arch: ArchSpec, cap: int = MAX_PER_DIM) -> Tuple[i
     allows padded tails), plus the full extent itself; none above
     ``dim.max_tile``.  At most ``cap`` values survive — the largest ones,
     since the shared-memory constraint prunes from above anyway."""
+    if dim.divisors:
+        hi = dim.extent if dim.max_tile is None else min(dim.extent, dim.max_tile)
+        out = [v for v in range(dim.resolved_min(arch), hi + 1) if dim.extent % v == 0]
+        return tuple(out[-cap:])
     if dim.pow2_only:
         out = []
         v = max(1, dim.resolved_min(arch))
@@ -355,6 +364,7 @@ def space_signature(
                 # the signatures they had before they existed
                 **({} if d.max_tile is None else {"max_tile": d.max_tile}),
                 **({"pow2_only": True} if d.pow2_only else {}),
+                **({"divisors": True} if d.divisors else {}),
             }
             for d in dims
         ],

@@ -1,15 +1,15 @@
 // Causal GQA flash attention, backward, bf16, on Hopper's tensor cores:
-// dq, dk, dv from q, k, v, o, lse and do, at tile head dims 16..128.
+// dq, dk, dv from q, k, v, o, lse and do, at tile head dims 16..256.
 //
 // Replaces: src/repro/models/attention.py, _flash_bwd (:260), the custom
 // VJP of flash_attention_xla (:346) that XLA compiles; it has no Pallas
-// site.  bf16 at tile hd 256 and every float32 tile stay on
-// flash_attention_bwd.cuh (mma.sync).
+// site.  Every bf16 call runs here; float32 runs on flash_attention_bwd.cuh
+// (mma.sync, 3xTF32).
 //
 // q, o, do, dq (B,S,H,hd), k, v, dk, dv (B,S,KV,hd) bf16, lse float32
 // (B,H,S) (the forward's residual m + log l); KV head = h / G, G = H/KV.
-// hd is a run-time multiple of 8 up to 128, run on the least tile head dim
-// HD in {16, 32, 64, 128} at or above it; TMA fills the tile's columns past
+// hd is a run-time multiple of 8 up to 256, run on the least tile head dim
+// HD in {16, 32, 64, 128, 256} at or above it; TMA fills the tile's columns past
 // hd with zeros (the forward's rule), which add nothing to any product, and
 // they are never stored.
 //
@@ -41,7 +41,7 @@
 //     MN-major from the same shared tile that S read K-major (as the
 //     forward reads V for P.V).
 //  3. dk, dv: one CTA per (KV block, KV head x kv_split, batch), one
-//     consumer warpgroup per 64 keys (block_kv 64 or 128).  K and V are
+//     consumer warpgroup per 64 keys (block_kv 64 or 128) below HD 256.  K and V are
 //     loaded once; the CTA walks G / kv_split consecutive query heads of
 //     its group, in order, and for each the q blocks at or below the
 //     diagonal; Q and dO of each (head, q block) go through the ring.
@@ -53,16 +53,31 @@
 //     block's with plain loads issued at the top of a trip, as inline asm
 //     that stays ahead of the trip's wgmma, and stores them to the stage
 //     after the trip's products.
-//  4. kv_split (a tunable, a power of two dividing G): at 1 the dk/dv pass
+//     At HD 256 a warpgroup's dK and dV of 64 keys would be 256 floats a
+//     thread before S^T and dP^T, so two warpgroups (kColGroups) share the
+//     CTA's 64 keys (block_q = block_kv = 64): warpgroup c computes S^T and
+//     dP^T for q rows 32c .. 32c + 31 of the trip (N = 32, K = 256; each
+//     product once, no column chunk recomputes one), forms its P^T and
+//     dS^T and stores them as bf16 into two staged 64 x 64 tiles, swizzled
+//     as TMA's 128-byte mode lays a box (stage_a); a proxy fence and the
+//     CTA barrier later, each warpgroup runs dV += P^T.dO and dK += dS^T.Q
+//     as ss products (A K-major from the staged tile, B MN-major) on its two
+//     boxes of 64 columns, so it holds 64 + 64 floats of dK and dV and 16 +
+//     16 of S^T and dP^T.  Shared memory: K and V once (64 KB), two Q/dO
+//     stages (128 KB), the staged tiles (16 KB), 210 KB in all.  The dq
+//     pass needs no change there: one warpgroup, S, dP (32 floats each at
+//     block_kv 64) and dQ (128), Q and dO once and two K/V stages, 193 KB.
+//  4. kv_split (a tunable, any divisor of G): at 1 the dk/dv pass
 //     stores bf16 dk and dv.  Above 1, split s of a group walks query heads
 //     s G/kv_split ... (s+1) G/kv_split - 1 and stores float32 partials
 //     into scratch (kv_split, B, S, KV, hd), dk's then dv's; the reduce pass
 //     sums them in split order and rounds once.  With one CTA walking all
 //     of G, B=1 has too few CTAs and its first key block carries 4x the
 //     average walk; the split spreads the group over G/kv_split times the
-//     CTAs, at the price of the partials' bytes.
+//     CTAs, at the price of the partials' bytes.  Any divisor: a group of
+//     10 (recurrentgemma-2b) splits into 1, 2, 5 or 10.
 //
-// Rounding, as flash_attention_bwd.cuh and the JAX _flash_bwd: P is
+// Rounding, as the JAX _flash_bwd: P is
 // rounded to bf16 before P^T.dO, dS before dS.K and dS^T.Q; S and dP stay
 // float32; each gradient is accumulated in float32 and rounded once when
 // stored.
@@ -72,8 +87,8 @@
 // is 192 floats of 255, and ptxas keeps them without spilling, so no
 // column split or producer warp is needed there; block_q 128 at HD 128
 // (256 floats) is not instantiated, and the dq pass's block_kv 128 at HD
-// 128 (S, dP and dQ: 192) is.  The C entries refuse any tile that is not
-// instantiated.
+// 128 (S, dP and dQ: 192) is.  At HD 256 see note 3.  The C entries refuse
+// any tile that is not instantiated.
 //
 // The hardware rules (descriptors, fences, tensor maps, GQA strides,
 // barrier phases) are the forward's, set out in flash_attention_sm90.cu's
@@ -100,7 +115,7 @@ constexpr int kPassDelta = 1, kPassDq = 2, kPassDkv = 4, kPassReduce = 8;
 
 template <int HD, int BQ, int BKV> struct Tile {
   static constexpr int kBoxCols = HD < 64 ? HD : 64;  // columns of one TMA box
-  static constexpr int kBoxes = HD / kBoxCols;        // 2 at HD 128
+  static constexpr int kBoxes = HD / kBoxCols;        // 2 at HD 128, 4 at 256
   static constexpr int kRowBytes = 2 * kBoxCols;      // the swizzle span
   static constexpr int kQBytes = 2 * BQ * HD;         // one Q or dO tile
   static constexpr int kKVBytes = 2 * BKV * HD;       // one K or V tile
@@ -109,11 +124,16 @@ template <int HD, int BQ, int BKV> struct Tile {
   static constexpr long long kDqSmem =
       kAlign + 2 * kQBytes + kStages * 2 * kKVBytes + kBarrierBytes;
   // dk/dv pass: K and V once, Q and dO through the ring, and each stage's
-  // lse (log2 domain) and delta (times the scale) rows, float32
-  static constexpr int kDkvThreads = 128 * (BKV / 64);
+  // lse (log2 domain) and delta (times the scale) rows, float32.  At HD 256
+  // two warpgroups share each 64 keys (kColGroups, note 3), and P^T and
+  // dS^T of a trip are staged as bf16 (64 keys x BQ each)
+  static constexpr int kColGroups = HD == 256 ? 2 : 1;
+  static constexpr int kDkvThreads = 128 * (BKV / 64) * kColGroups;
   static constexpr int kStatBytes = 2 * BQ * 4;
-  static constexpr long long kDkvSmem =
-      kAlign + 2 * kKVBytes + kStages * (2 * kQBytes + kStatBytes) + kBarrierBytes;
+  static constexpr int kStagedBytes = kColGroups > 1 ? 2 * 2 * BKV * BQ : 0;
+  static constexpr long long kDkvSmem = kAlign + 2 * kKVBytes +
+                                        kStages * (2 * kQBytes + kStatBytes) + kStagedBytes +
+                                        kBarrierBytes;
   static constexpr long long kSmem = kDqSmem > kDkvSmem ? kDqSmem : kDkvSmem;
 };
 
@@ -135,9 +155,9 @@ __device__ __forceinline__ float load_early(const float* p) {
 }
 
 // delta[b, h, s] = sum over hd of do * o, float32.  A (b, s, h) row of hd
-// (a multiple of 8, at most 128) is P = the power of two at or above hd / 8
+// (a multiple of 8, at most 256) is P = the power of two at or above hd / 8
 // lanes, each taking 8 elements of o and of do in one 16-byte load; the
-// row's sum is reduced over its P lanes.
+// row's sum is reduced over its P lanes (a whole warp at hd 256).
 __global__ void __launch_bounds__(256) flash_bwd_delta_sm90(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
     float* __restrict__ delta, int rows, int S, int H, int hd, int lanes) {
@@ -234,6 +254,26 @@ __device__ __forceinline__ void pack(uint32_t (&a)[N / 16][4], const float (&d)[
   }
 }
 
+// A warpgroup's 64 x N accumulator (rows row, row + 8; columns 8c + col +
+// {0, 1}) as bf16 into columns c0 .. c0 + N - 1 of a 64 x 64 tile of 128-byte
+// rows at `tile` (1024-aligned), swizzled as TMA's 128-byte mode lays a box
+// (the 16-byte piece of a row XOR the row mod 8), so that wgmma reads it as
+// a K-major operand A.  A warp's 4-byte stores fall on 32 distinct banks.
+template <int N>
+__device__ __forceinline__ void stage_a(uint32_t tile, const float (&d)[N / 2], int c0, int row,
+                                        int col) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row + 8 * i;
+      const int byte = 2 * (c0 + 8 * c + col);
+      st_shared_u32(tile + r * 128 + (byte ^ ((r & 7) << 4)),
+                    pack_bf16(d[4 * c + 2 * i], d[4 * c + 2 * i + 1]));
+    }
+  }
+}
+
 // D (64 x N) = A.B^T over HD, A (64 rows at `a`) and B (N rows at `b`)
 // K-major tiles of HD columns stored as boxes of BoxCols side by side
 // (a box of A spans a_rows rows, of B b_rows).
@@ -262,6 +302,23 @@ __device__ __forceinline__ void product_rs(float (&acc)[Boxes][BoxCols / 2],
     for (int x = 0; x < Boxes; ++x) {
       Wgmma<BoxCols>::rs(acc[x], a[kk], smem_desc(b + x * K * kRowBytes + 16 * kk * kRowBytes,
                                                   kRowBytes));
+    }
+  }
+}
+
+// acc (64 x Boxes boxes of 64 columns) += A.B, A a 64 x K bf16 tile staged
+// at `a` (K = 64: one box of 128-byte rows, K-major), B the K rows of Boxes
+// boxes at `b`, boxes b_box bytes apart, MN-major.
+template <int K, int Boxes>
+__device__ __forceinline__ void product_ss_mn(float (&acc)[Boxes][32], uint32_t a, uint32_t b,
+                                              int b_box) {
+  static_assert(K == 64, "the staged operand is one box of 64 columns");
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < Boxes; ++x) {
+      Wgmma<64>::ss_mn(acc[x], smem_desc(a + 32 * kk, 128),
+                       smem_desc(b + x * b_box + 16 * kk * 128, 128));
     }
   }
 }
@@ -423,12 +480,17 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kDkvThreads, 1) flash_bwd_d
   constexpr int RB = T::kRowBytes;
   constexpr int kThreads = T::kDkvThreads;
   constexpr int kPer = (2 * BQ + kThreads - 1) / kThreads;  // lse/delta loads a thread
+  constexpr int CG = T::kColGroups;   // warpgroups sharing a 64-key slab
+  constexpr int kOwn = T::kBoxes / CG;  // boxes of dK and dV columns a warpgroup owns
+  constexpr int NQ = BQ / CG;           // q rows of S^T and dP^T a warpgroup scores
+  static_assert(CG == 1 || (BQ == 64 && BKV == 64), "column groups take one 64 x 64 tile");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t k_s = (smem_u32(smem_raw) + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1);
   const uint32_t v_s = k_s + T::kKVBytes;
-  const uint32_t ring = v_s + T::kKVBytes;                 // stage s: Q, then dO
-  const uint32_t stats = ring + kStages * 2 * T::kQBytes;  // s: lse2[BQ], delta scale[BQ]
-  const uint32_t bar = stats + kStages * T::kStatBytes;    // K and V, then one a stage
+  const uint32_t ring = v_s + T::kKVBytes;                    // stage s: Q, then dO
+  const uint32_t staged = ring + kStages * 2 * T::kQBytes;    // CG > 1: P^T, then dS^T
+  const uint32_t stats = staged + T::kStagedBytes;            // s: lse2[BQ], delta scale[BQ]
+  const uint32_t bar = stats + kStages * T::kStatBytes;       // K and V, then one a stage
   float* stat_p = reinterpret_cast<float*>(smem_raw + (stats - smem_u32(smem_raw)));
 
   const int k0 = blockIdx.x * BKV;  // the keys with the most rows first
@@ -497,18 +559,20 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kDkvThreads, 1) flash_bwd_d
   __syncthreads();  // the barriers and trip 0's stats are in place
 
   const int wg = tid / 128;
+  const int slab = wg / CG;                     // this warpgroup's 64 keys
+  const int cg = wg % CG;                       // and its column group
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  const int w0 = k0 + 64 * wg;                  // this warpgroup's first key
+  const int w0 = k0 + 64 * slab;                // this warpgroup's first key
   const int key = w0 + 16 * warp + lane / 4;    // this thread's keys: key, key + 8
   const int col = 2 * (lane % 4);               // and q rows 8c + col + {0, 1}
-  const uint32_t k_wg = k_s + 64 * wg * RB;
-  const uint32_t v_wg = v_s + 64 * wg * RB;
+  const uint32_t k_wg = k_s + 64 * slab * RB;
+  const uint32_t v_wg = v_s + 64 * slab * RB;
   const float scale_log2 = scale * kLog2e;
 
-  float dka[T::kBoxes][T::kBoxCols / 2], dva[T::kBoxes][T::kBoxCols / 2];
+  float dka[kOwn][T::kBoxCols / 2], dva[kOwn][T::kBoxCols / 2];
 #pragma unroll
-  for (int x = 0; x < T::kBoxes; ++x) {
+  for (int x = 0; x < kOwn; ++x) {
 #pragma unroll
     for (int i = 0; i < T::kBoxCols / 2; ++i) dka[x][i] = dva[x][i] = 0.0f;
   }
@@ -530,64 +594,90 @@ __global__ void __launch_bounds__(Tile<HD, BQ, BKV>::kDkvThreads, 1) flash_bwd_d
       const float* lse2 = stat_p + (n % kStages) * 2 * BQ;
       mbar_wait(bar + 8 * (1 + n % kStages), (n / kStages) & 1);
 
-      // S^T = K.Q^T and dP^T = V.dO^T, f32, 64 keys x BQ rows each a
-      // warpgroup, each in a group of its own, and dV += P^T.dO in a third:
-      // P^T is formed while the tensor cores compute dP^T, dS^T while they
-      // compute dV; dO and Q are read MN-major for dV and dK
-      float st[BQ / 2], dpt[BQ / 2];
+      // S^T = K.Q^T and dP^T = V.dO^T, f32, 64 keys x NQ rows each a
+      // warpgroup (its column group's q rows), each in a group of its own:
+      // P^T is formed while the tensor cores compute dP^T
+      const int qh = q0 + cg * NQ;  // the first of those rows
+      float st[NQ / 2], dpt[NQ / 2];
       wgmma_fence();
-      product_ss<HD, BQ, T::kBoxCols>(st, k_wg, BKV, q_st, BQ);
+      product_ss<HD, NQ, T::kBoxCols>(st, k_wg, BKV, q_st + cg * NQ * RB, BQ);
       wgmma_commit();
-      product_ss<HD, BQ, T::kBoxCols>(dpt, v_wg, BKV, do_st, BQ);
+      product_ss<HD, NQ, T::kBoxCols>(dpt, v_wg, BKV, do_st + cg * NQ * RB, BQ);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(st);
-      if (q0 < w0 + 63 || q0 + BQ > S) {
-        dkv_probs<BQ, true>(st, lse2, scale_log2, q0, col, key, S);
+      if (qh < w0 + 63 || qh + NQ > S) {
+        dkv_probs<NQ, true>(st, lse2 + cg * NQ, scale_log2, qh, col, key, S);
       } else {
-        dkv_probs<BQ, false>(st, lse2, scale_log2, q0, col, key, S);
+        dkv_probs<NQ, false>(st, lse2 + cg * NQ, scale_log2, qh, col, key, S);
       }
-      uint32_t pf[BQ / 16][4], sf[BQ / 16][4];
-      pack<BQ>(pf, st);
-      wgmma_fence();
-      product_rs<BQ, T::kBoxes, T::kBoxCols>(dva, pf, do_st);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(dpt);
-      const float* dl = lse2 + BQ;
-      scores<BQ>(dpt, st, scale, [&](int x) { return dl[8 * (x / 4) + col + x % 2]; });
-      pack<BQ>(sf, dpt);
-      wgmma_fence();
-      product_rs<BQ, T::kBoxes, T::kBoxCols>(dka, sf, q_st);
-      wgmma_commit();
-      wgmma_wait<0>();
+      const float* dl = lse2 + BQ + cg * NQ;
+      if constexpr (CG == 1) {
+        // dV += P^T.dO in a third group, dS^T formed while it computes; dO
+        // and Q are read MN-major for dV and dK
+        uint32_t pf[BQ / 16][4], sf[BQ / 16][4];
+        pack<BQ>(pf, st);
+        wgmma_fence();
+        product_rs<BQ, T::kBoxes, T::kBoxCols>(dva, pf, do_st);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dpt);
+        scores<BQ>(dpt, st, scale, [&](int x) { return dl[8 * (x / 4) + col + x % 2]; });
+        pack<BQ>(sf, dpt);
+        wgmma_fence();
+        product_rs<BQ, T::kBoxes, T::kBoxCols>(dka, sf, q_st);
+        wgmma_commit();
+        wgmma_wait<0>();
 #pragma unroll
-      for (int x = 0; x < T::kBoxes; ++x) {
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          fence_regs(pf[kk]);
+          fence_regs(sf[kk]);
+        }
+      } else {
+        // each warpgroup holds P^T and dS^T of its NQ rows: both go to the
+        // staged tiles as bf16, and after the barrier each warpgroup takes
+        // all BQ rows of them for its kOwn boxes of dV and dK columns
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        scores<NQ>(dpt, st, scale, [&](int x) { return dl[8 * (x / 4) + col + x % 2]; });
+        const int row = 16 * warp + lane / 4;
+        stage_a<NQ>(staged, st, cg * NQ, row, col);
+        stage_a<NQ>(staged + T::kStagedBytes / 2, dpt, cg * NQ, row, col);
+        fence_proxy_async();
+        __syncthreads();  // both warpgroups' halves are staged
+        const int box = cg * kOwn;
+        wgmma_fence();
+        product_ss_mn<BQ, kOwn>(dva, staged, do_st + box * BQ * RB, BQ * RB);
+        wgmma_commit();
+        product_ss_mn<BQ, kOwn>(dka, staged + T::kStagedBytes / 2, q_st + box * BQ * RB,
+                                BQ * RB);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int x = 0; x < kOwn; ++x) {
         fence_regs(dka[x]);
         fence_regs(dva[x]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        fence_regs(pf[kk]);
-        fence_regs(sf[kk]);
       }
     }
     if (more) store_stats(n + 1, next);
   }
 
+  // this warpgroup's boxes of columns: box0 .. box0 + kOwn - 1
+  const int c0 = cg * kOwn * T::kBoxCols;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = key + 8 * i;
-    if (r >= S) continue;
-    const size_t at = ((static_cast<size_t>(b) * S + r) * KV + kvh) * hd;
+    if (r >= S || c0 >= hd) continue;
+    const size_t at = ((static_cast<size_t>(b) * S + r) * KV + kvh) * hd + c0;
     if constexpr (kSplit) {
       const size_t n = static_cast<size_t>(B) * S * KV * hd;  // one partial
       float* pk = part + split * n + at;
-      store_row<float, T::kBoxes, T::kBoxCols>(pk, dka, i, col, hd);
-      store_row<float, T::kBoxes, T::kBoxCols>(pk + kv_split * n, dva, i, col, hd);
+      store_row<float, kOwn, T::kBoxCols>(pk, dka, i, col, hd - c0);
+      store_row<float, kOwn, T::kBoxCols>(pk + kv_split * n, dva, i, col, hd - c0);
     } else {
-      store_row<__nv_bfloat16, T::kBoxes, T::kBoxCols>(dk + at, dka, i, col, hd);
-      store_row<__nv_bfloat16, T::kBoxes, T::kBoxCols>(dv + at, dva, i, col, hd);
+      store_row<__nv_bfloat16, kOwn, T::kBoxCols>(dk + at, dka, i, col, hd - c0);
+      store_row<__nv_bfloat16, kOwn, T::kBoxCols>(dv + at, dva, i, col, hd - c0);
     }
   }
 }
@@ -664,7 +754,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (passes & kPassDelta) {
     const int rows = B * S * H;
     int lanes = 1;
-    while (8 * lanes < hd) lanes *= 2;  // a row's lanes: 1 .. 16, a whole warp holds rows
+    while (8 * lanes < hd) lanes *= 2;  // a row's lanes: 1 .. 32, a whole warp holds rows
     const long long threads = static_cast<long long>(rows) * lanes;
     flash_bwd_delta_sm90<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), df, rows,
@@ -697,16 +787,19 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // pass's rows (a warpgroup per 64) and the dk/dv pass's streamed q block,
 // block_kv the other way round.  At hd 128 block_q stays 64: the dk/dv
 // pass's S^T, dP^T, dK and dV of block_q 128 would be 256 floats a thread.
+// At hd 256 one tile: the dk/dv pass's two Q/dO stages take 128 KB, so
+// block_q stays 64, and its column groups take 64 keys.
 #define FLASH_BWD_SM90_TILES(X)                                                              \
   X(16, 64, 64) X(16, 64, 128) X(16, 128, 64) X(16, 128, 128)                                \
   X(32, 64, 64) X(32, 64, 128) X(32, 128, 64) X(32, 128, 128)                                \
   X(64, 64, 64) X(64, 64, 128) X(64, 128, 64) X(64, 128, 128)                                \
-  X(128, 64, 64) X(128, 64, 128)
+  X(128, 64, 64) X(128, 64, 128)                                                             \
+  X(256, 64, 64)
 
 // The tile head dim a call at head dim hd runs on: the least of 16, 32, 64,
-// 128 at or above it; 0 where hd is not a multiple of 8 in 8..128.
+// 128, 256 at or above it; 0 where hd is not a multiple of 8 in 8..256.
 int tile_hd(int hd) {
-  if (hd < 8 || hd > 128 || hd % 8) return 0;
+  if (hd < 8 || hd > 256 || hd % 8) return 0;
   int t = 16;
   while (t < hd) t *= 2;
   return t;
@@ -720,8 +813,8 @@ int tile_hd(int hd) {
 // (flash_attention_bwd_sm90_scratch_bytes, null at kv_split 1).  `passes`
 // selects the passes to run (15: all).  Returns the launches'
 // cudaGetLastError() code, or cudaErrorInvalidValue for a tile not
-// instantiated, a kv_split that is not a power of two dividing H/KV, or
-// shapes the kernel does not take.
+// instantiated, a kv_split that does not divide H/KV, or shapes the kernel
+// does not take.
 extern "C" int flash_attention_bwd_sm90_launch(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, const void* lse,
                                                void* delta, void* dq, void* dk, void* dv,
@@ -730,7 +823,7 @@ extern "C" int flash_attention_bwd_sm90_launch(const void* q, const void* k, con
                                                int passes, void* stream) {
   const int ht = tile_hd(hd);
   if (ht == 0 || KV < 1 || H % KV || S < 1 || B < 1 || kv_split < 1 ||
-      (kv_split & (kv_split - 1)) || (H / KV) % kv_split || (kv_split > 1 && !scratch)) {
+      (H / KV) % kv_split || (kv_split > 1 && !scratch)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -80,6 +80,17 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Orders this thread's earlier shared-memory stores before a wgmma that
+// reads them (the async proxy): after the stores, before the barrier that
+// lets the warpgroups issue the product.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // Pins a register the async wgmma reads or writes, so the compiler moves
 // no access to it across the commit/wait that brackets the product.
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -123,6 +134,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ss: A and B from shared memory, both K-major (S = Q.K^T).  rs: A from
 // registers in the bf16 fragment (a[0]: row r, k 2(t%4)+{0,1}; a[1]: row
 // r+8; a[2], a[3]: the same at k+8), B MN-major (O += P.V with V row-major).
+// ss_mn: A K-major and B MN-major, both from shared memory.
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<16> {
@@ -215,6 +227,27 @@ template <> struct Wgmma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  // D += A.B: A 64x16 in shared memory, K-major; B 16x64 in shared memory,
+  // MN-major (dV += P^T.dO with P^T staged by the threads, dO row-major).
+  static __device__ __forceinline__ void ss_mn(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
   }
 };
 

@@ -7,11 +7,12 @@ one to the other.  ``counter`` counts both.  ``return_lse=True`` also
 returns the rows' log-sum-exp (float32 (B, H, S)), the residual of
 :func:`flash_attention_bwd`: dq, dk, dv from (q, k, v, o, lse, do), a
 kernel on CUDA tensors and :func:`attention_bwd_plain` on CPU tensors,
-counted by ``bwd_counter``.  The backward's bf16 calls below tile hd 256
-run on ``csrc/flash_attention_bwd_sm90.cu`` (wgmma, a TMA ring, and the
-tunable ``kv_split`` of the GQA group, :data:`BWD_SM90_TILES`); bf16 at
-tile hd 256 and every float32 call on ``csrc/flash_attention_bwd.cuh``
-(``mma.sync``, :data:`BWD_MMA_TILES`).
+counted by ``bwd_counter``.  The backward's bf16 calls, at every head dim,
+run on ``csrc/flash_attention_bwd_sm90.cu`` (wgmma and a TMA ring,
+:data:`BWD_SM90_TILES`), its float32 calls on
+``csrc/flash_attention_bwd.cuh`` (``mma.sync`` in 3xTF32,
+:data:`BWD_F32_TILES`); both take the tunable ``kv_split`` of the GQA
+group.
 
 Two kernels, by dtype, both one CTA per (q block, head, batch) with
 ``block_kv`` a loop inside the CTA, both masking a sequence the tiles do
@@ -69,9 +70,9 @@ _SM90_ARGTYPES = (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p]
 )
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-_BWD_LIB = {"bfloat16": ("flash_attention_bwd", "flash_attention_bwd_bf16"),
-            "float32": ("flash_attention_bwd_f32", "flash_attention_bwd_f32")}
+_BWD_F32_LIB = "flash_attention_bwd_f32"
+_BWD_F32_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_void_p])
 _BWD_SM90_LIB = "flash_attention_bwd_sm90"
 _BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -120,38 +121,35 @@ F32_TILES = frozenset(
 )
 
 
-# The backward kernels' instantiations.  bf16 below tile hd 256, the wgmma
-# kernel (FLASH_BWD_SM90_TILES in csrc/flash_attention_bwd_sm90.cu): block_q
-# is the dq pass's rows and block_kv the dk/dv pass's keys, a warpgroup per
-# 64 of each, so each is 64 or 128; block_q 64 at tile hd 128, where the
-# dk/dv pass's S^T, dP^T, dK and dV of 128 rows would be 256 floats a thread.
+# The backward kernels' instantiations.  bf16, the wgmma kernel
+# (FLASH_BWD_SM90_TILES in csrc/flash_attention_bwd_sm90.cu): block_q is the
+# dq pass's rows and block_kv the dk/dv pass's keys, a warpgroup per 64 of
+# each, so each is 64 or 128; block_q 64 at tile hd 128, where the dk/dv
+# pass's S^T, dP^T, dK and dV of 128 rows would be 256 floats a thread; one
+# tile at hd 256, where two warpgroups share the dk/dv pass's 64 keys.
 BWD_SM90_TILES = frozenset(
     [(t, bq, bkv) for t in (16, 32, 64) for bq in (64, 128) for bkv in (64, 128)]
-    + [(128, 64, bkv) for bkv in (64, 128)]
+    + [(128, 64, bkv) for bkv in (64, 128)] + [(256, 64, 64)]
 )
-# The mma.sync kernel (FLASH_BWD_TILES_F32 / _BF16 in
-# csrc/flash_attention_bwd.cuh): a warp per 16 rows or keys, each tile 32 or
-# 64, block_kv 32 at hd 256; tile hd 16 and 32 take the two square tiles.
-# bf16 takes only its hd-256 tiles.
-_BWD_MMA_F32 = frozenset(
+# float32, the mma.sync kernel (FLASH_BWD_TILES_F32 in
+# csrc/flash_attention_bwd.cuh): block_q is the dq pass's rows and the dk/dv
+# pass's streamed q block, block_kv the other way round, each 32 or 64
+# (block_kv 32 at hd 256); tile hd 16 and 32 take the two square tiles.
+BWD_F32_TILES = frozenset(
     [(t, b, b) for t in (16, 32) for b in (32, 64)]
     + [(t, bq, bkv) for t in (64, 128) for bq in (32, 64) for bkv in (32, 64)]
     + [(256, bq, 32) for bq in (32, 64)]
 )
-BWD_MMA_TILES = {"float32": _BWD_MMA_F32,
-                 "bfloat16": frozenset(t for t in _BWD_MMA_F32 if t[0] == 256)}
-BWD_TILES = {"float32": BWD_MMA_TILES["float32"],
-             "bfloat16": BWD_SM90_TILES | BWD_MMA_TILES["bfloat16"]}
-# row padding of the mma.sync kernel's shared tiles, in elements (16 bytes
-# in either dtype)
-_BWD_PAD = {2: 8, 4: 4}
+BWD_TILES = {"float32": BWD_F32_TILES, "bfloat16": BWD_SM90_TILES}
+# a block's opt-in shared memory on sm_90 (227 KB): the float32 backward's
+# passes take a second ring stage where it fits (kSmemMax in the source)
+BWD_SMEM_MAX = 232448
 
 
-def bwd_sm90(tile: Optional[int], dtype: str) -> bool:
-    """True iff the backward of ``dtype`` at tile head dim ``tile`` runs on
-    the wgmma kernel (bf16 below tile hd 256), which alone takes a
-    ``kv_split`` above 1."""
-    return dtype == "bfloat16" and tile is not None and tile <= 128
+def bwd_sm90(dtype: str) -> bool:
+    """True iff the backward of ``dtype`` runs on the wgmma kernel (bf16, at
+    every head dim); float32 runs on the mma.sync kernel."""
+    return dtype == "bfloat16"
 
 
 def bwd_blocks(tile: int, dtype: str) -> tuple:
@@ -209,37 +207,41 @@ def bwd_launchable(hd: int, dtype: str, block_q: int, block_kv: int, kv_split: i
     """True iff the backward kernel of ``dtype`` launches (block_q,
     block_kv, kv_split) at head dim ``hd`` with ``group`` query heads a KV
     head: the emit layer's point filter and the wrapper's check.  A
-    ``kv_split`` above 1 runs on the wgmma kernel alone, a power of two
-    dividing ``group``."""
+    ``kv_split`` is any divisor of ``group``, in either kernel."""
     tile = tile_hd(hd, dtype)
     if tile is None or (tile, block_q, block_kv) not in BWD_TILES.get(dtype, ()):
         return False
-    if kv_split == 1:
-        return True
-    return (bwd_sm90(tile, dtype) and kv_split > 1 and kv_split & (kv_split - 1) == 0
-            and group % kv_split == 0)
+    return kv_split >= 1 and group % kv_split == 0
 
 
 def bwd_smem_bytes(block_q: int, block_kv: int, hd: int, elt: int) -> int:
     """Dynamic shared memory of the backward's larger pass at the tile head
-    dim ``hd`` runs on.  The wgmma kernel (bf16 below tile hd 256,
-    ``Tile::kSmem``): 1 KiB to align the swizzled tiles and 64 bytes of
-    barriers; the dq pass's q and do tiles and two stages of k and v, the
-    dk/dv pass's k and v tiles and two stages of q, do and the q block's lse
-    and delta.  The mma.sync kernel (``DqTile`` and ``DkvTile::kSmem``): q,
-    do, k and v tiles of padded rows, and the dk/dv pass's lse and delta of
-    a q block."""
+    dim ``hd`` runs on.  The wgmma kernel (bf16, ``Tile::kSmem``): 1 KiB to
+    align the swizzled tiles and 64 bytes of barriers; the dq pass's q and do
+    tiles and two stages of k and v, the dk/dv pass's k and v tiles and two
+    stages of q, do and the q block's lse and delta, and at tile hd 256 the
+    staged bf16 P^T and dS^T (block_kv x block_q each).  The float32
+    mma.sync kernel (``DqTile`` and ``DkvTile::kSmem``): rows of hd + 4
+    floats; the dq pass's q and do tiles and staged dS (rows of block_kv + 8)
+    and a ring of k and v, the dk/dv pass's k and v tiles and staged P^T and
+    dS^T (rows of block_q + 8) and a ring of q, do, lse and delta; two
+    stages where they fit :data:`BWD_SMEM_MAX`, else one."""
     t = max(16, 1 << (hd - 1).bit_length())
-    if elt == 2 and t <= 128:
+    if elt == 2:
         dq = 1024 + 4 * t * block_q + 8 * t * block_kv + 64
-        dkv = 1024 + 4 * t * block_kv + 8 * t * block_q + 16 * block_q + 64
+        staged = 4 * block_kv * block_q if t == 256 else 0
+        dkv = 1024 + 4 * t * block_kv + 8 * t * block_q + 16 * block_q + staged + 64
         return max(dq, dkv)
-    tiles = elt * (t + _BWD_PAD[elt]) * (2 * block_q + 2 * block_kv)
-    return tiles + 2 * block_q * 4
+    ld = t + 4
+    passes = ((4 * (2 * block_q * ld + block_q * (block_kv + 8)), 4 * 2 * block_kv * ld),
+              (4 * (2 * block_kv * ld + 2 * block_kv * (block_q + 8)),
+               4 * (2 * block_q * ld + 2 * block_q)))
+    return max(fixed + (2 if fixed + 2 * stage <= BWD_SMEM_MAX else 1) * stage
+               for fixed, stage in passes)
 
 
 def bwd_scratch_bytes(B: int, S: int, KV: int, hd: int, kv_split: int) -> int:
-    """Bytes of the float32 partials of dk and dv a wgmma backward call at
+    """Bytes of the float32 partials of dk and dv a backward call at
     ``kv_split`` writes and its reduce pass sums (0 at 1): two of
     (kv_split, B, S, KV, hd) at the head dim the kernel runs."""
     return 0 if kv_split == 1 else 2 * kv_split * B * S * KV * hd * 4
@@ -385,31 +387,23 @@ def _bwd_launch(args, block_q: int, block_kv: int, kv_split: int, passes: int = 
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = _build.stream_of(dq)
-    if bwd_sm90(tile_hd(hd, dtype), dtype):
-        scratch = torch.empty(bwd_scratch_bytes(B, S, KV, hd_run, kv_split) // 4,
-                              dtype=torch.float32, device=q.device)
-        what = "flash_attention_bwd_sm90_launch"
-        launch = _build.function(_BWD_SM90_LIB, what, _BWD_SM90_ARGTYPES)
-        bufs = (q, k, v, o, do, lse, delta, dq, dk, dv)  # alive as long as `run`
+    scratch = torch.empty(bwd_scratch_bytes(B, S, KV, hd_run, kv_split) // 4,
+                          dtype=torch.float32, device=q.device)
+    bufs = (q, k, v, o, do, lse, delta, dq, dk, dv)  # alive as long as `run`
+    sm90 = bwd_sm90(dtype)
+    what = f"flash_attention_bwd_{'sm90' if sm90 else 'f32'}_launch"
+    launch = (_build.function(_BWD_SM90_LIB, what, _BWD_SM90_ARGTYPES) if sm90
+              else _build.function(_BWD_F32_LIB, what, _BWD_F32_ARGTYPES))
 
-        def run(mask: int) -> None:
-            code = launch(*(t.data_ptr() for t in bufs),
-                          scratch.data_ptr() if kv_split > 1 else None,
-                          B, S, H, KV, hd_run, block_q, block_kv, kv_split, scale, mask, stream)
-            _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv}, "
-                               f"kv_split={kv_split})")
-    else:
-        lib, prefix = _BWD_LIB[dtype]
-        what = f"{prefix}_launch"
-        launch = _build.function(lib, what, _BWD_ARGTYPES)
-
-        def run(mask: int) -> None:
-            if mask != _ALL_PASSES:
-                raise ValueError(f"{what}: runs its passes together")
-            code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                          lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), B, S, H, KV, hd_run, block_q, block_kv, scale, stream)
-            _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv})")
+    def run(mask: int) -> None:
+        if not sm90 and mask != _ALL_PASSES:
+            raise ValueError(f"{what}: runs its passes together")
+        code = launch(*(t.data_ptr() for t in bufs),
+                      scratch.data_ptr() if kv_split > 1 else None,
+                      B, S, H, KV, hd_run, block_q, block_kv, kv_split, scale,
+                      *((mask,) if sm90 else ()), stream)
+        _build.check(code, f"{what}(block_q={block_q}, block_kv={block_kv}, "
+                           f"kv_split={kv_split})")
     run(passes)
     return (dq, dk, dv), run
 
@@ -419,8 +413,8 @@ def flash_attention_bwd_cuda(
     do: torch.Tensor, block_q: int = 64, block_kv: int = 64, kv_split: int = 1,
 ):
     """Launch the backward kernel on contiguous CUDA tensors (f32 or bf16):
-    (dq, dk, dv) of causal attention.  ``kv_split`` (the wgmma kernel's, a
-    power of two dividing the query heads a KV head) splits each group's
+    (dq, dk, dv) of causal attention.  ``kv_split`` (any divisor of the
+    query heads a KV head) splits each group's
     dk/dv sum over that many CTAs, whose float32 partials a reduce pass
     adds in order.  An hd off the kernels' rule runs padded, as the forward
     does: q, k, v, o and do copied into :func:`padded_hd` columns (zero
@@ -442,8 +436,8 @@ def bwd_pass_runs(q, k, v, o, lse, do, block_q: int = 64, block_kv: int = 64,
     function launching that pass alone on the call's buffers}; "reduce"
     only where ``kv_split`` is above 1."""
     B, S, H, KV, hd, dtype = _bwd_inputs(q, k, v, o, lse, do, block_q, block_kv, kv_split)
-    if not bwd_sm90(tile_hd(hd, dtype), dtype):
-        raise ValueError("bwd_pass_runs: the passes of the wgmma kernel only (bf16, hd <= 128)")
+    if not bwd_sm90(dtype):
+        raise ValueError("bwd_pass_runs: the passes of the wgmma kernel only (bf16)")
     _, run = _bwd_launch((q, k, v, o, lse, do), block_q, block_kv, kv_split)
     return {name: (lambda bit=bit: run(bit)) for name, bit in BWD_PASSES.items()
             if name != "reduce" or kv_split > 1}
@@ -533,12 +527,10 @@ def smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
 def bwd_smem_bytes_native(block_q: int, block_kv: int, hd: int, dtype) -> int:
     """What the compiled backward source computes for
     :func:`bwd_smem_bytes`; -1 for a tile that is not instantiated."""
-    name = _name(dtype)
-    if bwd_sm90(tile_hd(hd, name), name):
+    if bwd_sm90(_name(dtype)):
         lib, entry = _BWD_SM90_LIB, "flash_attention_bwd_sm90_smem_bytes"
     else:
-        lib, prefix = _BWD_LIB[name]
-        entry = f"{prefix}_smem_bytes"
+        lib, entry = _BWD_F32_LIB, "flash_attention_bwd_f32_smem_bytes"
     fn = _build.function(lib, entry, [ctypes.c_int] * 3, ctypes.c_longlong)
     return int(fn(hd, block_q, block_kv))
 

@@ -35,17 +35,18 @@ not recall the winner of one with few.
 ``flash_attention_bwd`` (the backward kernels) is a registry op of its
 own: the same shape class with the query heads a KV head (``group``), the
 instantiated (block_q, block_kv) tiles its
-:func:`~.flash_attention.bwd_launchable` takes (the wgmma kernel, bf16 below
-tile hd 256: 64 or 128 each, block_q 64 at hd 128; the ``mma.sync`` kernel:
-32 or 64, block_kv 32 at hd 256) and, on the wgmma kernel where the group
-has more than one head, ``kv_split`` (a "pieces" dim: the powers of two
-dividing ``group``, each group's dk/dv sum spread over that many CTAs).
+:func:`~.flash_attention.bwd_launchable` takes (the wgmma kernel, bf16: 64
+or 128 each, block_q 64 at hd 128, (64, 64) alone at hd 256; the
+float32 ``mma.sync`` kernel: 32 or 64, block_kv 32 at hd 256) and, in
+either kernel where the group has more than one head, ``kv_split`` (a
+"pieces" dim: every divisor of ``group``, each group's dk/dv sum spread
+over that many CTAs).
 Its hint: seven causal products (S and dP recomputed in each of its two
 passes, then dS.K, P^T.dO and dS^T.Q) at the dtype's rate, the bytes of
-the inputs, the gradients and ``kv_split``'s float32 partials, and on the
-wgmma kernel a latency term for each pass's longest CTA (the dk/dv pass's
-first key block walks ``group / kv_split`` heads of every q block), which
-is what the split shortens.
+the inputs, the gradients and ``kv_split``'s float32 partials, and a
+latency term for each pass's longest CTA (the dk/dv pass's first key block
+walks ``group / kv_split`` heads of every q block), which is what the split
+shortens.
 """
 from __future__ import annotations
 
@@ -251,12 +252,14 @@ def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
 # (the waits and the barrier do not grow with n).  With it, chip_smoke.py's
 # bf16 backward sweeps on an H100 SXM measure 0.85-1.37 of the estimate (the
 # median over a shape's points), and the staged prescreen's survivors hold
-# the fastest point at every swept shape.
+# the fastest point at every swept shape.  That fit is at tile hd 64 and
+# 128; past 128 a trip's products grow with hd (K of the scoring products,
+# N of the accumulating ones), so its time is taken in proportion.
 BWD_TRIP_S = 1.7e-6
 
 
-def _trip_s(rows: int) -> float:
-    return BWD_TRIP_S * (1 + rows / 64) / 2
+def _trip_s(rows: int, hd: int) -> float:
+    return BWD_TRIP_S * (1 + rows / 64) / 2 * max(1.0, hd / 128)
 
 
 def _dkv_trips(seq: int, bq: int, bkv: int):
@@ -272,12 +275,26 @@ def _dkv_trips(seq: int, bq: int, bkv: int):
     return total, nq
 
 
+# One CTA trip of the float32 mma.sync backward (the trip's scores, the
+# staged P and dS, the accumulating products, three barriers) takes
+# BWD_F32_TRIP_S x (0.1 + block_q x block_kv x tile hd / (64 x 32 x 256));
+# a pass takes its CTA trips spread over the SMs plus 0.9 of its longest
+# CTA's (the tail a causal walk leaves; one CTA of 8 warps keeps an SM's
+# tensor cores busy, so a second resident CTA is not counted).  Fitted to
+# the float32 backward's sweeps on an H100 SXM at chip_smoke.py's shapes
+# (tinyllama, qwen3-0.6b, hd 36, recurrentgemma-2b's hd 256; every
+# kv_split): the estimate within 0.77-1.18 of the measured time, and the
+# staged prescreen's survivors hold the fastest point at each shape.
+BWD_F32_TRIP_S = 8.45e-6
+BWD_F32_TAIL = 0.9
+
+
 def _bwd_resident(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any],
                   which: str) -> int:
-    """Warpgroups of pass ``which`` one SM holds at once: CUDA's occupancy
-    of the compiled tile on the card; without the card, the bound the
-    shared memory and threads give (registers, which the compiled tile
-    alone knows, may bind first)."""
+    """Warpgroups of the wgmma backward's pass ``which`` one SM holds at
+    once: CUDA's occupancy of the compiled tile on the card; without the
+    card, the bound the shared memory and threads give (registers, which the
+    compiled tile alone knows, may bind first)."""
     bq, bkv = point["block_q"], point["block_kv"]
     groups = (bq if which == "dq" else bkv) // 64
     if arch.backend == "cuda" and torch.cuda.is_available():
@@ -288,22 +305,26 @@ def _bwd_resident(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any
 
 
 def _bwd_latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
-    """Least time of the wgmma backward's dependent chains, its two passes
-    one after the other: each pass's warpgroup trips spread over the
-    warpgroups the SMs hold at once, and no less than its longest CTA's
-    trips (the dk/dv pass's walks ``group / kv_split`` heads)."""
+    """Least time of the backward's dependent chains, its two passes one
+    after the other.  wgmma (bf16): each pass's warpgroup trips spread over
+    the warpgroups the SMs hold at once, and no less than its longest CTA's
+    trips (the dk/dv pass's walks ``group / kv_split`` heads).  mma.sync
+    (float32): each pass's CTA trips spread over the SMs plus a share of
+    its longest CTA's."""
     tile = tile_hd(bp["hd"], bp["dtype"])
-    if not bwd_sm90(tile, bp["dtype"]):
-        return 0.0
     bq, bkv = point["block_q"], point["block_kv"]
     heads, group, split = bp["heads"], bp["group"], point.get("kv_split", 1)
     dq_total, dq_longest = _warpgroup_trips(bp["seq"], bq, bkv)
     kv_total, kv_longest = _dkv_trips(bp["seq"], bq, bkv)
     sms = arch.sm_count
+    if not bwd_sm90(bp["dtype"]):
+        trip = BWD_F32_TRIP_S * (0.1 + bq * bkv * tile / (64 * 32 * 256))
+        return trip * (heads * (dq_total + kv_total) / sms
+                       + BWD_F32_TAIL * (dq_longest + kv_longest * group // split))
     dq = max(heads * dq_total / (sms * _bwd_resident(arch, bp, point, "dq")), dq_longest)
     dkv = max(heads * kv_total / (sms * _bwd_resident(arch, bp, point, "dkv")),
               kv_longest * group // split)
-    return _trip_s(bkv) * dq + _trip_s(bq) * dkv
+    return _trip_s(bkv, tile) * dq + _trip_s(bq, tile) * dkv
 
 
 def _bwd_dims(bp: Mapping[str, Any]):
@@ -318,9 +339,9 @@ def _bwd_dims(bp: Mapping[str, Any]):
         TileDim("block_kv", bp["seq"], semantic="sequential", min_tile=block_kv[0],
                 max_tile=block_kv[-1], allow_padding=True, pow2_only=True),
     ]
-    if bwd_sm90(tile, bp["dtype"]) and bp["group"] > 1:
+    if bp["group"] > 1:
         dims.append(TileDim("kv_split", bp["group"], semantic="pieces", min_tile=1,
-                            max_tile=bp["group"], pow2_only=True))
+                            max_tile=bp["group"], divisors=True))
     return tuple(dims)
 
 

@@ -3,8 +3,7 @@ the CPU (the kernel itself runs on the card: ``chip_smoke.py``).
 
 * The emitted points of ``flash_attention_bwd`` are exactly the
   instantiated tiles (read from the sources' tile lists) times the
-  ``kv_split`` values that divide the group; ``kv_split`` 1 alone at tile
-  hd 256 and in float32, which run on the ``mma.sync`` kernel.
+  ``kv_split`` values that divide the group, in either kernel.
 * ``bwd_smem_bytes`` and ``bwd_scratch_bytes`` equal what the source's
   ``Tile`` and ``scratch_bytes`` compute, their expressions read from the
   source and evaluated for every instantiated tile.
@@ -50,11 +49,13 @@ def source_tiles(source: str, macro: str) -> set:
 
 def test_bwd_tile_sets_are_the_sources():
     assert source_tiles(SM90_SOURCE, "FLASH_BWD_SM90_TILES") == fa_mod.BWD_SM90_TILES
-    assert source_tiles(MMA_SOURCE, "FLASH_BWD_TILES_F32") == fa_mod.BWD_MMA_TILES["float32"]
-    assert source_tiles(MMA_SOURCE, "FLASH_BWD_TILES_BF16") == fa_mod.BWD_MMA_TILES["bfloat16"]
-    assert fa_mod.BWD_TILES["bfloat16"] == (fa_mod.BWD_SM90_TILES
-                                            | fa_mod.BWD_MMA_TILES["bfloat16"])
-    assert all(t <= 128 for t, _, _ in fa_mod.BWD_SM90_TILES)
+    assert source_tiles(MMA_SOURCE, "FLASH_BWD_TILES_F32") == fa_mod.BWD_F32_TILES
+    # every bf16 call runs on the wgmma kernel; the mma.sync one is float32's
+    assert fa_mod.BWD_TILES == {"bfloat16": fa_mod.BWD_SM90_TILES,
+                                "float32": fa_mod.BWD_F32_TILES}
+    assert "FLASH_BWD_TILES_BF16" not in MMA_SOURCE
+    assert not (CSRC / "flash_attention_bwd.cu").exists()
+    assert {t for t, _, _ in fa_mod.BWD_SM90_TILES} == set(fa_mod.TILE_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -64,12 +65,11 @@ def test_bwd_emitted_points_are_the_tiles_times_the_splits(hd, group, dtype):
     region = fa_ops.flash_bwd_region(4096, hd, dtype, arch=SXM, heads=32, group=group)
     got = {(p["block_q"], p["block_kv"], p.get("kv_split", 1)) for p in region.space.points()}
     tile = fa_mod.tile_hd(fa_mod.padded_hd(hd, dtype), dtype)
-    sm90 = dtype == "bfloat16" and tile <= 128
-    splits = [s for s in (1, 2, 4, 8) if group % s == 0] if sm90 else [1]
+    splits = [s for s in range(1, group + 1) if group % s == 0]
     want = {(bq, bkv, s) for t, bq, bkv in fa_mod.BWD_TILES[dtype] if t == tile
             for s in splits}
     assert got == want
-    assert all("kv_split" in p for p in region.space.points()) == (sm90 and group > 1)
+    assert all("kv_split" in p for p in region.space.points()) == (group > 1)
 
 
 def _c_expr(expr: str, env: dict) -> int:
@@ -120,14 +120,14 @@ def test_bwd_scratch_model_is_the_sources(shape):
 
 @pytest.mark.parametrize("hd,dtype,tile,kv_split,group", [
     (64, "bfloat16", (128, 128), 1, 8),    # (64,128,128) instantiated; (64,64,...) below
-    (64, "bfloat16", (64, 64), 3, 6),      # not a power of two
+    (64, "bfloat16", (64, 64), 4, 6),      # does not divide 6
     (64, "bfloat16", (64, 64), 4, 2),      # larger than the group
     (64, "bfloat16", (64, 64), 2, 7),      # does not divide 7
     (64, "bfloat16", (64, 64), 0, 8),
     (64, "bfloat16", (32, 32), 1, 8),      # an mma.sync tile, not the wgmma kernel's
     (128, "bfloat16", (128, 64), 1, 2),    # block_q 128 at tile hd 128: not instantiated
-    (256, "bfloat16", (64, 32), 2, 2),     # hd 256 runs on mma.sync: no split
-    (64, "float32", (64, 64), 2, 8),       # float32 runs on mma.sync: no split
+    (256, "bfloat16", (64, 32), 1, 10),    # hd 256: (64, 64) alone on the wgmma kernel
+    (64, "float32", (64, 64), 3, 8),       # does not divide 8
     (64, "float32", (128, 128), 1, 8),     # not an mma.sync tile
     (300, "bfloat16", (64, 64), 1, 1),     # past the largest head dim
 ])
@@ -137,11 +137,12 @@ def test_bwd_launchable_refuses_what_the_kernel_does_not_take(hd, dtype, tile, k
 
 
 def test_bwd_launchable_takes_every_power_of_two_split_of_the_group():
-    for group in (1, 2, 4, 8, 6, 16):
-        for s in (1, 2, 4, 8, 16):
+    # and every other divisor of the group (3 and 6 of 6, 5 and 10 of 10)
+    for group in (1, 2, 4, 8, 6, 10, 16):
+        for s in (1, 2, 3, 4, 5, 6, 8, 10, 16):
             want = group % s == 0
             assert fa_mod.bwd_launchable(64, "bfloat16", 64, 64, s, group) == want
-            assert fa_mod.bwd_launchable(64, "float32", 64, 64, s, group) == (s == 1)
+            assert fa_mod.bwd_launchable(64, "float32", 64, 64, s, group) == want
 
 
 def split_heads(group: int, kv_split: int, part: int) -> range:

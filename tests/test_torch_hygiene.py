@@ -135,7 +135,7 @@ def test_every_kernel_source_names_what_it_replaces():
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {p.stem for p in sources} == {
         "exb", "flash_attention", "flash_attention_sm90", "stress", "ssm_scan", "rglru_scan",
-        "loop_nest", "flash_attention_bwd", "flash_attention_bwd_f32",
+        "loop_nest", "flash_attention_bwd_f32",
         "flash_attention_bwd_sm90", "ssm_scan_bwd", "rglru_scan_bwd",
     }
     for src in sources:
@@ -144,7 +144,6 @@ def test_every_kernel_source_names_what_it_replaces():
         # backward models/attention.py's _flash_bwd and the scans' backwards
         # XLA's derivatives of the models' lax.scan: none is a Pallas kernel
         where = {"loop_nest": "src/repro/core/",
-                 "flash_attention_bwd": "src/repro/models/",
                  "flash_attention_bwd_f32": "src/repro/models/",
                  "flash_attention_bwd_sm90": "src/repro/models/",
                  "ssm_scan_bwd": "src/repro/models/",

@@ -226,9 +226,13 @@ def test_bwd_emitted_points_are_the_instantiated_tiles(hd, dtype):
 
 
 def test_bwd_smem_model_counts_the_sources_tiles():
-    # mma.sync DkvTile: q, do, k, v tiles of (tile hd + pad) elements and lse, delta
-    assert fa_mod.bwd_smem_bytes(64, 32, 256, 2) == 2 * 264 * 192 + 512
-    assert fa_mod.bwd_smem_bytes(64, 32, 256, 4) == 4 * 260 * 192 + 512
+    # float32, mma.sync: the dk/dv pass's K, V and staged P^T, dS^T (rows of
+    # 64 + 8 floats) and one stage of Q, dO, lse and delta (two do not fit)
+    assert fa_mod.bwd_smem_bytes(64, 32, 256, 4) == (
+        4 * (2 * 32 * 260 + 2 * 32 * 72) + 4 * (2 * 64 * 260 + 2 * 64))
+    # bf16 at hd 256, the wgmma kernel's dk/dv pass: its staged P^T and dS^T
+    assert fa_mod.bwd_smem_bytes(64, 64, 256, 2) == (
+        1024 + 2 * 32768 + 2 * (2 * 32768 + 512) + 2 * 2 * 64 * 64 + 64)
     # bf16 below hd 256, the wgmma kernel's dk/dv pass: 1 KiB of alignment, k
     # and v, two stages of q, do, lse and delta, 64 B of barriers
     assert fa_mod.bwd_smem_bytes(64, 64, 64, 2) == 1024 + 2 * 8192 + 2 * (2 * 8192 + 512) + 64
