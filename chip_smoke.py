@@ -588,6 +588,7 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
     the forward kernel's time at the same shape (at the forward hint's
     first point).  Returns {(name, dtype, tag): case}."""
     from repro_torch.core import pp_key
+    from repro_torch.core.search import default_prescreen_k
     from repro_torch.kernels.rglru_scan import ops as rg_ops, ref as rg_ref, rglru_scan as rg_mod
     from repro_torch.kernels.ssm_scan import ops as ssm_ops, ref as ssm_ref, ssm_scan as ssm_mod
 
@@ -619,16 +620,19 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
                     fregion = ssm_ops.ssm_region(D, S, N, B, arch=arch, dtype=dtype_name)
                     forward = ssm_mod.ssm_scan_cuda
                     for p in region.space.points():
-                        model = ssm_mod.bwd_smem_bytes(p["block_d"], p["chunk"], N, p["states"],
-                                                       elt)
-                        native = ssm_mod.bwd_smem_bytes_native(p["block_d"], p["chunk"], N,
-                                                               p["states"], elt)
+                        tiles = (p["block_d"], p["chunk"], N, p["seg"], p["channels"], elt)
+                        model = ssm_mod.bwd_smem_bytes(*tiles)
+                        native = ssm_mod.bwd_smem_bytes_native(*tiles)
                         scratch = (ssm_mod.bwd_scratch_bytes(B, S, D, N, p["block_d"], p["chunk"]),
                                    ssm_mod.bwd_scratch_bytes_native(B, S, D, N, p["block_d"],
                                                                     p["chunk"]))
-                        if model != native or model > optin or scratch[0] != scratch[1]:
+                        bound = (ssm_mod.bwd_max_threads(p["seg"], p["channels"]),
+                                 ssm_mod.bwd_max_threads_native(p["seg"], p["channels"]))
+                        if (model != native or model > optin or scratch[0] != scratch[1]
+                                or bound[0] != bound[1]):
                             errors.append(f"ssm_scan bwd {tag} {p}: smem model {model}, kernel "
-                                          f"{native}, limit {optin}; scratch {scratch}")
+                                          f"{native}, limit {optin}; scratch {scratch}; "
+                                          f"threads bound {bound}")
                 else:
                     args = (x.to(dtype), r.to(dtype), i.to(dtype), lam, dy.to(dtype))
                     plain, kernel = rg_mod.rglru_scan_bwd_plain, rg_mod.rglru_scan_bwd_cuda
@@ -682,6 +686,22 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
                       f"backward / forward {times[best] / fwd_ms:.2f}")
                 print(f"[sweep] {name} bwd {dtype_name} {tag}: " + json.dumps(
                     {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
+                # the staged search's pick: the best measured of the hint's
+                # first default_prescreen_k points
+                ranked = sorted(points, key=lambda p: region.hints[pp_key(p)]["est_s"])
+                finals = [pp_key(p) for p in ranked[:default_prescreen_k(len(points))]]
+                staged = min(finals, key=times.get)
+                print(f"[hint] {name} bwd {dtype_name} {tag}: staged pick {staged} "
+                      f"{times[staged]:.4f} ms of {len(finals)} finals, fastest {best} "
+                      f"{times[best]:.4f} ms; within 10%: {times[staged] <= 1.1 * times[best]}")
+                phases = None
+                if name == "ssm_scan" and (B, S, D, N) == (2, 2048, 8192, 16):
+                    # the phases at the fastest point: the trips' maps and
+                    # their chaining, sweep 2, the reduce
+                    phases = bwd_pass_ms(torch, ssm_mod.bwd_phase_runs(*args, **json.loads(best)),
+                                         timer.flush)
+                    print(f"[kernel] ssm_scan bwd phases {dtype_name} {tag} at {best}: "
+                          + ", ".join(f"{k} {v:.4f} ms" for k, v in phases.items()))
                 for point in points:  # the hint's rank beside the card's
                     hint = region.hints[pp_key(point)]
                     print(f"[hint] {name} bwd {dtype_name} {tag} {pp_key(point)}: est "
@@ -692,7 +712,8 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
                     "candidates": len(points), "max_abs_err": worst, "max_row_err": worst_row,
                     "fastest_point": json.loads(best), "fastest_ms": times[best],
                     "bound_ms": bound, "bound_by": by, "sfu_ms": sfu,
-                    "forward_point": fpoint, "forward_ms": fwd_ms}
+                    "forward_point": fpoint, "forward_ms": fwd_ms, "phases_ms": phases,
+                    "staged_point": json.loads(staged), "staged_ms": times[staged]}
                 del ref
             torch.cuda.empty_cache()
     return cases
@@ -2719,19 +2740,27 @@ def run() -> int:
     # ssm_scan: each states count for N a power of two up to 32, and for any N
     if scan_count != 2 * (2 * len(ssm_mod.STATES) + len(rg_mod.SEGMENTS)) or scan_spill:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
-    # the scans' backward kernels: ssm_scan_bwd's main kernel at each states
-    # count and its reduce, rglru_scan_bwd's at each segment length and its
-    # reduce, in both dtypes
+    # the scans' backward kernels: ssm_scan_bwd's at each (seg, channels,
+    # time lanes), its maps of sweep 1 and sweep 2, its reduce a dtype and
+    # the kernel chaining the trips; rglru_scan_bwd's at each segment length
+    # and its reduce
     bwd_scan_spill, bwd_scan_count = 0, 0
-    for stem, kernel, knob in (("ssm_scan_bwd", "ssm_bwd_kernel", "states"),
-                               ("rglru_scan_bwd", "rglru_bwd_kernel", "segment")):
+    for stem, kernel in (("ssm_scan_bwd", "ssm_bwd_kernel"),
+                         ("rglru_scan_bwd", "rglru_bwd_kernel")):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         for name, (regs, spill) in sorted(ptxas_entries(log).items()):
-            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E", name)
-            red = re.search(r"(ssm_bwd_reduce|rglru_bwd_reduce)", name)
-            if inst:
+            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi(\d+)ELb([01])E)?",
+                             name)
+            red = re.search(r"(ssm_bwd_reduce|rglru_bwd_reduce|ssm_bwd_starts)", name)
+            if inst and inst.group(3):
                 dtype_name = "f32" if inst.group(1) == "f" else "bf16"
-                what = f"{dtype_name} ({knob} {inst.group(2)})"
+                what = (f"{dtype_name} (seg {inst.group(2)}, channels {inst.group(3)}, time lanes "
+                        f"{inst.group(4)}, {'maps' if inst.group(5) == '1' else 'sweep 2'})")
+            elif inst:
+                dtype_name = "f32" if inst.group(1) == "f" else "bf16"
+                what = f"{dtype_name} (segment {inst.group(2)})"
+            elif red and red.group(1) == "ssm_bwd_starts":
+                what = "starts"
             elif red:
                 what = "reduce" + (" f32" if "IfE" in name else " bf16" if "bfloat16" in name
                                    else "")
@@ -2741,9 +2770,11 @@ def run() -> int:
             bwd_scan_spill, bwd_scan_count = max(bwd_scan_spill, spill), bwd_scan_count + 1
     print(f"[build] scans' backward: {bwd_scan_count} instantiations, max spill "
           f"{bwd_scan_spill} B")
-    # ssm_scan_bwd: 5 states counts and a reduce a dtype; rglru_scan_bwd: 4
-    # segment lengths a dtype and one reduce
-    want = 2 * (len(ssm_mod.STATES) + 1) + 2 * len(rg_mod.SEGMENTS) + 1
+    # ssm_scan_bwd: sweep 2 at each compiled tile, sweep 1's maps at each of
+    # theirs and a reduce a dtype, and the starts; rglru_scan_bwd: 4 segment
+    # lengths a dtype and one reduce
+    want = (2 * (len(ssm_mod.BWD_TILES) + len(ssm_mod.BWD_MAPS_TILES) + 1) + 1
+            + 2 * len(rg_mod.SEGMENTS) + 1)
     if bwd_scan_count != want or bwd_scan_spill:
         return fail(f"scans' backward: {bwd_scan_count} instantiations for {want}, spill "
                     f"{bwd_scan_spill} B")

@@ -3,7 +3,7 @@
 
     python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|flash_attention_f32|
                                                      flash_attention_bwd|exb|ssm_scan|
-                                                     rglru_scan ...]
+                                                     rglru_scan|ssm_scan_bwd ...]
 
 Builds the ``repro_torch`` package under ``<src dir>`` (a copy of ``src/``
 whose ``csrc/*.cu`` may differ) into ``build/ab_<label>/``, prints each
@@ -31,7 +31,12 @@ median of 5).
 * ``ssm_scan``: falcon-mamba-7b width (B=1, S=2048, D=8192, N=16), f32 and
   bf16;
 * ``rglru_scan``: recurrentgemma-2b width (B=1, S=2048, W=2560), f32 and
-  bf16.
+  bf16;
+* ``ssm_scan_bwd``: the selective scan's backward at falcon-mamba-7b width
+  (B=1, S=2048, D=8192, N=16) in f32 and bf16 and at its train step's B=2
+  in f32, each point held against the plain backward (in float64 for f32
+  inputs, float32 for bf16) at ``chip_smoke.py``'s gates (``bwd_err``,
+  ``SCAN_BWD_SUMMED``), with dh given.
 
 With no kernel named, all of them.  Run it once per version in one call on
 the card, in turns (A, B, B, A), and compare only within that call.
@@ -45,13 +50,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd", "exb", "ssm_scan",
-           "rglru_scan")
+           "rglru_scan", "ssm_scan_bwd")
 # the sources whose ptxas report a kernel's run prints (those the version has)
 SOURCES = {"flash_attention": ("flash_attention_sm90",),
            "flash_attention_f32": ("flash_attention",),
            "flash_attention_bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd",
                                    "flash_attention_bwd_f32"),
-           "exb": ("exb",), "ssm_scan": ("ssm_scan",), "rglru_scan": ("rglru_scan",)}
+           "exb": ("exb",), "ssm_scan": ("ssm_scan",), "rglru_scan": ("rglru_scan",),
+           "ssm_scan_bwd": ("ssm_scan_bwd",)}
 
 
 def cases(torch, name, arch, gen, dev):
@@ -128,6 +134,23 @@ def cases(torch, name, arch, gen, dev):
             yield (label, region, lambda p, qkv=qkv: fa.flash_attention_cuda(*qkv, **p),
                    (fa.attention_plain(*qkv),), dt_name, None, fa.counter, library)
         return
+    if name == "ssm_scan_bwd":
+        from repro_torch.kernels.ssm_scan import ops, ref, ssm_scan as mod
+
+        for dt_name, B in (("float32", 1), ("bfloat16", 1), ("float32", 2)):
+            shape = dict(SSM, B=B)
+            dtype = getattr(torch, dt_name)
+            x, dt, A, Bc, Cc, D = ref.make_inputs(gen, device=dev, **shape)
+            dy = torch.randn_like(x)
+            dh = torch.randn((B, SSM["D"], SSM["N"]), generator=gen, device=dev)
+            args = (x.to(dtype), dt.to(dtype), A, Bc.to(dtype), Cc.to(dtype), D, dy.to(dtype), dh)
+            work = torch.float64 if dt_name == "float32" else torch.float32
+            plain = mod.ssm_scan_bwd_plain(*(t.to(work) for t in args))
+            region = ops.ssm_bwd_region(SSM["D"], SSM["S"], SSM["N"], B, arch=arch, dtype=dt_name)
+            yield (f"ssm_scan_bwd {dt_name} ({B},2048,8192,N=16)", region,
+                   lambda p, args=args: mod.ssm_scan_bwd_cuda(*args, **p), plain, dt_name, None,
+                   mod.bwd_counter, None)
+        return
     if name == "exb":
         from repro_torch.kernels.exb import exb as mod, ops, ref
 
@@ -189,6 +212,35 @@ def l2_states(torch, label, run, times, timer, arch, dev) -> None:
           f"clean {median(clean):.4f} ms, warm {warm:.4f} ms")
 
 
+def bwd_sweep(torch, label, region, run, plain_out, dtype, timer, errors) -> dict:
+    """Every point of a backward's region held against its plain version
+    at ``chip_smoke.py``'s backward gates, two calls bit for bit, and timed
+    as the tuner times it (L2 flushed, median of 5)."""
+    import json
+
+    from chip_smoke import SCAN_BWD_SUMMED, bwd_err
+    from repro_torch.core import pp_key
+
+    times, worst = {}, 0.0
+    for point in region.space.points():
+        out = run(point)
+        torch.cuda.synchronize()
+        err, row, failed = bwd_err(torch, out, plain_out, dtype, SCAN_BWD_SUMMED["ssm_scan"])
+        worst = max(worst, row)
+        same = all(torch.equal(a, b) for a, b in zip(out, run(point)))
+        if failed or not same:
+            errors.append(f"{label} {point}: error {err}, row {row}, failed {failed}, "
+                          f"same bits {same}")
+        del out
+        times[pp_key(point)] = timer.ms(lambda point=point: run(point), reps=5)
+    best = min(times, key=times.get)
+    print(f"{label}: {len(times)} candidates, worst row error {worst:.3e}, fastest {best} "
+          f"{times[best]:.4f} ms")
+    print(f"[sweep] {label}: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(times.items(), key=lambda kv: kv[1])}))
+    return times
+
+
 def main(src: str, label: str, names) -> int:
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(ROOT / "build" / f"ab_{label}")
     sys.path[:0] = [str(Path(src).resolve()), str(ROOT)]
@@ -220,8 +272,12 @@ def main(src: str, label: str, names) -> int:
     for name in names:
         for case_label, region, run, plain_out, dtype, tol, counter, library in cases(
                 torch, name, arch, gen, dev):
-            times = sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
-                          timer, counter, errors, tol=tol)[2]
+            if name == "ssm_scan_bwd":
+                times = bwd_sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
+                                  timer, errors)
+            else:
+                times = sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
+                              timer, counter, errors, tol=tol)[2]
             if isinstance(library, tuple):
                 ms = timer.ms(library[0]) - timer.ms(library[1])
                 print(f"{label} {case_label} sdpa {ms:.4f} ms")

@@ -7,69 +7,107 @@
 // Forward, per batch row, channel d and state n:
 //   h_t = e_t h_{t-1} + u_t B_t,   e_t = exp(dt_t A),  u_t = dt_t x_t
 //   y_t = sum_n h_t C_t + skip x_t
-// Backward, from the last step to the first, with the state's adjoint
-// g_t = dL/dh_t and carry = e_{t+1} g_{t+1} (dh, the final state's
-// gradient, before the last step):
-//   g_t   = dy_t C_t + carry
-//   dA   += g_t h_{t-1} e_t dt_t                       summed over b, t
+// Backward, with R_t = e_t g_t the adjoint step t hands to step t - 1
+// (R_S = dh, the final state's gradient, or 0):
+//   g_t   = dy_t C_t + R_{t+1}
+//   dA   += g_t e_t h_{t-1} dt_t                      summed over b, t
 //   ddt_t = sum_n g_t (A e_t h_{t-1}) + x_t sum_n g_t B_t
 //   dx_t  = dt_t sum_n g_t B_t + skip dy_t
-//   dB_t  = sum_d g_t u_t,   dC_t = sum_d h_t dy_t      summed over the channels
+//   dB_t  = sum_d g_t u_t,   dC_t = sum_d h_t dy_t     summed over the channels
 //   dskip = sum_{b,t} dy x
 // x, dt, dy, Bc, Cc and their gradients share one element type, float32 or
 // bf16 (dy takes y's, which is x's); A, skip, dh, dA and dskip are float32,
 // and so is all arithmetic.
 //
-// What bounds it: on paper, the SFU (one exp per (t, d, n), 0.064 ms at
-// falcon-mamba-7b width, B = 1, on an H100 SXM) against bytes (x, dt, dy
-// read and dx, ddt written, 20 bytes per (t, d) in float32: 0.100 ms).  On
-// the card, as in the forward, the chains of dependent steps and the
-// shuffles of the sums across lanes.
+// What bounds it, at falcon-mamba-7b's train cell (B, S, D, N) = (2, 2048,
+// 8192, 16) float32 on an H100 SXM: bytes, 0.2013 ms (x, dt, dy read and
+// dx, ddt written: 20 bytes per (t, d)); a pass of exps, one per
+// (t, d, n), takes the SFU 0.1282 ms; the float32 work, about 15 FMA-pipe
+// operations per (t, d, n) where the forward takes 4, about 0.25 ms.
 //
-// Design.  A CTA owns block_d channels of one batch row for the whole
-// sequence; a thread keeps K = `states` consecutive states of one channel
-// (the forward's layout: NP / K lanes a channel, NP = N rounded up to a
-// power of two, the states past N reading A = 0 and B = C = 0, so they stay
-// 0).  The forward keeps h in registers and stores none of it; the
-// backward needs h_{t-1} in reverse order.  It is recomputed, never run
-// backwards: h_{t-1} = (h_t - u_t B_t) / e_t divides by an exp that
-// underflows for large |A| dt.  Three levels:
-//   1. sweep 1 runs the recurrence forward over every chunk of `chunk`
-//      steps but the last and writes the state at each chunk's start to
-//      global scratch (B, trips, D, NP) float32 (8 MB at falcon width,
-//      B = 1, chunk 128); only the thread that wrote a value reads it back;
-//   2. sweep 2 walks the chunks in reverse.  A chunk's x, dt, dy, B_t and
-//      C_t are staged with cp.async into one of two shared-memory stages
-//      (the previous chunk's loads fly while this one runs).  From the
-//      chunk's start state a pass writes the state at the start of each
-//      group of U = 16 / K steps to shared memory;
-//   3. the groups in reverse: a group's U steps are run forward again from
-//      its start state, keeping each step's decay and h_{t-1} in registers
-//      (U K of each), and then walked backward with the adjoint.
-// So every exp is taken three times; dA and dskip sum in registers.
+// It replaces an earlier design, which ran 2.3996 ms there (12x its bound):
+//   1. each thread carried K = 4 states of one channel through the whole
+//      sequence four times (a chunk-start sweep, a sweep to the group
+//      starts, each group forward again, then backward): chains of 4 S
+//      dependent steps, 2 warps an SM sub-partition to hide them (122,880
+//      bytes of shared memory a CTA, 8 warps an SM);
+//   2. every exp was taken three times (1.61 G ex2 at B = 2, 0.385 ms of
+//      SFU);
+//   3. a warp-step cost 11 dependent shuffles for 4 states: a butterfly of
+//      dx's and ddt's sums over the channel's 4 lanes, a reduce-scatter of
+//      dB_t/dC_t over the warp's 8 channels (2.75 shuffles per (t, d, n),
+//      and a shared-memory store per 4);
+//   4. its scratch moved about 270 MB: the chunk-start states of every 32
+//      steps and the dB/dC partials of every 64 channels.
 //
-// The sums.  Over a channel's states (ddt, dx): a butterfly over its NP / K
-// lanes; the channel's first lane writes dx and ddt over x and dt in shared
-// memory, and the chunk's rows are stored whole at its end.  Over the
-// channels (dB_t, dC_t): a reduce-scatter of a step's 2 K sums over the
-// warp's channels (2 K - 1 shuffles at N = 16, where a butterfly of each
-// took 2 K log2(2 K)), each warp's sums of a chunk's steps go to shared
-// memory, and at the chunk's end the CTA adds them in warp order and writes
-// its partial sums to scratch (B, D / block_d, S, N) float32: one barrier
-// a chunk.  No float atomics: a reduce kernel, the
-// same launch's second, adds the partials over the CTAs in order, dA's
-// per-batch-row partials (B, D, N) over the rows and dskip's likewise, so
-// two calls give the same bits.
+// Design.  Both recurrences are linear in their carry, so L steps of one
+// channel and state compose into one map each way:
+//   forward  h -> P h + hl,  backward  R -> P R + rl,  P = 2^(a2 sum dt)
+// (hl, rl: the steps run from a zero carry; a2 = A log2 e).  A thread owns
+// a segment of `seg` (L) steps of `channels` (C) channels and loops over
+// all N states; a warp's lanes are LT = chunk / L time lanes (a trip of
+// `chunk` steps, one segment each) by 32 / LT channel lanes, and the
+// segments' maps are joined by Kogge-Stone scans over the time lanes
+// (shuffles, log2 LT levels each way), with no barrier: each warp runs on
+// its own.  Three kernels and the reduce:
+//   sweep 1 composes every trip but the last apart: CTAs of 128 threads
+//     (16-step segments where D allows), each composing a few trips of its
+//     channels with the next trip's loads in flight, write each trip's
+//     forward map from a zero state (its Q, one exp per step) and sum of dt
+//     to scratch; a chaining kernel then turns the maps into the state at
+//     each trip's start, h_{k+1} = 2^(a2 sum dt_k) h_k + Q_k, in place
+//     (hc: B, trips - 1, N, D);
+//   sweep 2 gives a CTA block_d channels of one batch row and walks their
+//     trips in reverse.  The next trip's x, dt, dy rows (swizzled so a
+//     warp's time lanes read distinct banks), B_t, C_t rows and start state
+//     come in with cp.async while the current trip runs.  For each state a
+//     thread takes its steps' decays once and keeps them in registers (L C
+//     each), composes both maps, joins them (the forward one from the
+//     trip's start state, the backward one from the next trip's carry,
+//     which the first time lane hands on through shared memory), and walks
+//     its segment forward (e h_{t-1} kept; h_t dy_t) and backward (g_t; dA;
+//     ghe a2 and g B_t summed over the states in registers for ddt and dx;
+//     g_t u_t).
+// So every decay is taken twice (sweep 1 and sweep 2) and each segment's
+// product once more a sweep (1 / L per step), against three times before.
+// Each warp holds (t, d) pairs of its own, so none waits on another: the
+// old design's chains of 4 S steps become chains of L steps, and the grid
+// is B D / block_d CTAs of 32 / LT channel lanes a warp.
 //
-// Rows past the sequence's end (a short last chunk, or a chunk that is no
-// multiple of U) are set to 0 in shared memory: dt = 0 is decay 1 and
-// input 0, dy = 0 adds nothing to g, so h and the carry pass them
-// unchanged, and nothing of them is stored.  So any S and any chunk run.
+// The sums.  Over the states (dx, ddt): in registers, no shuffle.  Over the
+// channels (dB_t, dC_t): a thread's C channels in registers; then, a state
+// at a time, each lane's 2 L terms go to its warp's transpose buffer and
+// each lane adds the channel lanes of 2 L / (32 / LT) (term, time lane)
+// pairs, float4 rows in a tree, into the warp's sums of the trip; at the
+// trip's end the CTA adds its warps in order and writes its partial sums
+// (B, D / block_d, S, N).  Per (t, d, n): the scans and dA's butterfly
+// over the time lanes, (5 log2 LT + 4) / L shuffles (1.75 at the train
+// cell's tuned (8 steps, 2 channels, 4 time lanes)), none in a step's
+// chain; the transpose, 2 / C shared-memory stores and 0.5 / C 16-byte
+// loads.  The earlier design took 2.75 shuffles in each step's chain.
+// dA: each segment's partial per (channel, state), over the time lanes by
+// a butterfly, onto the CTA's sum in shared memory; dskip's terms a
+// thread's own in shared memory, over the time lanes in order at the end.
+// No float atomics: a reduce kernel, the same launch's last, adds the
+// partials over the CTAs in order, dA's (B, D, N) and dskip's (B, D) over
+// the batch rows, so two calls give the same bits.
+//
+// Scratch at the train cell (2, 2048, 8192, 16) at the tuned (block_d 64,
+// chunk 32): hc 66.1 MB, the dB/dC partials 67.1 MB (the trips' sums of
+// dt, 4.1 MB, in the dB partials' room: sweep 1 reads them before sweep 2
+// writes those), dA and dskip 1.1 MB: 134.3 MB (100.7 MB at block_d 128),
+// against the earlier design's 135.3 MB.
+//
+// Steps past the sequence's end (a short last trip, a chunk past S) read
+// dt = x = dy = 0 and B = C = 0: decay 1, input 0 and no adjoint input, so
+// both maps pass them unchanged, and nothing of them is stored.  So any S
+// and any chunk (a multiple of seg) run.
 #include "scan_staging.cuh"
 
 namespace {
 
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWarp = 32;
 
 struct BwdArgs {
   const void* x;
@@ -86,361 +124,582 @@ struct BwdArgs {
   void* dB;
   void* dC;
   float* dskip;
-  float* hc;      // (B, trips, D, NP): the state at each chunk's start
+  float* hc;      // (B, trips - 1, N, D): trip k's map from a zero state,
+                  // then the state at the start of trip k + 1
+  float* tdt;     // (B, trips - 1, D): the sum of dt over trip k (part_b's room)
   float* part_b;  // (B, D / block_d, S, N): a CTA's dB_t over its channels
   float* part_c;  // likewise dC_t
   float* part_a;  // (B, D, N): dA of one batch row
   float* part_s;  // (B, D): dskip of one batch row
-  int B, S, D, N, np, block_d, chunk;
-  int g_xd, g_bc;  // staging piece sizes in bytes (scan::copy_bytes)
+  int B, S, D, N, block_d, chunk;
+  int phases;  // kPhaseSweep1 | kPhaseSweep2 | kPhaseReduce: which run (all but for timing)
+  int g_xd, g_bc;  // cp.async piece sizes in bytes of x, dt, dy rows and of B_t, C_t rows
+  int maps_trips;  // sweep 1: trips a CTA composes
 };
 
-// Steps of a group: their decays and states before them stay in registers
-// (U K of each).
-__host__ __device__ constexpr int group_steps(int K) { return K >= 16 ? 1 : 16 / K; }
+constexpr int kPhaseSweep1 = 1, kPhaseSweep2 = 2, kPhaseReduce = 4;
 
-// The launch bound: 255 registers a thread for a group's 2 U K decays and
-// states, the K states, carries and sums of dA, and a step's loads.
-constexpr int kMaxThreads = 256;
-
-constexpr int pad_states(int n) {
-  int p = 1;
-  while (p < n) p *= 2;
-  return p;
+// The launch bound: 128 registers a thread where it holds 4 (step,
+// channel) pairs, 168 at 8 and 255 at 16 (7 floats a pair: dt, u, dy, the
+// decay, e h_{t-1} and the two sums over the states).
+__host__ __device__ constexpr int max_threads(int L, int C) {
+  return L * C >= 16 ? 256 : L * C >= 8 ? 384 : 512;
 }
 
-// Rows of one stage: the chunk rounded up to a whole group.
-__host__ __device__ constexpr int stage_rows(int chunk, int K) {
-  return (chunk + group_steps(K) - 1) / group_steps(K) * group_steps(K);
+// n floats rounded up to whole 16 bytes
+__host__ __device__ constexpr long long floats16(long long n) { return (n + 3) / 4 * 4; }
+
+// Shared memory in floats, each region a whole number of 16 bytes:
+//   B_t and C_t of a trip, float32, transposed (N rows of chunk + 4 steps);
+//   A log2 e, the trip's start state, the adjoint handed on between trips
+//   and the CTA's dA sums, (N, block_d) each;
+//   the warps' dB_t/dC_t sums of a trip (warps, 2, N, chunk + 1);
+//   each warp's transpose of a state's dB_t/dC_t terms (warps, 2 L, 32);
+//   the next trip, fetched with cp.async while this one runs: x, dt and dy
+//   rows of block_d elements (chunk rows each), B_t and C_t rows of N (up
+//   to kBcAhead states), the start state (N, block_d) float32;
+//   each thread's x of the trip (L C, a thread), for ddt at the trip's end,
+//   and its dskip terms (C, a thread).
+struct Smem {
+  long long bc, state, red, tbuf, xd, bcrows, h, xs;
+};
+
+// B_t and C_t rows are fetched ahead only up to kBcAhead states (past it
+// they would not fit beside the rest): staged when the trip starts.
+constexpr int kBcAhead = 64;
+
+__host__ __device__ Smem smem_floats(int block_d, int chunk, int n_state, int L, int C, int elt) {
+  const long long lanes_c = kWarp / (chunk / L);
+  const long long warps = block_d / (lanes_c * C);
+  const long long bc_rows = n_state <= kBcAhead ? (1LL * chunk * n_state * elt + 3) / 4 : 0;
+  return {floats16(1LL * n_state * (chunk + 4)), floats16(1LL * n_state * block_d),
+          floats16(warps * 2 * n_state * (chunk + 1)), warps * 2 * L * kWarp,
+          floats16(1LL * chunk * block_d * elt / 4), floats16(bc_rows),
+          1LL * n_state * block_d, warps * kWarp * (L + 1) * C};
 }
 
-long long stage_bytes(int block_d, int chunk, int np, int K, int elt) {
-  const long long rows = stage_rows(chunk, K);
-  return 3 * scan::align16(rows * block_d * elt) + 2 * scan::align16(rows * np * elt);
-}
-
-// Two stages; the group starts (rows / U of K floats a thread); the warps'
-// sums of a chunk's steps (2 rows warps NP floats).
-long long smem_bytes(int block_d, int chunk, int n_state, int K, int elt) {
-  const int np = pad_states(n_state);
-  const long long threads = 1LL * block_d * np / K;
-  const long long rows = stage_rows(chunk, K);
-  return 2 * stage_bytes(block_d, chunk, np, K, elt) + 4 * rows / group_steps(K) * K * threads +
-         4LL * 2 * rows * (threads / 32) * np;
+long long smem_bytes(int block_d, int chunk, int n_state, int L, int C, int elt) {
+  const Smem s = smem_floats(block_d, chunk, n_state, L, C, elt);
+  return 4 * (2 * s.bc + 4 * s.state + s.red + s.tbuf + 3 * s.xd + 2 * s.bcrows + s.h + s.xs);
 }
 
 // Floats of each scratch region, in order, each a multiple of 4 (16 bytes).
+// Each trip's sum of dt lives where the dB partials will: sweep 1 reads it
+// before sweep 2 writes them.
 struct Scratch {
-  long long hc, part, part_a, part_s;
+  long long hc, tdt, part, part_a, part_s;
+  long long first() const { return tdt > part ? tdt : part; }  // tdt, then the dB partials
 };
 
 Scratch scratch_floats(int B, int S, int D, int N, int block_d, int chunk) {
-  const auto round4 = [](long long v) { return (v + 3) / 4 * 4; };
   const long long trips = (S + chunk - 1) / chunk;
-  return {round4(1LL * B * trips * D * pad_states(N)),
-          round4(1LL * B * (D / block_d) * S * N), round4(1LL * B * D * N),
-          round4(1LL * B * D)};
+  return {floats16(1LL * B * (trips - 1) * N * D), floats16(1LL * B * (trips - 1) * D),
+          floats16(1LL * B * (D / block_d) * S * N), floats16(1LL * B * D * N),
+          floats16(1LL * B * D)};
 }
 
 long long scratch_bytes(int B, int S, int D, int N, int block_d, int chunk) {
   const Scratch s = scratch_floats(B, S, D, N, block_d, chunk);
-  return 4 * (s.hc + 2 * s.part + s.part_a + s.part_s);
+  return 4 * (s.hc + s.first() + s.part + s.part_a + s.part_s);
 }
 
-template <typename T, int K>
-__global__ void __launch_bounds__(kMaxThreads, 1) ssm_bwd_kernel(const BwdArgs a) {
-  constexpr int U = group_steps(K);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int bd = a.block_d, ck = a.chunk, N = a.N, NP = a.np, D = a.D, S = a.S;
-  const int rows = stage_rows(ck, K);
-  const int xd_bytes = static_cast<int>(scan::align16(1LL * rows * bd * sizeof(T)));
-  const int bc_bytes = static_cast<int>(scan::align16(1LL * rows * NP * sizeof(T)));
-  const int stage = 3 * xd_bytes + 2 * bc_bytes;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  float* edges = reinterpret_cast<float*>(smem + 2 * stage);
-  float* red = edges + (rows / U) * K * nthreads;
-  const int tpc = NP / K;  // lanes of one channel
-  const int dl = tid / tpc;
-  const int g = tid - dl * tpc;
-  const int tiles = D / bd;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x % tiles;
-  const int d0 = tile * bd;
-  const int d = d0 + dl;
-  const int trips = (S + ck - 1) / ck;
-
-  float a2[K];  // A log2(e): e_t = 2^(dt a2)
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int n = g * K + j;
-    a2[j] = n < N ? a.A[static_cast<size_t>(d) * N + n] * scan::kLog2e : 0.0f;
+// The elements e = tid, tid + threads, ... of a grid `cols` wide as (row,
+// col), stepped without a division each.
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
   }
-  const float skip = a.skip[d];
-  const size_t row0 = static_cast<size_t>(b) * S;  // (b, t = 0)
-  float* hc = a.hc + static_cast<size_t>(b) * trips * D * NP + static_cast<size_t>(d) * NP +
-              g * K;
+};
 
-  auto rows_of = [&](int k) { return min(ck, S - k * ck); };
+// (`threads` passes an empty asm, so the compiler does not hoist the
+// divisions out of the trip loop and keep them in registers across it)
+__device__ __forceinline__ Walk walk(int tid, int threads, int cols) {
+  asm volatile("" : "+r"(threads));
+  return {tid / cols, tid % cols, threads / cols, threads % cols, cols};
+}
 
-  // cp.async chunk `trip` into stage `s`: x, dt (and with `full` dy) rows of
-  // block_d elements, B (and with `full` C) rows of NP; the rows up to the
-  // last group's end are set to 0.
-  auto load_chunk = [&](int trip, int s, bool full) {
-    unsigned char* base = smem + s * stage;
-    const size_t r = row0 + static_cast<size_t>(trip) * ck;
-    const int n = rows_of(trip);
-    const int gx = a.g_xd, row_pieces = bd * static_cast<int>(sizeof(T)) / gx;
-    const size_t src0 = (r * D + d0) * sizeof(T);
-    const char* src[3] = {static_cast<const char*>(a.x) + src0,
-                          static_cast<const char*>(a.dt) + src0,
-                          static_cast<const char*>(a.dy) + src0};
-    const int arrays = full ? 3 : 2;
-    const size_t stride = static_cast<size_t>(D) * sizeof(T);
-    for (int e = tid; e < n * row_pieces; e += nthreads) {
-      const int t = e / row_pieces;
-      const int piece = (e - t * row_pieces) * gx;
-      const int off = t * bd * static_cast<int>(sizeof(T)) + piece;
-      for (int q = 0; q < arrays; ++q) {
-        scan::copy_piece(base + q * xd_bytes + off, src[q] + t * stride + piece, gx);
+// Wait for all but the most recent cp.async group.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// LT time lanes (a trip of LT L steps), 32 / LT channel lanes.  kMaps:
+// sweep 1's maps (a CTA a few trips of a tile); else sweep 2 (a CTA a
+// tile, its trips in reverse).
+template <typename T, int L, int C, int LT, bool kMaps>
+__global__ void __launch_bounds__(kMaps ? 512 : max_threads(L, C), 1)
+    ssm_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int lanes_t = LT, lanes_c = kWarp / LT, ck = LT * L;
+  static_assert(lanes_c % 4 == 0 && 2 * L % lanes_c == 0, "float4 rows of channel lanes");
+  const int N = a.N, D = a.D, S = a.S, bd = a.block_d;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int lane = tid & (kWarp - 1), warp = tid >> 5, warps = threads >> 5;
+  const int tl = lane / lanes_c, cl = lane - tl * lanes_c;
+  const int c0 = (warp * lanes_c + cl) * C;  // this thread's first channel in the CTA
+  const int tiles = D / bd;
+  const int trips = (S + ck - 1) / ck;
+  const int per = kMaps ? (trips - 1 + a.maps_trips - 1) / a.maps_trips : 1;  // CTAs of a tile
+  const int cta = blockIdx.x / per;
+  const int b = cta / tiles, tile = cta - b * tiles;
+  const int d0 = tile * bd + c0;
+  const int brow = ck + 4, rrow = ck + 1;
+
+  constexpr int elt = static_cast<int>(sizeof(T));
+  const Smem sz = smem_floats(bd, ck, N, L, C, elt);
+  float* Bs = reinterpret_cast<float*>(smem);
+  float* Cs = Bs + sz.bc;
+  float* As = kMaps ? Bs + sz.bc : Cs + sz.bc;  // (N, block_d): A log2 e
+  float* Hs = As + sz.state;  // (N, block_d): the trip's start state
+  float* Rs = Hs + sz.state;  // (N, block_d): the adjoint handed on between trips
+  float* dAs = Rs + sz.state;  // (N, block_d): the CTA's dA sums
+  float* red = dAs + sz.state;  // (warps, 2, N, chunk + 1): the warps' dB_t/dC_t sums
+  float* tbuf = red + sz.red;   // (warps, 2 L, 32): each warp's dB/dC transpose
+
+  const T* X = static_cast<const T*>(a.x) + static_cast<size_t>(b) * S * D;
+  const T* DT = static_cast<const T*>(a.dt) + static_cast<size_t>(b) * S * D;
+  const T* DY = static_cast<const T*>(a.dy) + static_cast<size_t>(b) * S * D;
+  const T* BG = static_cast<const T*>(a.Bc) + static_cast<size_t>(b) * S * N;
+  const T* CG = static_cast<const T*>(a.Cc) + static_cast<size_t>(b) * S * N;
+  float* hc = a.hc + static_cast<size_t>(b) * (trips - 1) * N * D + tile * bd;
+
+  // sweep 1: this thread's steps of trip k, dt and x as loaded (steps past
+  // S read 0), converted only where used, so the loads of the next trip
+  // stay in flight while this one runs
+  auto load_steps = [&](int k, T (&dt)[L][C], T (&x)[L][C]) {
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const int r = k * ck + tl * L + t;
+      const bool in = r < S;
+      const size_t off = static_cast<size_t>(in ? r : 0) * D + d0;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        dt[t][j] = in ? DT[off + j] : scan::from_f32<T>(0.0f);
+        x[t][j] = in ? X[off + j] : scan::from_f32<T>(0.0f);
       }
     }
-    const int gb = a.g_bc, bc_row = N * static_cast<int>(sizeof(T)) / gb;
-    const char* bs = static_cast<const char*>(a.Bc) + r * N * sizeof(T);
-    const char* cs = static_cast<const char*>(a.Cc) + r * N * sizeof(T);
-    for (int e = tid; e < n * bc_row; e += nthreads) {
-      const int t = e / bc_row;
-      const int piece = (e - t * bc_row) * gb;
-      const int off = t * NP * static_cast<int>(sizeof(T)) + piece;
-      const int from = t * N * static_cast<int>(sizeof(T)) + piece;
-      scan::copy_piece(base + 3 * xd_bytes + off, bs + from, gb);
-      if (full) scan::copy_piece(base + 3 * xd_bytes + bc_bytes + off, cs + from, gb);
+  };
+
+  // sweep 2's prefetch of a trip: x, dt, dy rows (their G-byte pieces
+  // swizzled by the time lane where a row is whole eights of 16 bytes, so
+  // a warp's time lanes read distinct banks), B_t and C_t rows, and the
+  // start state, with cp.async; only the rows before S
+  unsigned char* pf = reinterpret_cast<unsigned char*>(tbuf + sz.tbuf);
+  const int xd_bytes = 4 * static_cast<int>(sz.xd), row_bytes = bd * elt;
+  unsigned char* pfB = pf + 3 * xd_bytes;
+  unsigned char* pfC = pfB + 4 * sz.bcrows;
+  float* pfH = reinterpret_cast<float*>(pfC + 4 * sz.bcrows);
+  float* xs = pfH + sz.h;  // (L, C, threads)
+  const int G = a.g_xd, pieces = row_bytes / G;
+  const int swz = G == 16 && pieces % 8 == 0 ? 7 : 0;
+  auto prefetch = [&](int k) {
+    const int rows = min(ck, S - k * ck);
+    const size_t src0 = (static_cast<size_t>(k) * ck * D + tile * bd) * elt;
+    const char* src[3] = {reinterpret_cast<const char*>(X) + src0,
+                          reinterpret_cast<const char*>(DT) + src0,
+                          reinterpret_cast<const char*>(DY) + src0};
+    for (Walk w = walk(tid, threads, pieces); w.r < rows; w.next()) {
+      const int dst = w.r * row_bytes + (w.c ^ ((w.r / L) & swz)) * G;
+      const size_t off = static_cast<size_t>(w.r) * D * elt + w.c * G;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) scan::copy_piece(pf + q * xd_bytes + dst, src[q] + off, G);
     }
-    const int dead = (n + U - 1) / U * U - n;
-    for (int q = 0; q < 3; ++q) {
-      T* z = reinterpret_cast<T*>(base + q * xd_bytes) + n * bd;
-      for (int e = tid; e < dead * bd; e += nthreads) z[e] = scan::from_f32<T>(0.0f);
+    const int G2 = a.g_bc;
+    const size_t bc0 = static_cast<size_t>(k) * ck * N * elt;
+    for (int e = tid; e < (N <= kBcAhead ? rows * N * elt / G2 : 0); e += threads) {
+      scan::copy_piece(pfB + e * G2, reinterpret_cast<const char*>(BG) + bc0 + e * G2, G2);
+      scan::copy_piece(pfC + e * G2, reinterpret_cast<const char*>(CG) + bc0 + e * G2, G2);
     }
-    for (int q = 0; q < 2; ++q) {
-      T* z = reinterpret_cast<T*>(base + 3 * xd_bytes + q * bc_bytes) + n * NP;
-      for (int e = tid; e < dead * NP; e += nthreads) z[e] = scan::from_f32<T>(0.0f);
+    if (k > 0) {  // the start state's rows, in 16-byte pieces
+      for (Walk w = walk(tid, threads, bd / 4); w.r < N; w.next()) {
+        const float* row = hc + (static_cast<size_t>(k - 1) * N + w.r) * D;
+        scan::copy_piece(pfH + w.r * bd + 4 * w.c, row + 4 * w.c, 16);
+      }
     }
     scan::cp_async_commit();
   };
 
-  // the columns past N of both stages' B and C rows: 0 for the whole run
-  if (N < NP) {
-    const int pad = NP - N, per = rows * pad;
-    for (int e = tid; e < 4 * per; e += nthreads) {
-      const int region = e / per, rest = e - region * per, row = rest / pad;
-      T* rw = reinterpret_cast<T*>(smem + (region >> 1) * stage + 3 * xd_bytes +
-                                   (region & 1) * bc_bytes);
-      rw[row * NP + N + (rest - row * pad)] = scan::from_f32<T>(0.0f);
-    }
-  }
-
-  // one step of the recurrence on staged row t
-  auto step = [&](const T* sx, const T* sdt, const T* sb, int t, float (&h)[K]) {
-    const float dtv = scan::to_f32(sdt[t * bd + dl]);
-    const float u = dtv * scan::to_f32(sx[t * bd + dl]);
-    float bv[K];
-    scan::load_vec<T, K>(sb + t * NP, bv);
+  // a state's row of the segment's L steps from a staged array
+  auto segment = [&](const float* rows, int n, float (&out)[L]) {
+    const float4* p = reinterpret_cast<const float4*>(rows + n * brow + tl * L);
 #pragma unroll
-    for (int j = 0; j < K; ++j) h[j] = fmaf(scan::ex2(dtv * a2[j]), h[j], u * bv[j]);
+    for (int i = 0; i < L / 4; ++i) {
+      const float4 f = p[i];
+      out[4 * i] = f.x;
+      out[4 * i + 1] = f.y;
+      out[4 * i + 2] = f.z;
+      out[4 * i + 3] = f.w;
+    }
   };
 
-  // -- sweep 1: the state at the start of every chunk but the first -------
-  float h[K];
+  // the segments' maps x -> P x + Q joined over the time lanes of a
+  // channel (Kogge-Stone): each lane's composition of the lanes up to it
+  // (scan_up) or, time reversed, from it on (scan_down); `before` and
+  // `after` shift a scan by one lane, the identity at the end
+  auto scan_up = [&](float P, float Q) {
 #pragma unroll
-  for (int j = 0; j < K; ++j) h[j] = 0.0f;
-  if (trips > 1) {
-    load_chunk(0, 0, false);
-    for (int k = 0; k + 1 < trips; ++k) {
+    for (int o = 1; o < lanes_t; o <<= 1) {
+      const float Pp = __shfl_up_sync(0xffffffffu, P, o * lanes_c);
+      const float Qp = __shfl_up_sync(0xffffffffu, Q, o * lanes_c);
+      if (tl >= o) {
+        Q = fmaf(P, Qp, Q);
+        P *= Pp;
+      }
+    }
+    return make_float2(P, Q);
+  };
+  auto scan_down = [&](float P, float Q) {
+#pragma unroll
+    for (int o = 1; o < lanes_t; o <<= 1) {
+      const float Pn = __shfl_down_sync(0xffffffffu, P, o * lanes_c);
+      const float Qn = __shfl_down_sync(0xffffffffu, Q, o * lanes_c);
+      if (tl + o < lanes_t) {
+        Q = fmaf(P, Qn, Q);
+        P *= Pn;
+      }
+    }
+    return make_float2(P, Q);
+  };
+  auto before = [&](float2 m) {
+    const float P = __shfl_up_sync(0xffffffffu, m.x, lanes_c);
+    const float Q = __shfl_up_sync(0xffffffffu, m.y, lanes_c);
+    return tl == 0 ? make_float2(1.0f, 0.0f) : make_float2(P, Q);
+  };
+  auto after = [&](float2 m) {
+    const float P = __shfl_down_sync(0xffffffffu, m.x, lanes_c);
+    const float Q = __shfl_down_sync(0xffffffffu, m.y, lanes_c);
+    return tl == lanes_t - 1 ? make_float2(1.0f, 0.0f) : make_float2(P, Q);
+  };
+
+  for (int e = tid; e < N * bd; e += threads) {
+    const int n = e / bd, c = e - n * bd;
+    As[e] = a.A[static_cast<size_t>(tile * bd + c) * N + n] * scan::kLog2e;
+  }
+
+  // -- sweep 1: trip k's map from a zero state, joined over its segments --
+  if constexpr (kMaps) {
+    // a CTA composes trips k0 .. k1 - 1 of its tile, each trip's loads
+    // issued while the one before runs: dt and x into registers, B_t rows
+    // (up to kBcAhead states) into one of two buffers with cp.async
+    const int k0 = (blockIdx.x - cta * per) * a.maps_trips;
+    const int k1 = min(k0 + a.maps_trips, trips - 1);
+    const bool ahead = N <= kBcAhead;
+    unsigned char* Bb = reinterpret_cast<unsigned char*>(As + sz.state);
+    auto fetch_b = [&](int k, int buf) {
+      const int rows = min(ck, S - k * ck), G2 = a.g_bc;
+      const char* src = reinterpret_cast<const char*>(BG) + static_cast<size_t>(k) * ck * N * elt;
+      unsigned char* dst = Bb + buf * 4 * sz.bcrows;
+      for (int e = tid; e < rows * N * elt / G2; e += threads) {
+        scan::copy_piece(dst + e * G2, src + e * G2, G2);
+      }
+      scan::cp_async_commit();
+    };
+    T dtr[L][C], xr[L][C];
+    load_steps(k0, dtr, xr);
+    if (ahead) fetch_b(k0, 0);
+    for (int k = k0; k < k1; ++k) {
+      float dt[L][C], u[L][C], sdt[C];
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          dt[t][j] = scan::to_f32(dtr[t][j]);
+          u[t][j] = dt[t][j] * scan::to_f32(xr[t][j]);
+        }
+      }
+      const bool more = k + 1 < k1;
+      if (more) {
+        load_steps(k + 1, dtr, xr);
+        if (ahead) fetch_b(k + 1, (k - k0 + 1) & 1);
+      }
+      if (ahead) more ? cp_async_wait_one() : scan::cp_async_wait_all();
+      __syncthreads();  // trip k's B_t rows landed (and A staged); trip k - 1's read
+      {
+        const int rows = min(ck, S - k * ck);
+        const T* src = ahead ? reinterpret_cast<const T*>(Bb + ((k - k0) & 1) * 4 * sz.bcrows)
+                             : BG + static_cast<size_t>(k) * ck * N;
+        for (Walk w = walk(tid, threads, N); w.r < ck; w.next()) {
+          Bs[w.c * brow + w.r] = w.r < rows ? scan::to_f32(src[w.r * N + w.c]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        sdt[j] = 0.0f;
+#pragma unroll
+        for (int t = 0; t < L; ++t) sdt[j] += dt[t][j];
+        float all = sdt[j];  // the trip's sum of dt, over the time lanes
+#pragma unroll
+        for (int o = 1; o < lanes_t; o <<= 1) all += __shfl_xor_sync(0xffffffffu, all, o * lanes_c);
+        if (tl == 0) a.tdt[(static_cast<size_t>(b) * (trips - 1) + k) * D + d0 + j] = all;
+      }
+      __syncthreads();  // B_t transposed
+      float* hk = hc + static_cast<size_t>(k) * N * D + c0;
+      for (int n = 0; n < N; ++n) {
+        float bv[L];
+        segment(Bs, n, bv);
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const float a2 = As[n * bd + c0 + j];
+          float hl = 0.0f;
+#pragma unroll
+          for (int t = 0; t < L; ++t) hl = fmaf(scan::ex2(dt[t][j] * a2), hl, u[t][j] * bv[t]);
+          const float2 all = scan_up(scan::ex2(a2 * sdt[j]), hl);
+          if (tl == lanes_t - 1) hk[static_cast<size_t>(n) * D + j] = all.y;
+        }
+      }
+    }
+  } else {
+    // -- sweep 2: the trips in reverse ------------------------------------
+    for (int e = tid; e < N * bd; e += threads) {
+      const int n = e / bd, c = e - n * bd;
+      const size_t at = (static_cast<size_t>(b) * D + tile * bd + c) * N + n;
+      Rs[e] = a.dh != nullptr ? a.dh[at] : 0.0f;
+      dAs[e] = 0.0f;
+    }
+    float* dss = xs + L * C * threads;  // (C, threads): each thread's dskip terms
+#pragma unroll
+    for (int j = 0; j < C; ++j) dss[j * threads + tid] = 0.0f;
+    float* red_w = red + warp * 2 * N * rrow;  // this warp's sums
+    float* tw = tbuf + warp * 2 * L * kWarp;    // this warp's transpose buffer
+    T* DX = static_cast<T*>(a.dx) + static_cast<size_t>(b) * S * D;
+    T* DDT = static_cast<T*>(a.ddt) + static_cast<size_t>(b) * S * D;
+
+    prefetch(trips - 1);
+    for (int k = trips - 1; k >= 0; --k) {
       scan::cp_async_wait_all();
-      __syncthreads();  // chunk k landed; chunk k - 1's stage is free
-      if (k + 2 < trips) load_chunk(k + 1, (k + 1) & 1, false);
-      const unsigned char* base = smem + (k & 1) * stage;
-      const T* sx = reinterpret_cast<const T*>(base);
-      const T* sdt = reinterpret_cast<const T*>(base + xd_bytes);
-      const T* sb = reinterpret_cast<const T*>(base + 3 * xd_bytes) + g * K;
+      __syncthreads();  // trip k's rows landed; the previous trip's sums read
+      // this thread's steps (past S: 0), the trip's B_t, C_t transposed, its
+      // start state
+      // (this thread's element (t, j) of a prefetched array: row tl L + t,
+      // channel c0 + j, its piece swizzled by the time lane)
+      float dt[L][C], u[L][C], dy[L][C];
+      int col[C], first = c0;
+      asm volatile("" : "+r"(first));  // computed here, not kept across the trips
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int byte = (first + j) * elt, piece = byte / G;
+        col[j] = (piece ^ (tl & swz)) * G + byte - piece * G;
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        float dsk = dss[j * threads + tid];
+#pragma unroll
+        for (int t = 0; t < L; ++t) {
+          const int r = tl * L + t;
+          const bool in = k * ck + r < S;
+          const int at = r * row_bytes + col[j];
+          const float xv = in ? scan::to_f32(*reinterpret_cast<const T*>(pf + at)) : 0.0f;
+          dt[t][j] = in ? scan::to_f32(*reinterpret_cast<const T*>(pf + xd_bytes + at)) : 0.0f;
+          dy[t][j] = in ? scan::to_f32(*reinterpret_cast<const T*>(pf + 2 * xd_bytes + at)) : 0.0f;
+          u[t][j] = dt[t][j] * xv;
+          dsk = fmaf(dy[t][j], xv, dsk);
+          xs[(t * C + j) * threads + tid] = xv;
+        }
+        dss[j * threads + tid] = dsk;
+      }
+      {
+        const int rows = min(ck, S - k * ck);
+        const bool ahead = N <= kBcAhead;
+        const size_t at = static_cast<size_t>(k) * ck * N;
+        const T* pb = ahead ? reinterpret_cast<const T*>(pfB) : BG + at;
+        const T* pc = ahead ? reinterpret_cast<const T*>(pfC) : CG + at;
+        for (Walk w = walk(tid, threads, N); w.r < ck; w.next()) {
+          const int e = w.r * N + w.c;
+          const bool in = w.r < rows;
+          Bs[w.c * brow + w.r] = in ? scan::to_f32(pb[e]) : 0.0f;
+          Cs[w.c * brow + w.r] = in ? scan::to_f32(pc[e]) : 0.0f;
+        }
+        for (int e = tid; e < N * bd; e += threads) Hs[e] = k == 0 ? 0.0f : pfH[e];
+      }
+      __syncthreads();  // the prefetch consumed: fetch the next trip
+      if (k > 0) prefetch(k - 1);
+      float sa[L][C], sb[L][C], sdt[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        sdt[j] = 0.0f;
+#pragma unroll
+        for (int t = 0; t < L; ++t) {
+          sdt[j] += dt[t][j];
+          sa[t][j] = 0.0f;
+          sb[t][j] = 0.0f;
+        }
+      }
+      for (int n = 0; n < N; ++n) {
+        float bv[L], cv[L], a2[C];
+        segment(Bs, n, bv);
+        segment(Cs, n, cv);
+        const int at = n * bd + c0;
+        // the decays, taken once, the segment's two maps and their joins
+        float e[L][C], h[C], R[C], Rout[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          a2[j] = As[at + j];
+          float hl = 0.0f, rl = 0.0f;
+#pragma unroll
+          for (int t = 0; t < L; ++t) {
+            e[t][j] = scan::ex2(dt[t][j] * a2[j]);
+            hl = fmaf(e[t][j], hl, u[t][j] * bv[t]);
+          }
+#pragma unroll
+          for (int t = L - 1; t >= 0; --t) rl = e[t][j] * fmaf(dy[t][j], cv[t], rl);
+          const float P = scan::ex2(a2[j] * sdt[j]);
+          const float2 up = before(scan_up(P, hl));
+          h[j] = fmaf(up.x, Hs[at + j], up.y);
+          const float2 all = scan_down(P, rl), down = after(all);
+          const float carry = Rs[at + j];
+          R[j] = fmaf(down.x, carry, down.y);
+          Rout[j] = fmaf(all.x, carry, all.y);
+        }
+        __syncwarp();  // the warp's lanes have read the carry
+        if (tl == 0) {
+#pragma unroll
+          for (int j = 0; j < C; ++j) Rs[at + j] = Rout[j];
+        }
+        // the segment forward: e h_{t-1}, and dC_t's terms over the channels
+        // (the dB/dC terms go straight to the warp's transpose buffer)
+        float eh[L][C];
+        __syncwarp();  // the buffer's previous state read
+#pragma unroll
+        for (int t = 0; t < L; ++t) {
+          float hy = 0.0f;
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            eh[t][j] = e[t][j] * h[j];
+            h[j] = fmaf(u[t][j], bv[t], eh[t][j]);
+            hy = j == 0 ? h[j] * dy[t][j] : fmaf(h[j], dy[t][j], hy);
+          }
+          tw[(L + t) * kWarp + lane] = hy;
+        }
+        // ... and backward with the adjoint
+        float dA[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) dA[j] = 0.0f;
+#pragma unroll
+        for (int t = L - 1; t >= 0; --t) {
+          float gu = 0.0f;
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            const float g = fmaf(dy[t][j], cv[t], R[j]);
+            const float ghe = g * eh[t][j];
+            sa[t][j] = fmaf(ghe, a2[j], sa[t][j]);
+            dA[j] = fmaf(ghe, dt[t][j], dA[j]);
+            sb[t][j] = fmaf(g, bv[t], sb[t][j]);
+            gu = j == 0 ? g * u[t][j] : fmaf(g, u[t][j], gu);
+            R[j] = e[t][j] * g;
+          }
+          tw[t * kWarp + lane] = gu;
+        }
+        // dA over the time lanes (a butterfly), onto the CTA's sum
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+#pragma unroll
+          for (int o = 1; o < lanes_t; o <<= 1) {
+            dA[j] += __shfl_xor_sync(0xffffffffu, dA[j], o * lanes_c);
+          }
+          if (tl == 0) dAs[at + j] += dA[j];
+        }
+        // dB_t and dC_t over the channel lanes, through the warp's transpose
+        // buffer (each lane's 2 L terms, written in the walks): each lane
+        // adds the channel lanes of 2 L / lanes_c (term, time lane) pairs (a
+        // tree, lane bit 0 first) into the warp's sums
+        __syncwarp();  // every lane's terms in the buffer
+#pragma unroll
+        for (int m = 0; m < 2 * L / lanes_c; ++m) {
+          const int o = lane + m * kWarp, i = o / lanes_t, t = o - i * lanes_t;
+          const float4* q = reinterpret_cast<const float4*>(tw + i * kWarp + t * lanes_c);
+          float sum = 0.0f;
+#pragma unroll
+          for (int g = 0; g < lanes_c / 4; ++g) {
+            const float4 f = q[g];
+            sum += (f.x + f.y) + (f.z + f.w);
+          }
+          const int which = i >= L ? 1 : 0;
+          red_w[(which * N + n) * rrow + t * L + i - which * L] = sum;
+        }
+      }
+      // dx and ddt of this thread's steps
+#pragma unroll
+      for (int t = 0; t < L; ++t) {
+        const int r = k * ck + tl * L + t;
+        if (r < S) {
+          const size_t off = static_cast<size_t>(r) * D + d0;
+#pragma unroll
+          for (int j = 0; j < C; ++j) {
+            const float xv = xs[(t * C + j) * threads + tid];
+            DX[off + j] = scan::from_f32<T>(fmaf(dt[t][j], sb[t][j], a.skip[d0 + j] * dy[t][j]));
+            DDT[off + j] = scan::from_f32<T>(fmaf(xv, sb[t][j], sa[t][j] * kLn2));
+          }
+        }
+      }
+      __syncthreads();  // every warp's dB/dC sums of the trip in place
+      // the CTA's dB_t, dC_t of the trip: the warps in order
+      const int rows = min(ck, S - k * ck);
+      const size_t part0 = ((static_cast<size_t>(b) * tiles + tile) * S + k * ck) * N;
+      for (Walk w = walk(tid, threads, N); w.r < rows; w.next()) {
+        const int t = w.r, n = w.c;
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+          const float* from = red + (which * N + n) * rrow + t;
+          float sum = from[0];
 #pragma unroll 4
-      for (int t = 0; t < ck; ++t) step(sx, sdt, sb, t, h);
-      float* out = hc + static_cast<size_t>(k + 1) * D * NP;
-#pragma unroll
-      for (int j = 0; j < K; ++j) out[j] = h[j];
-    }
-    scan::cp_async_wait_all();
-    __syncthreads();  // both stages free for sweep 2
-  }
-
-  // -- sweep 2: the chunks in reverse --------------------------------------
-  float carry[K], dA[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int n = g * K + j;
-    carry[j] = a.dh != nullptr && n < N ? a.dh[(static_cast<size_t>(b) * D + d) * N + n] : 0.0f;
-    dA[j] = 0.0f;
-  }
-  float dskip = 0.0f;
-  T* dx = static_cast<T*>(a.dx);
-  T* ddt = static_cast<T*>(a.ddt);
-  const int P = tiles;
-  load_chunk(trips - 1, 0, true);
-  for (int kk = 0; kk < trips; ++kk) {
-    const int k = trips - 1 - kk;
-    scan::cp_async_wait_all();
-    __syncthreads();  // chunk k landed; the other stage is stored and free
-    if (k > 0) load_chunk(k - 1, (kk + 1) & 1, true);
-    unsigned char* base = smem + (kk & 1) * stage;
-    T* sx = reinterpret_cast<T*>(base);
-    T* sdt = reinterpret_cast<T*>(base + xd_bytes);
-    const T* sdy = reinterpret_cast<const T*>(base + 2 * xd_bytes);
-    const T* sb = reinterpret_cast<const T*>(base + 3 * xd_bytes) + g * K;
-    const T* sc = reinterpret_cast<const T*>(base + 3 * xd_bytes + bc_bytes) + g * K;
-    const int n = rows_of(k);
-    const int groups = (n + U - 1) / U;
-
-    // the state at each group's start, from the chunk's
-#pragma unroll
-    for (int j = 0; j < K; ++j) h[j] = k == 0 ? 0.0f : hc[static_cast<size_t>(k) * D * NP + j];
-    for (int q = 0; q < groups; ++q) {
-#pragma unroll
-      for (int j = 0; j < K; ++j) edges[(q * K + j) * nthreads + tid] = h[j];
-#pragma unroll
-      for (int s = 0; s < U; ++s) step(sx, sdt, sb, q * U + s, h);
-    }
-
-    for (int q = groups - 1; q >= 0; --q) {
-      // the group forward again: each step's decay and the state before it
-      float dec[U][K], hp[U][K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) h[j] = edges[(q * K + j) * nthreads + tid];
-#pragma unroll
-      for (int s = 0; s < U; ++s) {
-        const int t = q * U + s;
-        const float dtv = scan::to_f32(sdt[t * bd + dl]);
-        const float u = dtv * scan::to_f32(sx[t * bd + dl]);
-        float bv[K];
-        scan::load_vec<T, K>(sb + t * NP, bv);
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          dec[s][j] = scan::ex2(dtv * a2[j]);
-          hp[s][j] = h[j];
-          h[j] = fmaf(dec[s][j], h[j], u * bv[j]);
-        }
-      }
-      // ... and backward with the adjoint
-#pragma unroll
-      for (int s = U - 1; s >= 0; --s) {
-        const int t = q * U + s;
-        const float xv = scan::to_f32(sx[t * bd + dl]);
-        const float dtv = scan::to_f32(sdt[t * bd + dl]);
-        const float dyv = scan::to_f32(sdy[t * bd + dl]);
-        const float u = dtv * xv;
-        float bv[K], cv[K], gu[K], hd[K];
-        scan::load_vec<T, K>(sb + t * NP, bv);
-        scan::load_vec<T, K>(sc + t * NP, cv);
-        float sum_b = 0.0f, sum_a = 0.0f;
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const float gj = fmaf(dyv, cv[j], carry[j]);
-          const float ghe = gj * hp[s][j] * dec[s][j];
-          sum_a = fmaf(ghe, a2[j], sum_a);
-          dA[j] = fmaf(ghe, dtv, dA[j]);
-          sum_b = fmaf(gj, bv[j], sum_b);
-          gu[j] = gj * u;
-          hd[j] = fmaf(dec[s][j], hp[s][j], u * bv[j]) * dyv;
-          carry[j] = dec[s][j] * gj;
-        }
-        // over the channel's lanes ...
-        for (int o = 1; o < tpc; o <<= 1) {
-          sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
-          sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
-        }
-        // ... and over the warp's channels (the lane bits from 16 down to
-        // tpc): a reduce-scatter of the 2 K sums, dB's then dC's, each level
-        // sending the half the partner keeps, then a butterfly once a lane
-        // holds one; the lanes that end with a whole sum write it
-        float v[2 * K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          v[j] = gu[j];
-          v[K + j] = hd[j];
-        }
-        int held = 2 * K, first = 0;
-        bool writes = true;
-#pragma unroll
-        for (int l = 0; l < 5; ++l) {
-          const int o = 16 >> l;
-          if (o < tpc) break;  // the rest are a channel's own lanes
-          constexpr int kHalfMax = K;  // (2 K >> l) / 2 at l = 0
-          const int half = (2 * K >> l) / 2;
-          if (half >= 1) {
-            const bool upper = (lane & o) != 0;
-#pragma unroll
-            for (int i = 0; i < kHalfMax; ++i) {
-              if (i < half) {
-                const float lo = v[i], hi = v[i + half];
-                v[i] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, o);
-              }
-            }
-            held = half;
-            if (upper) first += half;
-          } else {
-            v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-            writes = writes && (lane & o) == 0;
-          }
-        }
-        if (writes) {
-#pragma unroll
-          for (int i = 0; i < 2 * K; ++i) {
-            if (i < held) {
-              const int q = first + i, which = q >= K ? 1 : 0;
-              red[((which * rows + t) * nwarps + warp) * NP + g * K + q - which * K] = v[i];
-            }
-          }
-        }
-        dskip = fmaf(dyv, xv, dskip);
-        // the channel's lanes have read x and dt of step t
-        if (tpc > 1) __syncwarp();
-        if (g == 0) {
-          sx[t * bd + dl] = scan::from_f32<T>(fmaf(dtv, sum_b, skip * dyv));
-          sdt[t * bd + dl] = scan::from_f32<T>(fmaf(xv, sum_b, sum_a * kLn2));
+          for (int g = 1; g < warps; ++g) sum += from[g * 2 * N * rrow];
+          (which ? a.part_c : a.part_b)[part0 + t * N + n] = sum;
         }
       }
     }
-    __syncthreads();  // the chunk's dx, ddt and every warp's sums are in place
-    // the CTA's sums over its channels, the warps added in order
-    for (int e = tid; e < 2 * n * N; e += nthreads) {
-      const int which = e / (n * N), rest = e - which * n * N;
-      const int t = rest / N, nn = rest - t * N;
-      const float* src = red + (which * rows + t) * nwarps * NP + nn;
-      float v = 0.0f;
-      for (int w = 0; w < nwarps; ++w) v += src[w * NP];
-      float* part = which ? a.part_c : a.part_b;
-      part[((static_cast<size_t>(b) * P + tile) * S + static_cast<size_t>(k) * ck + t) * N + nn] =
-          v;
+
+    // this batch row's dA and dskip (a channel's time lanes in order)
+    __syncthreads();  // the CTA's dA sums and every thread's dskip terms complete
+    for (int e = tid; e < N * bd; e += threads) {
+      const int c = e / N, n = e - c * N;
+      a.part_a[(static_cast<size_t>(b) * D + tile * bd) * N + e] = dAs[n * bd + c];
     }
-    // the chunk's dx and ddt rows, neighbouring threads on neighbouring addresses
-    const int gx = a.g_xd, row_pieces = bd * static_cast<int>(sizeof(T)) / gx;
-    const size_t dst0 = ((row0 + static_cast<size_t>(k) * ck) * D + d0) * sizeof(T);
-    const size_t stride = static_cast<size_t>(D) * sizeof(T);
-    for (int e = tid; e < n * row_pieces; e += nthreads) {
-      const int t = e / row_pieces;
-      const int piece = (e - t * row_pieces) * gx;
-      const int off = t * bd * static_cast<int>(sizeof(T)) + piece;
-      scan::store_piece(reinterpret_cast<char*>(dx) + dst0 + t * stride + piece, base + off, gx);
-      scan::store_piece(reinterpret_cast<char*>(ddt) + dst0 + t * stride + piece,
-                        base + xd_bytes + off, gx);
+    for (int c = tid; c < bd; c += threads) {
+      const int w = c / (lanes_c * C), rest = c - w * lanes_c * C;
+      const int lc = rest / C, j = rest - lc * C;
+      float s = 0.0f;
+      for (int t = 0; t < lanes_t; ++t) s += dss[j * threads + w * kWarp + t * lanes_c + lc];
+      a.part_s[static_cast<size_t>(b) * D + tile * bd + c] = s;
     }
   }
-  // this batch row's dA and dskip
+}
+
+// The trips' maps chained in order, a thread a (b, n, d): the state at the
+// start of trip k + 1 is 2^(a2 tdt_k) h_k + Q_k, written over Q_k.
+__global__ void ssm_bwd_starts(const BwdArgs a, int trips) {
+  const size_t ND = static_cast<size_t>(a.N) * a.D, total = a.B * ND;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t b = e / ND, rest = e - b * ND;
+    const int n = static_cast<int>(rest / a.D), d = static_cast<int>(rest - n * a.D);
+    const float a2 = a.A[static_cast<size_t>(d) * a.N + n] * scan::kLog2e;
+    float* q = a.hc + b * (trips - 1) * ND + rest;
+    const float* tdt = a.tdt + b * (trips - 1) * a.D + d;
+    // in groups of 4 trips, the group's maps loaded before any is written
+    float h = 0.0f;
+    for (int k0 = 0; k0 + 1 < trips; k0 += 4) {
+      float qk[4], pk[4];
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int n = g * K + j;
-    if (n < N) a.part_a[(static_cast<size_t>(b) * D + d) * N + n] = dA[j];
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + i;
+        qk[i] = k + 1 < trips ? q[k * ND] : 0.0f;
+        pk[i] = k + 1 < trips ? tdt[static_cast<size_t>(k) * a.D] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (k0 + i + 1 < trips) {
+          h = fmaf(scan::ex2(a2 * pk[i]), h, qk[i]);
+          q[(k0 + i) * ND] = h;
+        }
+      }
+    }
   }
-  if (g == 0) a.part_s[static_cast<size_t>(b) * D + d] = dskip;
 }
 
 // dB and dC over the CTAs' partials, dA and dskip over the batch rows, each
@@ -475,77 +734,141 @@ __global__ void ssm_bwd_reduce(const BwdArgs a, int P) {
   }
 }
 
-template <typename T, int K>
-int launch(BwdArgs a, cudaStream_t stream) {
-  const int elt = static_cast<int>(sizeof(T));
-  const long long smem = smem_bytes(a.block_d, a.chunk, a.N, K, elt);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssm_bwd_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// Sweep 1: the trips' maps, a trip of LT L steps (16-step segments where D
+// is a multiple of 32) in CTAs of 128 threads (one channel a thread;
+// narrower where D asks) that each compose kMapsTrips trips, then their
+// chaining.
+constexpr int kMapsTrips = 4;
+
+template <typename T, int L, int LT>
+int launch_maps(BwdArgs a, cudaStream_t stream) {
+  constexpr int elt = static_cast<int>(sizeof(T));
+  const int trips = (a.S + a.chunk - 1) / a.chunk;
+  const int lanes_c = kWarp / LT;
+  int bd = 128 / LT;
+  while (a.D % bd) bd /= 2;  // D is a multiple of 4 (of the channel lanes of every tile)
+  if (bd < lanes_c) return static_cast<int>(cudaErrorInvalidValue);
+  a.block_d = bd;
+  a.maps_trips = kMapsTrips;
+  const Smem sz = smem_floats(bd, a.chunk, a.N, L, 1, elt);
+  const long long smem = 4 * (sz.bc + sz.state + 2 * sz.bcrows);  // B_t, A, two trips' rows
+  cudaError_t err = cudaFuncSetAttribute(ssm_bwd_kernel<T, L, 1, LT, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
-  a.g_xd = scan::copy_bytes(elt, {1ULL * a.block_d * elt, 1ULL * a.D * elt, addr(a.x),
-                                  addr(a.dt), addr(a.dy), addr(a.dx), addr(a.ddt)});
-  a.g_bc = scan::copy_bytes(elt, {1ULL * a.N * elt, addr(a.Bc), addr(a.Cc)});
-  const int P = a.D / a.block_d;
-  ssm_bwd_kernel<T, K><<<static_cast<unsigned>(a.B * P), a.block_d * a.np / K,
-                         static_cast<size_t>(smem), stream>>>(a);
+  const int per = (trips - 1 + kMapsTrips - 1) / kMapsTrips;
+  ssm_bwd_kernel<T, L, 1, LT, true><<<static_cast<unsigned>(a.B * (a.D / bd) * per), bd * LT,
+                                      static_cast<size_t>(smem), stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = 1LL * a.B * a.N * a.D;
+  ssm_bwd_starts<<<static_cast<unsigned>(n > 4096LL * 256 ? 4096 : (n + 255) / 256), 256, 0,
+                   stream>>>(a, trips);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int L, int C, int LT>
+int launch(BwdArgs a, cudaStream_t stream) {
+  constexpr int elt = static_cast<int>(sizeof(T));
+  const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
+  a.g_xd = scan::copy_bytes(elt, {1ULL * a.block_d * elt, 1ULL * a.D * elt, addr(a.x),
+                                  addr(a.dt), addr(a.dy)});
+  a.g_bc = scan::copy_bytes(elt, {1ULL * a.N * elt, 1ULL * a.S * a.N * elt, addr(a.Bc),
+                                  addr(a.Cc)});
+  const int P = a.D / a.block_d;
+  const int threads = a.block_d / C * LT;
+  const int trips = (a.S + a.chunk - 1) / a.chunk;
+  cudaError_t err;
+  if ((a.phases & kPhaseSweep1) && trips > 1) {
+    const int code = a.D % 32 == 0 ? (a.chunk == 64 ? launch_maps<T, 16, 4>(a, stream)
+                                                    : launch_maps<T, 16, 2>(a, stream))
+                                   : (a.chunk == 64 ? launch_maps<T, 8, 8>(a, stream)
+                                                    : launch_maps<T, 4, 8>(a, stream));
+    if (code != 0) return code;
+  }
+  if (a.phases & kPhaseSweep2) {
+    const long long smem = smem_bytes(a.block_d, a.chunk, a.N, L, C, elt);
+    err = cudaFuncSetAttribute(ssm_bwd_kernel<T, L, C, LT, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ssm_bwd_kernel<T, L, C, LT, false><<<static_cast<unsigned>(a.B * P), threads,
+                                         static_cast<size_t>(smem), stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (!(a.phases & kPhaseReduce)) return 0;
   const long long total = 2LL * a.B * a.S * a.N + 1LL * a.D * a.N + a.D;
   const unsigned blocks = static_cast<unsigned>(total > 8192LL * 256 ? 8192 : (total + 255) / 256);
   ssm_bwd_reduce<T><<<blocks, 256, 0, stream>>>(a, P);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The compiled (seg, channels, time lanes): a trip of 32 or 64 steps, 8
+// or 4 channel lanes.
+#define SSM_BWD_TILES(X) \
+  X(4, 1, 8) X(8, 1, 4) X(8, 1, 8) X(16, 1, 4) X(4, 2, 8) X(8, 2, 4)
+
 template <typename T>
-int launch_states(const BwdArgs& a, int states, cudaStream_t s) {
-  switch (states) {
-    case 1: return launch<T, 1>(a, s);
-    case 2: return launch<T, 2>(a, s);
-    case 4: return launch<T, 4>(a, s);
-    case 8: return launch<T, 8>(a, s);
-    case 16: return launch<T, 16>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_tile(const BwdArgs& a, int seg, int channels, int lanes_t, cudaStream_t s) {
+#define SSM_BWD_LAUNCH(L, C, LT) \
+  if (seg == L && channels == C && lanes_t == LT) return launch<T, L, C, LT>(a, s);
+  SSM_BWD_TILES(SSM_BWD_LAUNCH)
+#undef SSM_BWD_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool compiled(int seg, int channels, int lanes_t) {
+#define SSM_BWD_TAKES(L, C, LT) \
+  if (seg == L && channels == C && lanes_t == LT) return true;
+  SSM_BWD_TILES(SSM_BWD_TAKES)
+#undef SSM_BWD_TAKES
+  return false;
 }
 
 }  // namespace
 
-// The dynamic shared memory one CTA of (block_d, chunk, states) takes at
-// n_state and an element size of elt bytes.
-extern "C" long long ssm_scan_bwd_smem_bytes(int block_d, int chunk, int n_state, int states,
-                                             int elt) {
-  return smem_bytes(block_d, chunk, n_state, states, elt);
+// The dynamic shared memory one sweep-2 CTA of (block_d, chunk, seg,
+// channels) takes at n_state states and an element size of elt bytes.
+extern "C" long long ssm_scan_bwd_smem_bytes(int block_d, int chunk, int n_state, int seg,
+                                             int channels, int elt) {
+  return smem_bytes(block_d, chunk, n_state, seg, channels, elt);
 }
 
-// Bytes of the float32 scratch one call takes: the chunk-start states, the
+// Bytes of the float32 scratch one call takes: the trip-start states, the
 // CTAs' dB and dC partials, and dA's and dskip's per batch row.
 extern "C" long long ssm_scan_bwd_scratch_bytes(int B, int S, int D, int N, int block_d,
                                                 int chunk) {
   return scratch_bytes(B, S, D, N, block_d, chunk);
 }
 
+// The most threads a CTA of (seg, channels) may have.
+extern "C" int ssm_scan_bwd_max_threads(int seg, int channels) {
+  return max_threads(seg, channels);
+}
+
 // x, dt, Bc, Cc, dy and dx, ddt, dB, dC: elements of elt bytes (4: float32,
 // 2: bf16); A, skip, dh (B, D, N, or null), dA, dskip float32; scratch of
-// ssm_scan_bwd_scratch_bytes.  The forward's tiles: N from 1 to 256,
-// states a power of two up to 16 with NP / states <= 32 lanes a channel,
-// block_d * NP / states a multiple of 32 up to 256, block_d dividing D; any S >= 1 and chunk >= 1.  Returns the
-// launches' cudaGetLastError() code (cudaErrorInvalidValue for what the
-// kernel does not take).
+// ssm_scan_bwd_scratch_bytes; phases 7 (sweep 1, sweep 2 and the reduce:
+// 1, 2 and 4, launched alone for timing on the same scratch).  N from 1 to
+// 256; (seg, channels, chunk / seg time lanes) one of SSM_BWD_TILES, the
+// warp's other 32 / (chunk / seg) lanes channel lanes;
+// block_d dividing D, a multiple of channels times the channel lanes;
+// (block_d / channels) (chunk / seg) threads up to max_threads; any S >= 1.
+// Returns the launches' cudaGetLastError() code (cudaErrorInvalidValue for
+// what the kernel does not take).
 extern "C" int ssm_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bc, const void* Cc,
     const void* skip, const void* dy, const void* dh, void* dx, void* ddt, void* dA, void* dB,
     void* dC, void* dskip, void* scratch, int B, int S, int D, int N, int block_d, int chunk,
-    int states, int elt, void* stream) {
-  const int np = pad_states(N);
-  const bool ok = N >= 1 && N <= 256 && states > 0 && states <= 16 &&
-                  (states & (states - 1)) == 0 && states <= np && np / states <= 32;
-  if (!ok || B < 1 || S < 1 || block_d < 1 || chunk < 1 || D % block_d ||
-      (elt != 4 && elt != 2)) {
+    int seg, int channels, int elt, int phases, void* stream) {
+  if (N < 1 || N > 256 || B < 1 || S < 1 || block_d < 1 || D % block_d || seg < 1 ||
+      chunk % seg || !compiled(seg, channels, chunk / seg) || (elt != 4 && elt != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads = 1LL * block_d * np / states;
-  if (threads > kMaxThreads || threads % 32) {
+  const int lanes_t = chunk / seg;
+  if (block_d % (kWarp / lanes_t * channels) ||
+      1LL * block_d / channels * lanes_t > max_threads(seg, channels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scratch s = scratch_floats(B, S, D, N, block_d, chunk);
@@ -566,19 +889,19 @@ extern "C" int ssm_scan_bwd_launch(
   a.dC = dC;
   a.dskip = static_cast<float*>(dskip);
   a.hc = base;
-  a.part_b = base + s.hc;
-  a.part_c = a.part_b + s.part;
+  a.tdt = base + s.hc;
+  a.part_b = a.tdt;
+  a.part_c = a.part_b + s.first();
   a.part_a = a.part_c + s.part;
   a.part_s = a.part_a + s.part_a;
   a.B = B;
   a.S = S;
   a.D = D;
   a.N = N;
-  a.np = np;
   a.block_d = block_d;
   a.chunk = chunk;
-  a.g_xd = a.g_bc = elt;
+  a.phases = phases;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return elt == 4 ? launch_states<float>(a, states, st)
-                  : launch_states<__nv_bfloat16>(a, states, st);
+  return elt == 4 ? launch_tile<float>(a, seg, channels, lanes_t, st)
+                  : launch_tile<__nv_bfloat16>(a, seg, channels, lanes_t, st);
 }

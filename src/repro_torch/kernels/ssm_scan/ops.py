@@ -29,15 +29,17 @@ hint's CTA count and traffic cover the whole call, and a B = 8 call does
 not recall a B = 1 winner.
 
 ``ssm_scan_bwd`` (the backward kernel) is a registry op of its own, with
-the forward's class keys (:func:`bwd_shape_class`) and tunables
-(:func:`ssm_bwd_region`): ``block_d`` and ``states`` as in the forward,
-``chunk`` the steps between two saved states, a multiple of the
-backward's groups of ``16 / states`` steps (or the whole sequence).  Its
-hint is the largest of the bytes' time, the SFU's (each exp is taken
-three times: two forward passes to recompute the states, one in the
-group walked backward) and the warp-steps' chain, which also pays each
-step's shuffles: the sums over a channel's lanes (dx, ddt) and over a
-warp's channels (dB_t, dC_t), and a barrier a chunk.
+the forward's class keys (:func:`bwd_shape_class`) and tunables of its own
+(:func:`ssm_bwd_region`): ``block_d`` the channels of a CTA, ``chunk``
+the steps of a trip (a "sequential" dim, 32 or 64, padded past S),
+``seg`` the steps a thread carries and ``channels`` the channels it
+carries (a compiled pair of the two), a point surviving where the kernel
+takes it (:func:`~.ssm_scan.bwd_refusal`) and its shared memory fits.
+Its hint is the largest of the bytes' time, the SFU's (each decay taken
+twice, and each segment's product once a sweep) and the time of both
+sweeps (:func:`_bwd_latency`): sweep 2's (t, d, n) at a rate fitted to
+each compiled tile, faster with more resident warps, over the waves of
+CTAs the SMs hold, sweep 1's at one rate, and the dB/dC partials' traffic.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ from ...core.arch import CPU_HOST, ArchSpec, local_arch
 from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 from .ssm_scan import (
-    BWD_MAX_THREADS, DTYPES, STATES, WARP, bwd_group, bwd_scratch_bytes, bwd_smem_bytes, bwd_traffic, group,
-    max_threads, pad_states, sfu_seconds, smem_bytes, ssm_scan, ssm_scan_bwd, traffic,
+    BWD_TILES, DTYPES, STATES, WARP, bwd_group, bwd_refusal, bwd_scratch_bytes, bwd_smem_bytes,
+    bwd_threads, bwd_traffic, group, max_threads, pad_states, sfu_seconds, smem_bytes, ssm_scan,
+    ssm_scan_bwd, traffic,
 )
 
 _ELT = {str(dt).replace("torch.", ""): elt for dt, elt in DTYPES.items()}
@@ -97,9 +100,9 @@ def _latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) ->
     return max(steps, sfu_seconds(B, S, D, N, arch.peak_flops_fp32) * arch.sm_count / sms)
 
 
-def _dims(bp: Mapping[str, Any], threads_limit=max_threads):
+def _dims(bp: Mapping[str, Any]):
     N = pad_states(bp["n_state"])
-    widest = max(threads_limit(k) * k // N for k in STATES if N % k == 0 and N // k <= WARP)
+    widest = max(max_threads(k) * k // N for k in STATES if N % k == 0 and N // k <= WARP)
     return (
         TileDim("block_d", bp["d_inner"], semantic="grid",
                 min_tile=max(1, WARP // N), max_tile=widest),
@@ -182,92 +185,82 @@ register_kernel(
 
 # -- the backward kernel ----------------------------------------------------------
 
-# One warp-step of the backward, in SM time, where an SM holds
-# BWD_WARPS_FULL warps or more: the step run forward twice (the group
-# starts, then the group again) and walked backward (BWD_WARP_STEP_S and
-# BWD_STATE_STEP_S a state), and its shuffles (SHFL_S each).  Fitted to
-# chip_smoke.py's sweeps of ssm_scan_bwd at falcon-mamba-7b width, B = 1
-# and 2, on an H100 SXM (the [hint] lines): a point that fits few CTAs an
-# SM, by shared memory or registers, stretches in proportion, which is what
-# sets the long chunks and the many states a thread apart.
-BWD_WARP_STEP_S = 1.8e-8
-BWD_STATE_STEP_S = 0.6e-8
-SHFL_S = 1.0e-9
-BWD_WARPS_FULL = 8
-CHUNK_S = 1.0e-6  # a chunk's barriers and the CTA's sums of dB_t, dC_t
-# Registers a thread of the compiled backward takes, by states (its [ptxas]
-# lines in chip_smoke.py, float32; bf16 within 8 of them)
-BWD_REGISTERS = {1: 158, 2: 128, 4: 128, 8: 136, 16: 152}
-
-
-def _bwd_threads(bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
-    return point["block_d"] * pad_states(bp["n_state"]) // point["states"]
+# SM time of one (t, d, n) of sweep 2 at 8 resident warps an SM, by (seg,
+# channels, time lanes), and its speed-up with resident warps up to 16
+# ((8 / warps) ** BWD_WARPS_EXP); sweep 1 (the trips' maps and their
+# chaining) a (t, d, n) of the call, whatever the tile.  Fitted to
+# chip_smoke.py's sweeps of ssm_scan_bwd at falcon-mamba-7b width, B = 1 and
+# 2, on an H100 SXM (the [hint] lines).
+BWD_ITEM_S = {(16, 1, 4): 0.278e-9, (8, 2, 4): 0.240e-9, (8, 1, 4): 0.348e-9,
+              (8, 1, 8): 0.560e-9, (4, 1, 8): 0.420e-9, (4, 2, 8): 0.355e-9}
+BWD_WARPS_EXP = 0.38
+SWEEP1_S = 5.4e-13
+# Registers a thread of the compiled sweep-2 kernel takes, by (seg,
+# channels) (its [ptxas] lines in chip_smoke.py, float32; bf16 within 8)
+BWD_REGISTERS = {(4, 1): 128, (8, 1): 162, (16, 1): 244, (4, 2): 161, (8, 2): 226}
 
 
 def _bwd_takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
-    threads = _bwd_threads(bp, point)
-    k = point["states"]
-    whole = point["chunk"] % bwd_group(k) == 0 or point["chunk"] == bp["seq"]
-    lanes = pad_states(bp["n_state"]) // k
-    return threads % WARP == 0 and threads <= BWD_MAX_THREADS and whole and lanes <= WARP
-
-
-def _bwd_shuffles(n_state: int, states: int) -> int:
-    """Shuffles of one warp-step: a butterfly of two sums over a channel's
-    lanes, and the reduce-scatter of 2 ``states`` sums over the warp's
-    channels (half of what a lane holds a level, one once it holds one)."""
-    lanes = pad_states(n_state) // states
-    count, held = 2 * (lanes.bit_length() - 1), 2 * states
-    for _ in range((WARP // lanes).bit_length() - 1):
-        count += max(1, held // 2)
-        held = max(1, held // 2)
-    return count
+    return bwd_refusal(bp["d_inner"], point["block_d"], point["chunk"], point["seg"],
+                       point["channels"]) is None
 
 
 def _bwd_resident(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
-    """CTAs of the point one SM holds at once: by its shared memory (and
-    the 1 KiB a CTA reserves), its threads and its registers."""
-    threads = _bwd_threads(bp, point)
-    smem = bwd_smem_bytes(point["block_d"], point["chunk"], bp["n_state"], point["states"],
-                          _elt(bp))
-    regs = BWD_REGISTERS.get(point["states"], 255) * threads
+    """Sweep-2 CTAs of the point one SM holds at once: by its shared memory
+    (and the 1 KiB a CTA reserves), its threads and its registers."""
+    seg, ch = point["seg"], point["channels"]
+    threads = bwd_threads(point["block_d"], point["chunk"], seg, ch)
+    smem = bwd_smem_bytes(point["block_d"], point["chunk"], bp["n_state"], seg, ch, _elt(bp))
+    regs = BWD_REGISTERS.get((seg, ch), 255) * threads
     return max(1, min((arch.smem_per_block + 1024) // (smem + 1024), 2048 // threads,
                       65536 // regs))
 
 
 def _bwd_latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
-    """The warp-steps' time over the SMs the CTAs fill, stretched where an
-    SM holds fewer than BWD_WARPS_FULL warps (its resident CTAs:
-    :func:`_bwd_resident`), and no less than the SFU's three exps a
-    (t, d, n)."""
-    B, S, D, N = bp["batch"], bp["seq"], bp["d_inner"], pad_states(bp["n_state"])
-    k = point["states"]
-    ctas = B * (D // point["block_d"])
-    sms = min(ctas, arch.sm_count)
-    warps = min(ctas / sms, _bwd_resident(arch, bp, point)) * _bwd_threads(bp, point) / WARP
-    warp_steps = B * S * D * (N // k) / WARP
-    per = (BWD_WARP_STEP_S + k * BWD_STATE_STEP_S
-           + _bwd_shuffles(bp["n_state"], k) * SHFL_S)
-    steps = warp_steps * per / sms
-    steps /= min(1.0, warps / BWD_WARPS_FULL)
-    steps += ctas / sms * -(-S // point["chunk"]) * CHUNK_S
-    return max(steps, 3 * sfu_seconds(B, S, D, N, arch.peak_flops_fp32) * arch.sm_count / sms)
+    """Sweep 1's time, sweep 2's (each wave of CTAs an SM holds at once
+    runs their (t, d, n) at the tile's rate for the warps they bring), and
+    the dB/dC partials written and read again at the memory rate; no less
+    than the SFU's two exps a (t, d, n)."""
+    B, S, D, N = bp["batch"], bp["seq"], bp["d_inner"], bp["n_state"]
+    bd, ck, seg, ch = point["block_d"], point["chunk"], point["seg"], point["channels"]
+    ctas = B * (D // bd)
+    resident = min(_bwd_resident(arch, bp, point), -(-ctas // arch.sm_count))
+    warps = resident * bwd_threads(bd, ck, seg, ch) / WARP
+    per_item = (BWD_ITEM_S[(seg, ch, bwd_group(ck, seg))]
+                * (8 / min(warps, 16)) ** BWD_WARPS_EXP)
+    waves = -(-ctas // (arch.sm_count * resident))
+    sweep2 = waves * resident * -(-S // ck) * ck * bd * N * per_item
+    partials = 2 * 4.0 * B * (D // bd) * S * N
+    steps = SWEEP1_S * B * S * D * N + sweep2 + 2 * partials / arch.hbm_bandwidth
+    sfu = (2 + 2 / seg) * sfu_seconds(B, S, D, N, arch.peak_flops_fp32)
+    return max(steps, sfu * arch.sm_count / min(ctas, arch.sm_count))
 
 
 def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
     """(flops, bytes) of the call, the scratch's writes and reads (the
-    chunk-start states, the CTAs' dB and dC partials) included: ranking
+    trip-start states, the CTAs' dB and dC partials) included: ranking
     only."""
     B, S, D, N = bp["batch"], bp["seq"], bp["d_inner"], bp["n_state"]
     flops, bytes_ = bwd_traffic(B, S, D, N, _elt(bp))
     return flops, bytes_ + 2.0 * bwd_scratch_bytes(B, S, D, N, point["block_d"], point["chunk"])
 
 
+def _bwd_dims(bp: Mapping[str, Any]):
+    return (
+        TileDim("block_d", bp["d_inner"], semantic="grid", min_tile=8, max_tile=256),
+        TileDim("chunk", bp["seq"], semantic="sequential",
+                max_tile=max(seg * lanes for seg, _, lanes in BWD_TILES), allow_padding=True,
+                pow2_only=True),
+        TileDim("seg", 16, semantic="sequential", min_tile=4, max_tile=16, pow2_only=True),
+        TileDim("channels", 2, semantic="sequential", min_tile=1, max_tile=2, pow2_only=True),
+    )
+
+
 SSM_BWD_POLICY = TilePolicy(
     kernel="ssm_scan_bwd",
-    dims=lambda bp: _dims(bp, lambda k: BWD_MAX_THREADS),
-    vmem_model=lambda bp, p: bwd_smem_bytes(p["block_d"], p["chunk"], bp["n_state"],
-                                            p["states"], _elt(bp)),
+    dims=_bwd_dims,
+    vmem_model=lambda bp, p: bwd_smem_bytes(p["block_d"], p["chunk"], bp["n_state"], p["seg"],
+                                            p["channels"], _elt(bp)),
     traffic_model=_bwd_traffic,
     grid_multiplier=lambda bp: bp["batch"],
     latency_model=_bwd_latency,
@@ -287,9 +280,9 @@ def ssm_bwd_region(
     )
 
     def instantiate(point: Mapping[str, Any]):
-        bd, ck, k = point["block_d"], point["chunk"], point["states"]
+        tiles = {k: point[k] for k in ("block_d", "chunk", "seg", "channels")}
         return lambda x, dt, A, Bc, Cc, D, dy, dh=None: ssm_scan_bwd(
-            x, dt, A, Bc, Cc, D, dy, dh, block_d=bd, chunk=ck, states=k)
+            x, dt, A, Bc, Cc, D, dy, dh, **tiles)
 
     return ATRegion(
         "ssm_scan_bwd_cuda", emitted.space, instantiate, oracle=ssm_scan_bwd_ref,

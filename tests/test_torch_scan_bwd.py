@@ -370,22 +370,25 @@ SSM_REGIONS = [(8192, 2048, 16, 1), (8192, 2048, 16, 2), (8192, 2047, 16, 1),
 @pytest.mark.parametrize("d_inner,seq,n_state,batch", SSM_REGIONS)
 def test_ssm_bwd_emitted_points_launch(d_inner, seq, n_state, batch, dtype):
     """Every emitted point is one the kernel instantiates and takes: its
-    ``states`` compiled, a channel within a warp, whole warps within the
-    launch bound, whole groups a chunk (or the whole sequence), its shared
-    memory within the card's opt-in limit; the wrapper's own check passes."""
+    (seg, channels, time lanes) compiled, whole warps of channel lanes
+    within the launch bound for its (seg, channels), its shared memory
+    within the card's opt-in limit; the wrapper's own check passes."""
     region = ssm_ops.ssm_bwd_region(d_inner, seq, n_state, batch, arch=SXM, dtype=dtype)
     points = list(region.space.points())
     assert points
     elt = 2 if dtype == "bfloat16" else 4
-    NP = ssm_mod.pad_states(n_state)
     for p in points:
-        k = p["states"]
-        threads = p["block_d"] * NP // k
-        assert k in ssm_mod.STATES and NP // k <= ssm_mod.WARP, p
-        assert threads % 32 == 0 and threads <= ssm_mod.BWD_MAX_THREADS, p
-        assert p["chunk"] % ssm_mod.bwd_group(k) == 0 or p["chunk"] == seq, p
+        seg, ch = p["seg"], p["channels"]
+        lanes_t = ssm_mod.bwd_group(p["chunk"], seg)
+        assert lanes_t * seg == p["chunk"] and (seg, ch, lanes_t) in ssm_mod.BWD_TILES, p
+        assert p["block_d"] % (32 // lanes_t * ch) == 0, p  # whole warps of channel lanes
+        threads = ssm_mod.bwd_threads(p["block_d"], p["chunk"], seg, ch)
+        assert threads == p["block_d"] // ch * lanes_t, p
+        assert threads % 32 == 0 and threads <= ssm_mod.bwd_max_threads(seg, ch), p
         assert d_inner % p["block_d"] == 0, p
-        assert ssm_mod.bwd_smem_bytes(p["block_d"], p["chunk"], n_state, k, elt) <= SXM.smem_per_block
+        assert ssm_mod.bwd_refusal(d_inner, **p) is None, p
+        assert ssm_mod.bwd_smem_bytes(p["block_d"], p["chunk"], n_state, seg, ch, elt) <= (
+            SXM.smem_per_block)
     tdt = DTYPES[dtype][1]
     x = torch.zeros((batch, seq, d_inner), dtype=tdt)
     A, Bc = torch.zeros((d_inner, n_state)), torch.zeros((batch, seq, n_state), dtype=tdt)
@@ -418,14 +421,34 @@ def test_rglru_bwd_emitted_points_launch(width, seq, batch, dtype):
 
 
 def test_bwd_smem_and_scratch_models_count_the_sources_regions():
-    # ssm: two stages of 32 rows of x, dt, dy (16 channels) and B, C (16),
-    # the group starts (2 groups of 16 steps, 256 threads at 1 state) and
-    # the warps' sums (2 x 32 steps x 8 warps x 16 states), in float32
-    assert ssm_mod.bwd_smem_bytes(16, 32, 16, 1, 4) == (
-        2 * (3 * 32 * 16 * 4 + 2 * 32 * 16 * 4) + 4 * 2 * 256 + 4 * 2 * 32 * 8 * 16)
-    # the chunk-start states, the two partials, dA's and dD's rows
-    assert ssm_mod.bwd_scratch_bytes(1, 2048, 8192, 16, 32, 128) == 4 * (
-        16 * 8192 * 16 + 2 * 256 * 2048 * 16 + 8192 * 16 + 8192)
+    # ssm at the train cell's (block_d, chunk, seg, channels) = (128, 32, 8, 2),
+    # float32: 4 time lanes x 8 channel lanes a warp, 8 warps (256 threads);
+    # in floats: B_t and C_t (16 rows of 32 + 4 steps), A, the start state,
+    # the carry and the dA sums (16 x 128 each), the warps' dB/dC sums (8 x 2
+    # x 16 rows of 32 + 1), the warps' transposes (8 x 2 x 8 x 32), the next
+    # trip's x, dt, dy rows (3 x 32 x 128), B_t, C_t rows (2 x 32 x 16) and
+    # start state (16 x 128), each thread's x and dskip terms (256 x 9 x 2)
+    assert ssm_mod.bwd_smem_bytes(128, 32, 16, 8, 2, 4) == 4 * (
+        2 * 16 * 36 + 4 * 16 * 128 + 8 * 2 * 16 * 33 + 8 * 2 * 8 * 32 + 3 * 32 * 128
+        + 2 * 32 * 16 + 16 * 128 + 256 * 9 * 2) == 167_424
+    # bf16: the prefetched rows at 2 bytes; N = 256 stages B_t, C_t when its
+    # trip starts (no rows fetched ahead)
+    assert ssm_mod.bwd_smem_bytes(128, 32, 16, 8, 2, 2) == (
+        167_424 - 2 * (3 * 32 * 128 + 2 * 32 * 16))
+    # (one warp: 4 time lanes x 8 channel lanes)
+    assert ssm_mod.bwd_smem_bytes(8, 32, 256, 8, 1, 4) == 4 * (
+        2 * 256 * 36 + 4 * 256 * 8 + 2 * 256 * 33 + 16 * 32 + 3 * 32 * 8 + 256 * 8 + 32 * 9)
+    # the train cell (2, 2048, 8192, 16) at block_d 128, chunk 32: the states
+    # at the start of trips 1..63, the dB partials (64 CTAs a batch row) in
+    # the room of the trips' dt sums, the dC partials, dA's and dD's rows;
+    # below the 135,331,840 bytes of the design before
+    assert ssm_mod.bwd_scratch_bytes(2, 2048, 8192, 16, 128, 32) == 4 * (
+        2 * 63 * 16 * 8192 + 2 * 2 * 64 * 2048 * 16 + 2 * 8192 * 16 + 2 * 8192) == 100_728_832
+    # the dt sums larger than the dB partials (N = 1); one trip: no states
+    assert ssm_mod.bwd_scratch_bytes(1, 2048, 64, 1, 64, 32) == 4 * (
+        63 * 64 + 63 * 64 + 2048 + 64 + 64)
+    assert ssm_mod.bwd_scratch_bytes(1, 7, 64, 16, 8, 32) == 4 * (
+        2 * 8 * 7 * 16 + 64 * 16 + 64)
     # rglru: a fourth tile, dy, beside the forward's three
     # (4 segments of 32 rows of 128 channels and 8 elements of bank padding)
     assert rg_mod.bwd_smem_bytes(128, 128, 4, 4) == 2 * 4 * 4 * 4 * (32 * 128 + 8)
@@ -433,9 +456,11 @@ def test_bwd_smem_and_scratch_models_count_the_sources_regions():
 
 
 def test_backward_regions_rank_on_cpu_host():
-    """On the CPU the registry builds the same spaces for CPU_HOST; its
-    finals run the plain version."""
-    assert list(ssm_ops.ssm_bwd_region(64, 7, 16, 2, arch=CPU_HOST).space.points())
+    """On the CPU the registry builds the same spaces for CPU_HOST, with
+    the backward's tunables; its finals run the plain version."""
+    points = list(ssm_ops.ssm_bwd_region(64, 7, 16, 2, arch=CPU_HOST).space.points())
+    assert points and all(set(p) == {"block_d", "chunk", "seg", "channels"} for p in points)
+    assert all(ssm_mod.bwd_refusal(64, **p) is None for p in points)
     assert list(rg_ops.rglru_bwd_region(24, 7, 2, arch=CPU_HOST).space.points())
 
 
