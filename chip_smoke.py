@@ -122,10 +122,12 @@ Phases, each of which fails the run:
    the per-position gradients per element at the scans' tolerance, the
    summed ones (dA, dB_t, dC_t, dD; dλ) to a worst row of 1e-4, bf16 at
    the bf16 tolerances; every point called twice for the same bits, its
-   shared memory and scratch against the source's, the fastest point beside
-   the bound (bytes, and ``ssm_scan``'s exps on the SFU) and the forward's
-   time at the same shape; ``[ptxas]`` lines for every instantiation (0 B
-   spilled);
+   shared memory, scratch and launch bound against the source's, the
+   fastest point beside the bound (bytes, and ``ssm_scan``'s exps on the
+   SFU) and the forward's time at the same shape, and each phase's time at
+   the fastest point of falcon's train cell and of recurrentgemma's
+   (1,2048,2560) f32 (``[kernel] ssm_scan|rglru_scan bwd phases``);
+   ``[ptxas]`` lines for every instantiation (0 B spilled);
 3d. head dims off the kernels' 16-byte rule (C3): every emitted flash point
    at hd 12, 36, 100 (bf16) and 6, 50 (f32), S=2048, 8|2 heads, run padded
    by the wrapper, against the plain version, and the copy's cost (the
@@ -643,11 +645,16 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
                         model = rg_mod.bwd_smem_bytes(p["block_w"], p["chunk"], p["split"], elt)
                         native = rg_mod.bwd_smem_bytes_native(p["block_w"], p["chunk"],
                                                               p["split"], elt)
-                        scratch = (rg_mod.bwd_scratch_bytes(B, S, W, min(p["chunk"], S)),
-                                   rg_mod.bwd_scratch_bytes_native(B, S, W, min(p["chunk"], S)))
-                        if model != native or model > optin or scratch[0] != scratch[1]:
+                        ck = min(p["chunk"], S)
+                        scratch = (rg_mod.bwd_scratch_bytes(B, S, W, ck),
+                                   rg_mod.bwd_scratch_bytes_native(B, S, W, ck))
+                        bound = (rg_mod.bwd_max_threads(ck, p["split"]),
+                                 rg_mod.bwd_max_threads_native(ck, p["split"]))
+                        if (model != native or model > optin or scratch[0] != scratch[1]
+                                or bound[0] != bound[1]):
                             errors.append(f"rglru_scan bwd {tag} {p}: smem model {model}, "
-                                          f"kernel {native}, limit {optin}; scratch {scratch}")
+                                          f"kernel {native}, limit {optin}; scratch {scratch}; "
+                                          f"threads bound {bound}")
                 ref = plain(*(t.to(work) for t in args))
                 counter = ssm_mod.bwd_counter if name == "ssm_scan" else rg_mod.bwd_counter
                 before = counter.launches
@@ -695,12 +702,16 @@ def scan_bwd_phase(torch, arch, timer, optin, errors) -> dict:
                       f"{times[staged]:.4f} ms of {len(finals)} finals, fastest {best} "
                       f"{times[best]:.4f} ms; within 10%: {times[staged] <= 1.1 * times[best]}")
                 phases = None
-                if name == "ssm_scan" and (B, S, D, N) == (2, 2048, 8192, 16):
-                    # the phases at the fastest point: the trips' maps and
-                    # their chaining, sweep 2, the reduce
-                    phases = bwd_pass_ms(torch, ssm_mod.bwd_phase_runs(*args, **json.loads(best)),
+                if ((name == "ssm_scan" and (B, S, D, N) == (2, 2048, 8192, 16))
+                        or (name == "rglru_scan" and (B, S, W) == (1, 2048, 2560)
+                            and dtype_name == "float32")):
+                    # the phases at the fastest point: ssm_scan's trips' maps
+                    # and their chaining, sweep 2, the reduce; rglru_scan's
+                    # maps, chain, gradients, reduce
+                    mod = ssm_mod if name == "ssm_scan" else rg_mod
+                    phases = bwd_pass_ms(torch, mod.bwd_phase_runs(*args, **json.loads(best)),
                                          timer.flush)
-                    print(f"[kernel] ssm_scan bwd phases {dtype_name} {tag} at {best}: "
+                    print(f"[kernel] {name} bwd phases {dtype_name} {tag} at {best}: "
                           + ", ".join(f"{k} {v:.4f} ms" for k, v in phases.items()))
                 for point in points:  # the hint's rank beside the card's
                     hint = region.hints[pp_key(point)]
@@ -785,17 +796,23 @@ def decode_step_bytes(tm, cfg, ctxs) -> float:
     return weights + kv + state * len(ctxs)
 
 
-def device_rows(torch, fn) -> list:
-    """(kernel name, device ms) of every device kernel in one
-    ``torch.profiler`` run of ``fn``, most time first."""
-    from torch.autograd import DeviceType
+def profiled(torch, fn):
+    """One ``torch.profiler`` run of ``fn``, host and device."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_rows(torch, fn, prof=None) -> list:
+    """(kernel name, device ms) of every device kernel in one
+    ``torch.profiler`` run of ``fn`` (or in ``prof``), most time first."""
+    from torch.autograd import DeviceType
+
     rows = []
-    for evt in prof.key_averages():
+    for evt in (prof or profiled(torch, fn)).key_averages():
         if getattr(evt, "device_type", None) != DeviceType.CUDA:
             continue  # a host op: its kernels are rows of their own
         t = getattr(evt, "self_device_time_total", None)
@@ -829,14 +846,30 @@ STEP_KINDS = (("flash_forward", ("flash_fwd",)), ("flash_backward", ("flash_bwd"
 
 def step_profile(torch, fn) -> dict:
     """Device ms of one run of ``fn`` by :data:`STEP_KINDS` and the rest,
-    with the total and the ten kernels with the most time."""
-    rows = device_rows(torch, fn)
-    kinds = {kind: 0.0 for kind, _ in STEP_KINDS}
-    kinds["rest"] = 0.0
-    for key, t in rows:
+    with the total and the ten kernels with the most time.  A kind's ms is
+    the union of its kernels' spans on the device: a kernel launched as a
+    programmatic dependent (``rglru_scan_bwd``'s chain, gradient and reduce
+    launches) starts while the one before it drains, and a sum of
+    durations would count that overlap twice."""
+    from torch.autograd import DeviceType
+
+    prof = profiled(torch, fn)
+    spans = {kind: [] for kind, _ in STEP_KINDS}
+    spans["rest"] = []
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
         kind = next((kind for kind, names in STEP_KINDS
-                     if any(n in key.lower() for n in names)), "rest")
-        kinds[kind] += t
+                     if any(n in evt.name.lower() for n in names)), "rest")
+        spans[kind].append((evt.time_range.start, evt.time_range.end))
+    kinds = {}
+    for kind, intervals in spans.items():
+        busy, reach = 0.0, float("-inf")
+        for start, end in sorted(intervals):
+            busy += max(0.0, end - max(start, reach))
+            reach = max(reach, end)
+        kinds[kind] = busy / 1e3
+    rows = device_rows(torch, fn, prof)
     return {"device_ms": sum(kinds.values()), "by_kind_ms": kinds,
             "top": [(key[:80], t) for key, t in rows[:10]]}
 
@@ -2742,25 +2775,27 @@ def run() -> int:
         return fail(f"scans: {scan_count} instantiations, spill {scan_spill} B")
     # the scans' backward kernels: ssm_scan_bwd's at each (seg, channels,
     # time lanes), its maps of sweep 1 and sweep 2, its reduce a dtype and
-    # the kernel chaining the trips; rglru_scan_bwd's at each segment length
-    # and its reduce
+    # the kernel chaining the trips; rglru_scan_bwd's maps and gradient
+    # passes at each segment length, its chain and its reduce
     bwd_scan_spill, bwd_scan_count = 0, 0
     for stem, kernel in (("ssm_scan_bwd", "ssm_bwd_kernel"),
                          ("rglru_scan_bwd", "rglru_bwd_kernel")):
         log = (_build.build_dir() / _build._digest() / f"{stem}.log").read_text()
         for name, (regs, spill) in sorted(ptxas_entries(log).items()):
-            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi(\d+)ELb([01])E)?",
-                             name)
-            red = re.search(r"(ssm_bwd_reduce|rglru_bwd_reduce|ssm_bwd_starts)", name)
+            inst = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)ELi(\d+)E)?"
+                             r"(?:Lb([01])E)?", name)
+            red = re.search(r"(ssm_bwd_reduce|rglru_bwd_reduce|ssm_bwd_starts|rglru_bwd_chain)",
+                            name)
             if inst and inst.group(3):
                 dtype_name = "f32" if inst.group(1) == "f" else "bf16"
                 what = (f"{dtype_name} (seg {inst.group(2)}, channels {inst.group(3)}, time lanes "
                         f"{inst.group(4)}, {'maps' if inst.group(5) == '1' else 'sweep 2'})")
             elif inst:
                 dtype_name = "f32" if inst.group(1) == "f" else "bf16"
-                what = f"{dtype_name} (segment {inst.group(2)})"
-            elif red and red.group(1) == "ssm_bwd_starts":
-                what = "starts"
+                what = (f"{dtype_name} (segment {inst.group(2)}, "
+                        f"{'gradients' if inst.group(5) == '1' else 'maps'})")
+            elif red and red.group(1) in ("ssm_bwd_starts", "rglru_bwd_chain"):
+                what = "starts" if red.group(1) == "ssm_bwd_starts" else "chain"
             elif red:
                 what = "reduce" + (" f32" if "IfE" in name else " bf16" if "bfloat16" in name
                                    else "")
@@ -2771,10 +2806,11 @@ def run() -> int:
     print(f"[build] scans' backward: {bwd_scan_count} instantiations, max spill "
           f"{bwd_scan_spill} B")
     # ssm_scan_bwd: sweep 2 at each compiled tile, sweep 1's maps at each of
-    # theirs and a reduce a dtype, and the starts; rglru_scan_bwd: 4 segment
-    # lengths a dtype and one reduce
+    # theirs and a reduce a dtype, and the starts; rglru_scan_bwd: the maps
+    # and gradient passes at 4 segment lengths a dtype, the chain and the
+    # reduce
     want = (2 * (len(ssm_mod.BWD_TILES) + len(ssm_mod.BWD_MAPS_TILES) + 1) + 1
-            + 2 * len(rg_mod.SEGMENTS) + 1)
+            + 2 * 2 * len(rg_mod.SEGMENTS) + 2)
     if bwd_scan_count != want or bwd_scan_spill:
         return fail(f"scans' backward: {bwd_scan_count} instantiations for {want}, spill "
                     f"{bwd_scan_spill} B")

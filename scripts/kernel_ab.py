@@ -3,7 +3,8 @@
 
     python3 scripts/kernel_ab.py <src dir> <label> [flash_attention|flash_attention_f32|
                                                      flash_attention_bwd|exb|ssm_scan|
-                                                     rglru_scan|ssm_scan_bwd ...]
+                                                     rglru_scan|ssm_scan_bwd|
+                                                     rglru_scan_bwd ...]
 
 Builds the ``repro_torch`` package under ``<src dir>`` (a copy of ``src/``
 whose ``csrc/*.cu`` may differ) into ``build/ab_<label>/``, prints each
@@ -36,7 +37,9 @@ median of 5).
   (B=1, S=2048, D=8192, N=16) in f32 and bf16 and at its train step's B=2
   in f32, each point held against the plain backward (in float64 for f32
   inputs, float32 for bf16) at ``chip_smoke.py``'s gates (``bwd_err``,
-  ``SCAN_BWD_SUMMED``), with dh given.
+  ``SCAN_BWD_SUMMED``), with dh given;
+* ``rglru_scan_bwd``: the RG-LRU scan's backward at recurrentgemma-2b width
+  (B=1, S=2048, W=2560) in f32 and bf16 and at B=2 in f32, held likewise.
 
 With no kernel named, all of them.  Run it once per version in one call on
 the card, in turns (A, B, B, A), and compare only within that call.
@@ -50,14 +53,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNELS = ("flash_attention", "flash_attention_f32", "flash_attention_bwd", "exb", "ssm_scan",
-           "rglru_scan", "ssm_scan_bwd")
+           "rglru_scan", "ssm_scan_bwd", "rglru_scan_bwd")
 # the sources whose ptxas report a kernel's run prints (those the version has)
 SOURCES = {"flash_attention": ("flash_attention_sm90",),
            "flash_attention_f32": ("flash_attention",),
            "flash_attention_bwd": ("flash_attention_bwd_sm90", "flash_attention_bwd",
                                    "flash_attention_bwd_f32"),
            "exb": ("exb",), "ssm_scan": ("ssm_scan",), "rglru_scan": ("rglru_scan",),
-           "ssm_scan_bwd": ("ssm_scan_bwd",)}
+           "ssm_scan_bwd": ("ssm_scan_bwd",), "rglru_scan_bwd": ("rglru_scan_bwd",)}
 
 
 def cases(torch, name, arch, gen, dev):
@@ -151,6 +154,22 @@ def cases(torch, name, arch, gen, dev):
                    lambda p, args=args: mod.ssm_scan_bwd_cuda(*args, **p), plain, dt_name, None,
                    mod.bwd_counter, None)
         return
+    if name == "rglru_scan_bwd":
+        from repro_torch.kernels.rglru_scan import ops, ref, rglru_scan as mod
+
+        for dt_name, B in (("float32", 1), ("bfloat16", 1), ("float32", 2)):
+            shape = dict(RGLRU, B=B)
+            dtype = getattr(torch, dt_name)
+            x, r, i, lam = ref.make_inputs(gen, device=dev, **shape)
+            dy = torch.randn_like(x)
+            args = (x.to(dtype), r.to(dtype), i.to(dtype), lam, dy.to(dtype))
+            work = torch.float64 if dt_name == "float32" else torch.float32
+            plain = mod.rglru_scan_bwd_plain(*(t.to(work) for t in args))
+            region = ops.rglru_bwd_region(RGLRU["W"], RGLRU["S"], B, arch=arch, dtype=dt_name)
+            yield (f"rglru_scan_bwd {dt_name} ({B},2048,2560)", region,
+                   lambda p, args=args: mod.rglru_scan_bwd_cuda(*args, **p), plain, dt_name,
+                   None, mod.bwd_counter, None)
+        return
     if name == "exb":
         from repro_torch.kernels.exb import exb as mod, ops, ref
 
@@ -212,20 +231,21 @@ def l2_states(torch, label, run, times, timer, arch, dev) -> None:
           f"clean {median(clean):.4f} ms, warm {warm:.4f} ms")
 
 
-def bwd_sweep(torch, label, region, run, plain_out, dtype, timer, errors) -> dict:
+def bwd_sweep(torch, label, region, run, plain_out, dtype, summed, timer, errors) -> dict:
     """Every point of a backward's region held against its plain version
     at ``chip_smoke.py``'s backward gates, two calls bit for bit, and timed
-    as the tuner times it (L2 flushed, median of 5)."""
+    as the tuner times it (L2 flushed, median of 5); ``summed`` the
+    indices of the outputs held as sums (``SCAN_BWD_SUMMED``)."""
     import json
 
-    from chip_smoke import SCAN_BWD_SUMMED, bwd_err
+    from chip_smoke import bwd_err
     from repro_torch.core import pp_key
 
     times, worst = {}, 0.0
     for point in region.space.points():
         out = run(point)
         torch.cuda.synchronize()
-        err, row, failed = bwd_err(torch, out, plain_out, dtype, SCAN_BWD_SUMMED["ssm_scan"])
+        err, row, failed = bwd_err(torch, out, plain_out, dtype, summed)
         worst = max(worst, row)
         same = all(torch.equal(a, b) for a, b in zip(out, run(point)))
         if failed or not same:
@@ -246,7 +266,7 @@ def main(src: str, label: str, names) -> int:
     sys.path[:0] = [str(Path(src).resolve()), str(ROOT)]
     import torch
 
-    from chip_smoke import Timer, card_line, ptxas_entries, sweep
+    from chip_smoke import SCAN_BWD_SUMMED, Timer, card_line, ptxas_entries, sweep
     from repro_torch.core import detect
     from repro_torch.kernels import _build
 
@@ -272,9 +292,9 @@ def main(src: str, label: str, names) -> int:
     for name in names:
         for case_label, region, run, plain_out, dtype, tol, counter, library in cases(
                 torch, name, arch, gen, dev):
-            if name == "ssm_scan_bwd":
+            if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
                 times = bwd_sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
-                                  timer, errors)
+                                  SCAN_BWD_SUMMED[name[:-4]], timer, errors)
             else:
                 times = sweep(torch, f"{label} {case_label}", region, run, plain_out, dtype,
                               timer, counter, errors, tol=tol)[2]

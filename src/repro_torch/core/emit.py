@@ -212,6 +212,10 @@ class TilePolicy:
     * ``grid_multiplier(bp)`` (optional) is how many times the launch
       repeats the tile grid (the batch, the heads); the hint's CTA count
       includes it.
+    * ``programs_model(arch, bp, point)`` (optional) is the CTA count the
+      hint's waves and SM fill take, in place of the dims' count and the
+      multiplier: for a kernel with more CTAs than the SMs hold at once,
+      whose ``latency_model`` counts the rounds they take.
     * ``point_filter(bp, point)`` (optional) keeps only the points the
       kernel takes where the dims' ladders alone do not say so (a thread
       count that must be whole warps, a ratio of two tiles).
@@ -233,6 +237,9 @@ class TilePolicy:
         point_filter: Optional[
             Callable[[Mapping[str, Any], Mapping[str, Any]], bool]
         ] = None,
+        programs_model: Optional[
+            Callable[[ArchSpec, Mapping[str, Any], Mapping[str, Any]], int]
+        ] = None,
     ) -> None:
         self.kernel = kernel
         self.name = "tile_pow2_hopper"
@@ -243,6 +250,7 @@ class TilePolicy:
         self.flop_rate = flop_rate
         self.latency_model = latency_model
         self.point_filter = point_filter
+        self.programs_model = programs_model
 
     # -- hints -----------------------------------------------------------
 
@@ -257,6 +265,8 @@ class TilePolicy:
         programs = _programs(dims, point)
         if self.grid_multiplier is not None:
             programs *= int(self.grid_multiplier(bp))
+        if self.programs_model is not None:
+            programs = int(self.programs_model(arch, bp, point))
         waves = -(-programs // arch.sm_count)
         fill = min(1.0, programs / arch.sm_count)
         pad = _pad_factor(dims, point)

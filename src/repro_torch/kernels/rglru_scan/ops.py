@@ -29,11 +29,16 @@ not recall a B = 1 winner.
 
 ``rglru_scan_bwd`` (the backward kernel) is a registry op of its own, with
 the forward's class keys and tunables and its point filter on the
-backward's shared memory (a fourth tile, dy, a stage).  Its hint is the
-larger of the bytes' time (x, r, i, dy read; dx, dr, di written) and the
-chain's: per tile, sweep 1's pass over a thread's segment and its join,
-and sweep 2's four passes (the forward's two, the adjoint's composition,
-the gradients) and two joins, at the forward's STEP_S and TILE_S.
+backward's launch bound and shared memory (one trip's x, r, i and dy).
+Every (batch row, trip, channel block) runs in a CTA of its own in each of
+its two trip passes, so the hint counts the CTAs an SM holds at once (by
+shared memory, threads and the gradient pass's registers) and the rounds
+of them the items take.  Its hint is the larger of the bytes' time (x, r,
+i and dy read twice, dx, dr and di written once, and the trips' scratch)
+and the latency: the bytes' time stretched by the last round's idle
+slots, each round's chain of an item (:func:`bwd_chain_steps`) and fixed
+part, and the chain pass's walk over the trips, at constants fitted to
+the sweeps of ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from ...core.emit import TileDim, TilePolicy, hint_prescreen
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 from .rglru_scan import (
     COMBINE_STEPS, DTYPES, MAX_SPLIT, MAX_THREADS, SEGMENTS, WARP, bwd_max_threads,
-    bwd_smem_bytes, bwd_traffic,
+    bwd_scratch_bytes, bwd_smem_bytes, bwd_traffic, bwd_trips,
     chain_steps, rglru_scan, rglru_scan_bwd, seg_len, smem_bytes, takes_split, traffic,
 )
 
@@ -162,14 +167,32 @@ register_kernel(
 
 # -- the backward kernel ----------------------------------------------------------
 
+# The backward's costs on an H100 SXM, fitted to the sweeps of chip_smoke.py
+# at recurrentgemma-2b width (f32 and bf16, B = 1 and 2; with them the
+# staged pick is within 1% of the fastest swept point at all three): a step
+# of a thread's segment, an item's fixed part (its loads' latency before it
+# computes, its barriers and store) in a round of the CTAs the SMs hold at
+# once, and one group of CHAIN_GROUP trips in the chain pass (a load's
+# latency).
+BWD_STEP_S = 40e-9
+BWD_ITEM_S = 1.0e-6
+BWD_CHAIN_S = 1.0e-6
+CHAIN_GROUP = 32  # trips whose maps the chain pass loads at once (kGroup in the source)
+SM_THREADS = 2048
+SM_REGISTERS = 65536
+# Registers a thread of the compiled gradient pass takes, by segment
+# length (its [ptxas] lines in chip_smoke.py, float32; bf16 within 9)
+BWD_REGISTERS = {4: 51, 8: 64, 16: 122, 32: 214}
 
-def bwd_chain_steps(S: int, chunk: int, split: int) -> float:
-    """Dependent steps on one backward CTA's chain: per tile, sweep 1's pass
-    over a thread's segment and one join, sweep 2's four passes and two
-    joins (the forward's and the adjoint's)."""
-    tiles = -(-S // chunk)
+
+def bwd_chain_steps(chunk: int, split: int) -> float:
+    """Dependent steps of one item's chain over both trip passes: the maps
+    pass's two walks over a thread's segment (the forward map, the
+    adjoint's) and its scans (up and down together), the gradient pass's
+    four walks (the two maps again, the rerun, the gradients) and its
+    scans."""
     joins = (split.bit_length() - 1) * COMBINE_STEPS
-    return tiles * (5.0 * seg_len(chunk, split) + 3 * joins)
+    return 6.0 * seg_len(chunk, split) + 2 * joins
 
 
 def _bwd_takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
@@ -178,22 +201,54 @@ def _bwd_takes(bp: Mapping[str, Any], point: Mapping[str, Any]) -> bool:
             and point["block_w"] * point["split"] <= bwd_max_threads(chunk, point["split"]))
 
 
+def _bwd_items(bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
+    """CTAs of each of the two trip passes: one a (batch row, trip,
+    channel block)."""
+    trips = bwd_trips(bp["seq"], min(point["chunk"], bp["seq"]))
+    return bp["batch"] * trips * (bp["width"] // point["block_w"])
+
+
+def _bwd_resident(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
+    """Gradient-pass CTAs one SM holds at once: by their shared memory (and
+    the 1 KiB a CTA reserves), threads and registers."""
+    chunk = min(point["chunk"], bp["seq"])
+    threads = point["block_w"] * point["split"]
+    smem = bwd_smem_bytes(point["block_w"], chunk, point["split"], _elt(bp))
+    regs = BWD_REGISTERS[seg_len(chunk, point["split"])] * threads
+    return max(1, min((arch.smem_per_block + 1024) // (smem + 1024), SM_THREADS // threads,
+                      SM_REGISTERS // regs))
+
+
+def _bwd_programs(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> int:
+    """The CTAs at work at once: the hint's waves are its rounds."""
+    return min(_bwd_items(bp, point), arch.sm_count * _bwd_resident(arch, bp, point))
+
+
 def _bwd_latency(arch: ArchSpec, bp: Mapping[str, Any], point: Mapping[str, Any]) -> float:
-    """One CTA's chain, times the CTAs that share the busiest SM."""
-    chunk = point["chunk"]
-    chain = (bwd_chain_steps(bp["seq"], chunk, point["split"]) * STEP_S
-             + 2 * -(-bp["seq"] // chunk) * TILE_S)
-    ctas = bp["batch"] * (bp["width"] // point["block_w"])
-    return chain * -(-ctas // arch.sm_count)
+    """The bytes' time stretched by the last round's idle slots; each
+    round's chain of an item (:func:`bwd_chain_steps`) and its fixed part in
+    both passes; and the chain pass: a load's latency for each CHAIN_GROUP
+    trips, each way."""
+    chunk = min(point["chunk"], bp["seq"])
+    trips = bwd_trips(bp["seq"], chunk)
+    items, programs = _bwd_items(bp, point), _bwd_programs(arch, bp, point)
+    whole = -(-items // programs)
+    bytes_s = _bwd_traffic(bp, point)[1] / arch.hbm_bandwidth
+    chain = 2 * -(-trips // CHAIN_GROUP) * BWD_CHAIN_S if trips > 1 else 0.0
+    per_round = bwd_chain_steps(chunk, point["split"]) * BWD_STEP_S + 2 * BWD_ITEM_S
+    return bytes_s * whole * programs / items + whole * per_round + chain
 
 
 def _bwd_traffic(bp: Mapping[str, Any], point: Mapping[str, Any]):
-    """(flops, bytes) of the call, a row narrower than an ATOM counted as
-    the whole atom, and sweep 1's second read of x, r and i."""
-    row = point["block_w"] * _elt(bp)
-    flops, bytes_ = bwd_traffic(bp["batch"], bp["seq"], bp["width"], _elt(bp))
-    bytes_ += 3.0 * _elt(bp) * bp["batch"] * bp["seq"] * bp["width"]
-    return flops, bytes_ * ATOM * -(-row // ATOM) / row
+    """(flops, bytes) of the call: the maps pass's read of x, r, i and dy
+    beside the gradient pass's bytes, a row narrower than an ATOM counted
+    as the whole atom; and the scratch, each of its four (B, trips, W)
+    arrays written and read about three times in all."""
+    B, S, W, elt = bp["batch"], bp["seq"], bp["width"], _elt(bp)
+    row = point["block_w"] * elt
+    flops, bytes_ = bwd_traffic(B, S, W, elt)
+    bytes_ = (bytes_ + 4.0 * elt * B * S * W) * ATOM * -(-row // ATOM) / row
+    return flops, bytes_ + 3.0 * bwd_scratch_bytes(B, S, W, min(point["chunk"], S))
 
 
 RGLRU_BWD_POLICY = TilePolicy(
@@ -204,6 +259,7 @@ RGLRU_BWD_POLICY = TilePolicy(
     grid_multiplier=lambda bp: bp["batch"],
     latency_model=_bwd_latency,
     point_filter=_bwd_takes,
+    programs_model=_bwd_programs,
 )
 
 

@@ -21,8 +21,12 @@ defaults to the least that keeps a segment at most 32 steps.
 backward (``csrc/rglru_scan_bwd.cu`` on CUDA tensors, the plain
 :func:`rglru_scan_bwd_plain` on CPU tensors, counted by ``bwd_counter``):
 (dx, dr, di, dlam) from the output's gradient dy, on the forward's tiles
-and rules.  It recomputes h in float32 (the state at each tile's start
-goes to float32 scratch), so it never reads a rounded bf16 output.
+and rules.  Every trip of ``chunk`` steps runs in a CTA of its own: a maps
+pass writes each trip's forward and adjoint maps to float32 scratch, a
+chain pass turns them into each trip's start state and adjoint carry, a
+gradient pass reruns each trip from them, and a reduce adds dlam's
+partials (:data:`BWD_PHASES`).  It recomputes h in float32, so it never
+reads a rounded bf16 output.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ SMEM_LIMIT = 232_448  # H100 opt-in shared memory per block
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_PHASES_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def seg_pad(block_w: int, seg_len: int, split: int, elt: int) -> int:
@@ -205,23 +210,30 @@ def chain_steps(S: int, chunk: int, split: int) -> float:
 
 def bwd_max_threads(chunk: int, split: int) -> int:
     """The backward's launch bound at a segment of ``seg_len(chunk,
-    split)`` steps: 512 threads (128 registers), 256 at 32 steps, whose a_t
-    and h_{t-1} take 64 registers."""
+    split)`` steps (``max_threads`` in the source): 512 threads (128
+    registers), 256 at 32 steps, whose a_t and h_{t-1} take 64 registers."""
     return 256 if seg_len(chunk, split) >= SEGMENTS[-1] else MAX_THREADS
 
 
 def bwd_smem_bytes(block_w: int, chunk: int, split: int, elt: int = 4) -> int:
     """Dynamic shared memory of one backward CTA (``smem_bytes`` in
-    ``rglru_scan_bwd.cu``): the forward's layout with a fourth tile, dy,
-    in each of the two stages."""
-    return smem_bytes(block_w, chunk, split, elt) // 3 * 4
+    ``rglru_scan_bwd.cu``): one trip's x, r, i and dy tiles in the
+    forward's layout (whose two stages hold three tiles each)."""
+    return smem_bytes(block_w, chunk, split, elt) // 6 * 4
+
+
+def bwd_trips(S: int, chunk: int) -> int:
+    """The trips of ``chunk`` steps that cover S: the backward's CTAs a
+    (batch row, channel block)."""
+    return -(-S // chunk)
 
 
 def bwd_scratch_bytes(B: int, S: int, W: int, chunk: int) -> int:
-    """Float32 scratch of one backward call: the state at each tile's
-    start (B, ceil(S / chunk), W), a whole number of 16 bytes, and dlam's
-    per batch row (B, W)."""
-    return 4 * (-(-B * -(-S // chunk) * W // 4) * 4 + B * W)
+    """Float32 scratch of one backward call: four (B, trips, W) arrays, each
+    a whole number of 16 bytes: the trips' products of a_t, their forward
+    maps (then start states), their adjoint maps (then carries) and dlam's
+    partials."""
+    return 4 * 4 * (-(-B * bwd_trips(S, chunk) * W // 4) * 4)
 
 
 def _bwd_check(x, r, i, lam, dy, block_w: int, chunk: int, split: Optional[int]):
@@ -241,28 +253,69 @@ def _bwd_check(x, r, i, lam, dy, block_w: int, chunk: int, split: Optional[int])
     return B, S, W, bw, ck, sp
 
 
-def rglru_scan_bwd_cuda(
-    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor, dy: torch.Tensor,
-    block_w: int = 128, chunk: int = 128, split: Optional[int] = None,
-):
-    """Launch the backward kernel on contiguous CUDA tensors: (dx, dr, di,
-    dlam), each in its input's dtype."""
+BWD_PHASES = {"maps": 1, "chain": 2, "gradients": 4, "reduce": 8}  # the launch's phases mask
+
+
+def _bwd_launch(x, r, i, lam, dy, tiles: Tuple[int, int, int], phases: Optional[int] = None):
+    """Launch the backward on checked CUDA inputs at ``tiles`` = (block_w,
+    chunk, split): the whole call (``rglru_scan_bwd_launch``) or the phases
+    ``phases`` alone; returns (dx, dr, di, dlam) and ``run(mask)``, which
+    launches phases on the same buffers."""
+    B, S, W = x.shape
+    bw, ck, sp = tiles
+    outs = tuple(torch.empty_like(t) for t in (x, r, i, lam))
+    scratch = torch.empty(bwd_scratch_bytes(B, S, W, ck) // 4, dtype=torch.float32,
+                          device=x.device)
+    buffers = (x, r, i, lam, dy, *outs, scratch)  # alive as long as run is
+    sizes = (B, S, W, bw, ck, sp, DTYPES[x.dtype])
+
+    def run(mask: Optional[int]) -> None:
+        ptrs = [t.data_ptr() for t in buffers]
+        if mask is None:
+            fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch", _BWD_ARGTYPES)
+            code = fn(*ptrs, *sizes, _build.stream_of(outs[0]))
+        else:
+            fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch_phases",
+                                 _BWD_PHASES_ARGTYPES)
+            code = fn(*ptrs, *sizes, mask, _build.stream_of(outs[0]))
+        _build.check(code, f"rglru_scan_bwd_launch(block_w={bw}, chunk={ck}, split={sp}, "
+                           f"phases={mask})")
+    run(phases)
+    return outs, run
+
+
+def _bwd_cuda_args(x, r, i, lam, dy, block_w: int, chunk: int, split: Optional[int]):
     B, S, W, bw, ck, sp = _bwd_check(x, r, i, lam, dy, block_w, chunk, split)
     tensors = (x, r, i, lam, dy)
     if _build.route(tensors, "rglru_scan_bwd") != "cuda":
         raise ValueError("rglru_scan_bwd_cuda: inputs must be CUDA tensors")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru_scan_bwd_cuda: x, r, i, lam, dy must be contiguous")
-    dx, dr, di, dlam = (torch.empty_like(t) for t in (x, r, i, lam))
-    scratch = torch.empty(bwd_scratch_bytes(B, S, W, ck) // 4, dtype=torch.float32,
-                          device=x.device)
-    code = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch", _BWD_ARGTYPES)(
-        *[t.data_ptr() for t in (x, r, i, lam, dy, dx, dr, di, dlam, scratch)],
-        B, S, W, bw, ck, sp, DTYPES[x.dtype], _build.stream_of(dx),
-    )
-    _build.check(code, f"rglru_scan_bwd_launch(block_w={bw}, chunk={ck}, split={sp})")
+    return bw, ck, sp
+
+
+def rglru_scan_bwd_cuda(
+    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor, dy: torch.Tensor,
+    block_w: int = 128, chunk: int = 128, split: Optional[int] = None,
+):
+    """Launch the backward kernel on contiguous CUDA tensors: (dx, dr, di,
+    dlam), each in its input's dtype."""
+    tiles = _bwd_cuda_args(x, r, i, lam, dy, block_w, chunk, split)
+    outs, _ = _bwd_launch(x, r, i, lam, dy, tiles)
     bwd_counter.launched()
-    return dx, dr, di, dlam
+    return outs
+
+
+def bwd_phase_runs(
+    x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tensor, dy: torch.Tensor,
+    block_w: int = 128, chunk: int = 128, split: Optional[int] = None,
+) -> dict:
+    """The backward's phases one at a time, for timing: runs the whole call
+    once (not counted as a launch), then returns {phase name: a function
+    launching that phase alone on the call's buffers}."""
+    tiles = _bwd_cuda_args(x, r, i, lam, dy, block_w, chunk, split)
+    _, run = _bwd_launch(x, r, i, lam, dy, tiles, sum(BWD_PHASES.values()))
+    return {name: (lambda bit=bit: run(bit)) for name, bit in BWD_PHASES.items()}
 
 
 def rglru_scan_bwd(
@@ -290,6 +343,12 @@ def bwd_scratch_bytes_native(B: int, S: int, W: int, chunk: int) -> int:
     fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_scratch_bytes",
                          [ctypes.c_int] * 4, ctypes.c_longlong)
     return int(fn(B, S, W, chunk))
+
+
+def bwd_max_threads_native(chunk: int, split: int) -> int:
+    """What the compiled source takes for :func:`bwd_max_threads`."""
+    fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_max_threads", [ctypes.c_int] * 2)
+    return int(fn(chunk, split))
 
 
 def bwd_traffic(B: int, S: int, W: int, elt: int = 4) -> Tuple[float, float]:

@@ -449,10 +449,12 @@ def test_bwd_smem_and_scratch_models_count_the_sources_regions():
         63 * 64 + 63 * 64 + 2048 + 64 + 64)
     assert ssm_mod.bwd_scratch_bytes(1, 7, 64, 16, 8, 32) == 4 * (
         2 * 8 * 7 * 16 + 64 * 16 + 64)
-    # rglru: a fourth tile, dy, beside the forward's three
+    # rglru: one trip's x, r, i and dy tiles, a CTA a trip
     # (4 segments of 32 rows of 128 channels and 8 elements of bank padding)
-    assert rg_mod.bwd_smem_bytes(128, 128, 4, 4) == 2 * 4 * 4 * 4 * (32 * 128 + 8)
-    assert rg_mod.bwd_scratch_bytes(2, 2047, 2560, 256) == 4 * (2 * 8 * 2560 + 2 * 2560)
+    assert rg_mod.bwd_smem_bytes(128, 128, 4, 4) == 4 * 4 * 4 * (32 * 128 + 8)
+    # four (B, trips, W) arrays: the trips' a_t products, forward maps (then
+    # start states), adjoint maps (then carries) and dlam partials
+    assert rg_mod.bwd_scratch_bytes(2, 2047, 2560, 256) == 4 * 4 * (2 * 8 * 2560)
 
 
 def test_backward_regions_rank_on_cpu_host():
