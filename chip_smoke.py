@@ -203,7 +203,37 @@ Phases, each of which fails the run:
    a batch of rows rounds a product differently from one row); any other
    parting, near-ties in more than half a run's requests or an eighth of
    all compared, fail the run.  The runtime sets bf16 GEMMs to accumulate
-   without reduced-precision split-K steps (``full_precision_reductions``).
+   without reduced-precision split-K steps (``full_precision_reductions``);
+7. the fleet slice (``repro_torch.fleet``), after the serving phases:
+   ``[fleet]`` flash bf16 at tinyllama-1.1b's width (1,2048,32|4,64) and
+   ``exb`` at the GKV domain, each searched by a ``FleetCoordinator`` of 1
+   and of 2 thread workers (stride shards) with the registry's measured
+   cost (each point measured once, the winner the merged argmin recorded
+   final, a fresh op recalling it with 0 evaluations, the 2-worker winner
+   re-timed within 10% of the 1-worker one, both wall times printed); then
+   ``launch.fleet --kernel <k> --workers 2`` for the five kernels and
+   ``--kernel demo --backend spawn --check-equivalence``, each exit 0;
+   ``[service]``: a ``TuningService`` over HTTP on 127.0.0.1, two hosts
+   measuring their halves of exb's space through seeded lossy transports
+   (host 1's final the union's argmin), a third, device-keyed host's
+   ``BackgroundTuner`` recalling it with 0 evaluations, another platform's
+   pull answered ``nearest`` (a warm-start seed, no final), and
+   ``launch.observe metrics --url`` on the service; ``[drift]``: a kernel
+   whose candidate ``i`` launches exb ``reps[i]`` = 1, 1, 3 times, tuned and
+   called 64 times with every call monitored (0 transitions, and 0
+   switches of the straggler selector beside the watch), then its
+   winner slowed to 4 launches (demoted, re-tuned with every point measured
+   again, canaried, the other one-launch candidate promoted); the serve CLI at tinyllama-1.1b's full width (the
+   static Server on a mixed trace of 64 with ``--background-tune
+   --fleet-workers 2 --drift-factor 2 --device-key``, then of 128 on its
+   DB: each run 0 hot-path evaluations, 0 transitions over a non-zero
+   number of observations held against a final, printed by class) and the
+   CI obs-smoke job's streaming run
+   (``[observe]``: ``launch.observe trace``, ``metrics`` and ``explain`` on
+   its files exit 0, ``explain`` naming ``engine_prefill``,
+   ``engine_decode`` and ``serve_scheduler``); ``[example]``:
+   ``examples/torch_train_lm.py --device cuda`` at its defaults, a loss drop
+   of at least 20%, its steps a second printed.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -220,7 +250,9 @@ state sizes beside their bounds; ``loop_nest_gkv`` and
 CTAs, and the bound of the domain's bytes; the kernels on the model path
 also give ``model_launches`` (a prefill's, per model),
 ``serve_launches`` (per serve run, the serving thread's) and
-``serve_trial_launches`` (its background tuner's trials), flash its
+``serve_trial_launches`` (its background tuner's trials), flash and exb
+``fleet_launches`` (the ``[fleet]`` searches', per worker count), exb
+``service_launches`` (per host) and ``drift_launches``, flash its
 ``c3`` rows and ``ssm_scan`` its final state's errors; flash also its
 ``lse_ms`` and ``train_launches``, and ``flash_attention_bwd`` its time,
 bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
@@ -232,8 +264,8 @@ launches in the falcon-mamba-7b and recurrentgemma-2b ``[train]`` runs,
 the time of the point the Trainer tuned at that run's shape in float32, the
 bound, the plain backward's time, the forward's time beside it and every
 swept shape's fastest point.  A ``{"models": ...}``,
-a ``{"serve": ...}`` and a ``{"train": ...}`` line before it hold the
-model, serve and train phases' records.  The last line is
+a ``{"serve": ...}``, a ``{"fleet": ...}`` and a ``{"train": ...}`` line
+before it hold the model, serve, fleet and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -242,6 +274,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2041,11 +2074,10 @@ TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=2, fail_at=5)
 # the restart drill on the hybrid family: recurrentgemma-2b at 3 layers.  A
 # checkpoint of it holds 0.86 B parameters and their moments (8.6 GB, the
 # 256000 x 2560 embedding most of it), so it saves twice (at step 4 and at
-# the end) and its uninterrupted reference saves none: ~17 GB of
-# checkpoint writes beside the tinyllama drill's ~22 GB (every checkpoint
-# of both saved, it would write ~86 GB)
+# the end): ~17 GB of checkpoint writes.  In both drills the uninterrupted
+# reference saves none: the drill compares losses
 TRAIN_RESTART_HYBRID = dict(TRAIN_RESTART, arch="recurrentgemma-2b", layers=3, steps=6,
-                            save_every=4, fail_at=5, ref_checkpoints=False)
+                            save_every=4, fail_at=5)
 # the scans' families through the Trainer at remat none, bf16 parameters and
 # float32 AdamW moments: recurrentgemma-2b uncut (26 layers, 2.9 B params);
 # falcon-mamba-7b at full width, 8 of 64 layers (7.27 B params uncut take
@@ -2512,13 +2544,8 @@ def train_restart(torch, device, errors, r=TRAIN_RESTART) -> dict:
     db = TuningDB()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_restart_")
 
-    def loop(name):
-        return TrainLoopConfig(total_steps=r["steps"], save_every=r["save_every"],
-                               ckpt_dir=os.path.join(tmp, name), seed=SEED)
-
-    ref_loop = (loop("ref") if r.get("ref_checkpoints", True)
-                else TrainLoopConfig(total_steps=r["steps"], seed=SEED))
-    ref = Trainer(cfg, opt, ref_loop, tuning_db=db, device=device).run(ds)
+    ref = Trainer(cfg, opt, TrainLoopConfig(total_steps=r["steps"], seed=SEED), tuning_db=db,
+                  device=device).run(ds)
     fired = []
 
     def hook(step):
@@ -2526,7 +2553,9 @@ def train_restart(torch, device, errors, r=TRAIN_RESTART) -> dict:
             fired.append(step)
             raise SimulatedFailure("node lost")
 
-    trainer = Trainer(cfg, opt, loop("ft"), tuning_db=db, device=device)
+    ft_loop = TrainLoopConfig(total_steps=r["steps"], save_every=r["save_every"],
+                              ckpt_dir=os.path.join(tmp, "ft"), seed=SEED)
+    trainer = Trainer(cfg, opt, ft_loop, tuning_db=db, device=device)
     hist = trainer.run(ds, failure_hook=hook)
     resumed = r["fail_at"] - r["fail_at"] % r["save_every"]
     want_steps = list(range(r["fail_at"])) + list(range(resumed, r["steps"]))
@@ -2620,6 +2649,487 @@ def train_phases(torch, device, arch_spec, errors) -> dict:
         out[name] = phase()
         torch.cuda.empty_cache()
         print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- the fleet slice: sharded search, the tuning service, the drift watch,
+# -- the observe CLI and the training example ------------------------------
+
+FLEET_WORKERS = (1, 2)
+FLEET_RETIME_TOL = 0.10   # the 2-worker winner re-timed within 10% of the 1-worker fastest
+FLEET_CLI_KERNELS = ("exb", "flash_attention", "stress", "ssm_scan", "rglru_scan")
+SERVICE_FAULTS = dict(drop_request=0.15, drop_response=0.15, duplicate=0.15, reorder=0.1)
+# exb launches of the drill's candidates 0, 1, 2: two equals, so the one
+# the slowed winner leaves is clearly faster than the watch's lagging EWMA
+DRIFT_REPS = [1, 1, 3]
+DRIFT_HEALTHY_CALLS = 64
+DRIFT_SLOW_REPS = 4       # the winner's launches once it is slowed
+DRIFT_LIFECYCLE = ["demoted", "retune_scheduled", "canary_start", "promoted"]
+SERVE_CLI = ["--arch", "tinyllama-1.1b", "--full"]
+# the tuning run's mixed trace, then a longer one on its DB (32 groups of
+# 4): there the watch holds each class's final over several of its EWMA
+# windows, the s128 classes most (the trace's groups skew long)
+SERVE_CLI_REQUESTS = 64
+SERVE_RECALL_REQUESTS = 128
+# the CI obs-smoke job's stream run (.github/workflows/ci.yml), at full width
+STREAM_CLI = ["--stream", "--requests", "6", "--background-tune", "--chaos-seed", "7",
+              "--deadline", "30", "--queue-limit", "4", "--tick-timer", "0.001"]
+EXPLAIN_NAMES = ("engine_prefill", "engine_decode", "serve_scheduler")
+EXAMPLE_MIN_DROP = 0.20
+
+
+def cli(args, timeout: float) -> subprocess.CompletedProcess:
+    """One of the port's entry points in a process of its own, from the
+    repository's root, output captured."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, *map(str, args)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def cli_ok(label, out, errors) -> bool:
+    """Print a CLI run's last lines; an exit other than 0 is an error."""
+    tail = out.stdout.strip().splitlines()[-6:]
+    for line in tail:
+        print(f"{label}   | {line}")
+    if out.returncode != 0:
+        errors.append(f"{label}: exit {out.returncode}: {out.stderr.strip()[-800:]}")
+        return False
+    return True
+
+
+def parsed(pattern: str, text: str, cast=float):
+    m = re.search(pattern, text)
+    return cast(m.group(1)) if m else None
+
+
+def fleet_kernels(torch, device, errors) -> dict:
+    """``[fleet]``: flash bf16 at tinyllama-1.1b's width and exb at the GKV
+    domain, each searched by a 1-worker and a 2-worker ``FleetCoordinator``
+    (thread backend, stride shards) with the registry's measured cost."""
+    from repro_torch.core import AutotunedOp, TuningDB, get_kernel, pp_key
+    from repro_torch.fleet import FleetCoordinator
+    from repro_torch.fleet.workloads import kernel_problem
+    from repro_torch.kernels.exb import exb as exb_mod, ref as exb_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention as fa_mod, ref as fa_ref,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = (
+        ("flash_attention", fa_mod.counter,
+         fa_ref.make_inputs(gen, dtype=torch.bfloat16, device=device, **FLASH)),
+        ("exb", exb_mod.counter, (exb_ref.make_inputs(gen, dims=EXB_DIMS, device=device),)),
+    )
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    timer = Timer(torch, device, l2)
+    out = {}
+    for name, counter, args in cases:
+        spec = get_kernel(name)
+        bp = spec.shape_class(*args)
+        runs = {}
+        for workers in FLEET_WORKERS:
+            region, space, cost = kernel_problem(name, device, args)
+            n = sum(1 for _ in space.points())
+            measured: dict = {}
+            lock = threading.Lock()
+
+            def counted(point, cost=cost, measured=measured, lock=lock):
+                with lock:
+                    measured[pp_key(point)] = measured.get(pp_key(point), 0) + 1
+                return cost(point)
+
+            db = TuningDB()
+            counter.reset()
+            t0 = time.perf_counter()
+            res = FleetCoordinator(workers=workers, shard_policy="stride").search(
+                space, counted, bp=bp, db=db, space_signature=region.space_signature)
+            wall = time.perf_counter() - t0
+            launches = counter.launches
+            trials = db.trials(bp)
+            argmin = json.loads(min(trials, key=lambda k: (trials[k], k)))
+            final = db.tuned_point(bp, space_signature=region.space_signature)
+            once = sorted(set(measured.values())) == [1] and len(measured) == n
+            fresh = AutotunedOp(spec, db=db)
+            recall = fresh.resolve(*args)
+            torch.cuda.synchronize()
+            runs[workers] = dict(points=n, evaluations=res.evaluations, trials=len(trials),
+                                 wall_s=wall, winner=res.best.point, winner_ms=res.best.cost * 1e3,
+                                 shards=[w.points for w in res.workers], launches=launches,
+                                 plain_calls=counter.plain_calls,
+                                 recall_evaluations=recall.cost_evaluations,
+                                 region=region)
+            print(f"[fleet] {name} workers={workers}: {n} points, {res.evaluations} "
+                  f"evaluations, {len(trials)} trials, shards {runs[workers]['shards']}, "
+                  f"each measured once={once}, winner {res.best.point} "
+                  f"{res.best.cost * 1e3:.4f} ms, final={final == res.best.point}, "
+                  f"{launches} launches, {counter.plain_calls} plain; fresh op: "
+                  f"{recall.cost_evaluations} evaluations, from_cache={recall.from_cache}; "
+                  f"wall {wall:.2f} s")
+            if not (res.evaluations == n == len(trials) and once):
+                errors.append(f"fleet {name} x{workers}: {res.evaluations} evaluations, "
+                              f"{len(trials)} trials for {n} points, once={once}")
+            if res.best.point != argmin or final != argmin:
+                errors.append(f"fleet {name} x{workers}: winner {res.best.point}, final "
+                              f"{final}, argmin of the merged trials {argmin}")
+            if not recall.from_cache or recall.cost_evaluations or \
+                    recall.region.selected != res.best.point:
+                errors.append(f"fleet {name} x{workers}: a fresh op did not recall the final")
+            if launches < n or counter.plain_calls:
+                errors.append(f"fleet {name} x{workers}: {launches} launches for {n} points, "
+                              f"{counter.plain_calls} plain calls")
+        # the 2-worker winner beside the 1-worker run's fastest point, timed
+        # in turns on the same inputs
+        one, two = runs[1], runs[2]
+        fn1 = one["region"].instantiate(one["winner"])
+        fn2 = two["region"].instantiate(two["winner"])
+        t1, t2 = [], []
+        for _ in range(3):
+            t1.append(timer.ms(lambda: fn1(*args)))
+            t2.append(timer.ms(lambda: fn2(*args)))
+        one_ms, two_ms = min(t1), min(t2)
+        print(f"[fleet] {name}: re-timed 2-worker winner {two['winner']} {two_ms:.4f} ms "
+              f"beside the 1-worker winner {one['winner']} {one_ms:.4f} ms "
+              f"(ratio {two_ms / one_ms:.3f}); wall 1 worker {one['wall_s']:.2f} s, "
+              f"2 workers {two['wall_s']:.2f} s")
+        if two_ms > (1 + FLEET_RETIME_TOL) * one_ms:
+            errors.append(f"fleet {name}: the 2-worker winner {two_ms:.4f} ms is more than "
+                          f"{FLEET_RETIME_TOL:.0%} over the 1-worker fastest {one_ms:.4f} ms")
+        for r in runs.values():
+            r.pop("region")
+        out[name] = dict(runs=runs, retimed_ms={"1": one_ms, "2": two_ms})
+    return out
+
+
+def fleet_cli(errors) -> dict:
+    """``[fleet]``: ``launch.fleet`` for every kernel at the workloads'
+    shapes (2 thread workers on the card), and the demo problem on the spawn
+    backend against a single worker (``--check-equivalence``).  The six
+    processes run at once: each one's exit and evaluation count are
+    checked; the winners they print were timed beside each other on one
+    card, so they are no measurement."""
+    runs = {name: ["--kernel", name, "--workers", "2"] for name in FLEET_CLI_KERNELS}
+    runs["demo_spawn"] = ["--kernel", "demo", "--workers", "2", "--backend", "spawn",
+                          "--check-equivalence"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.fleet", *flags], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name, flags in runs.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                errors.append(f"fleet cli {name}: no exit in 300 s")
+                continue
+            res = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
+            ok = cli_ok(f"[fleet] cli {name}", res, errors)
+            evals = parsed(r"\((\d+) total evaluations\)", stdout, int)
+            space = parsed(r"space: (\d+) candidates", stdout, int)
+            print(f"[fleet] cli {name}: exit {res.returncode}, {space} candidates, {evals} "
+                  f"evaluations")
+            if ok and (evals is None or evals != space):
+                errors.append(f"fleet cli {name}: {evals} evaluations for {space} candidates")
+            if ok and name == "demo_spawn" and "equivalence OK" not in stdout:
+                errors.append("fleet cli demo: no 'equivalence OK' line")
+            out[name] = dict(rc=res.returncode, candidates=space, evaluations=evals)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    print(f"[fleet] cli: the six at once, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def service_phase(torch, device, errors) -> dict:
+    """``[service]``: a ``TuningService`` on 127.0.0.1 over HTTP; two hosts
+    measure their halves of exb's space through seeded lossy transports;
+    a third client recalls the union's final with 0 evaluations, and a
+    client of another platform gets only a warm-start seed."""
+    from repro_torch.core import AutotunedOp, TuningDB, get_kernel
+    from repro_torch.fleet import (
+        DeviceFingerprint, FaultInjectionTransport, FleetCoordinator, HTTPTransport,
+        ServiceClient, TuningService, device_bp_entries, serve_http,
+    )
+    from repro_torch.fleet.workloads import kernel_problem
+    from repro_torch.kernels.exb import exb as exb_mod, ref as exb_ref
+    from repro_torch.runtime import BackgroundTuner
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    args = (exb_ref.make_inputs(gen, dims=EXB_DIMS, device=device),)
+    spec = get_kernel("exb")
+    bp = spec.shape_class(*args).with_entries(**device_bp_entries(device))
+    service = TuningService()
+    server = serve_http(service, host="127.0.0.1", port=0)
+    url = "http://%s:%d" % server.server_address[:2]
+    out: dict = {"url_host": "127.0.0.1"}
+    try:
+        hosts, faults = [], 0
+        for host in range(2):
+            region, space, cost = kernel_problem("exb", device, args)
+            ft = FaultInjectionTransport(HTTPTransport(url), seed=11 + host, **SERVICE_FAULTS)
+            client = ServiceClient(ft, retries=8, jitter_seed=host)
+            exb_mod.counter.reset()
+            res = FleetCoordinator(workers=2, backend="remote", service=client, hosts=2,
+                                   host_index=host).search(
+                space, cost, bp=bp, db=TuningDB(), space_signature=region.space_signature)
+            faults += ft.stats.faults
+            hosts.append(dict(evaluations=res.evaluations, winner=res.best.point,
+                              synced=res.service_synced, faults=ft.stats.faults,
+                              launches=exb_mod.counter.launches))
+            print(f"[service] host {host}/2: {res.evaluations} evaluations of "
+                  f"{space.size()} points, synced={res.service_synced}, winner "
+                  f"{res.best.point} {res.best.cost * 1e3:.4f} ms, injected faults "
+                  f"{vars(ft.stats)}")
+            if not res.service_synced:
+                errors.append(f"service host {host}: the merge barrier did not sync")
+        union = service.db.trials(bp)
+        argmin = json.loads(min(union, key=lambda k: (union[k], k)))
+        n = space.size()
+        print(f"[service] union: {len(union)} trials of {n} points; host 1's final "
+              f"{hosts[1]['winner']}, the union's argmin {argmin}, the service's final "
+              f"{service.db.tuned_point(bp)}; {faults} faults injected in all")
+        if len(union) != n or sum(h["evaluations"] for h in hosts) != n:
+            errors.append(f"service: {len(union)} trials, "
+                          f"{[h['evaluations'] for h in hosts]} evaluations for {n} points")
+        if hosts[1]["winner"] != argmin or service.db.tuned_point(bp) != argmin:
+            errors.append(f"service: host 1's final {hosts[1]['winner']} is not the "
+                          f"union's argmin {argmin}")
+        if not faults:
+            errors.append("service: the fault injector fired no fault")
+
+        # a third host, device-keyed: its tuner pulls the final and recalls it
+        op = AutotunedOp(spec, db=TuningDB(), device_key=True)
+        client = ServiceClient(HTTPTransport(url), retries=3)
+        exb_mod.counter.reset()
+        with BackgroundTuner(service=client) as tuner:
+            state = tuner.submit(op, *args)
+            drained = tuner.drain(timeout=60)
+        recalled = (drained and state.from_cache and state.cost_evaluations == 0
+                    and tuner.pulled_labels == ["exb"] and state.region.selected == argmin)
+        print(f"[service] third host: pulled {tuner.pulled_labels}, from_cache="
+              f"{state.from_cache}, {state.cost_evaluations} evaluations, selected "
+              f"{state.region.selected}, {exb_mod.counter.launches} launches")
+        if not recalled or tuner.errors:
+            errors.append(f"service: the third host did not recall the final "
+                          f"({tuner.errors})")
+
+        # a host of another platform: a seed to warm-start from, never a final
+        here = DeviceFingerprint.from_bp_entries(device_bp_entries(device))
+        other = DeviceFingerprint(backend=here.backend, platform="NVIDIA A100-SXM4-80GB",
+                                  device_count=here.device_count, host_cores=here.host_cores,
+                                  memory_gib=here.memory_gib, schema=here.schema)
+        foreign = spec.shape_class(*args).with_entries(**other.bp_entries())
+        resp = ServiceClient(HTTPTransport(url), retries=3).pull(foreign)
+        local = TuningDB()
+        if resp.get("found"):
+            local.merge({resp["fingerprint"]: resp["entry"]})
+        seed = local.nearest_tuned(foreign)
+        print(f"[service] another platform: found={resp.get('found')}, final recalled="
+              f"{local.tuned_point(foreign) is not None}, warm-start seed "
+              f"{seed and seed['point']} at distance {seed and seed['distance']}")
+        if resp.get("found") != "nearest" or local.tuned_point(foreign) is not None \
+                or not seed or seed["point"] != argmin:
+            errors.append(f"service: another platform's pull gave {resp.get('found')}")
+
+        res = cli(["-m", "repro_torch.launch.observe", "metrics", "--url", f"{url}/metrics"], 120)
+        cli_ok("[service] observe metrics --url", res, errors)
+        out.update(hosts=hosts, union_trials=len(union), final=argmin, faults=faults,
+                   third_host=dict(evaluations=state.cost_evaluations, recalled=recalled),
+                   other_platform=resp.get("found"), metrics_rc=res.returncode)
+    finally:
+        server.shutdown()
+        server.server_close()
+    return out
+
+
+def drift_drill(torch, device, errors) -> dict:
+    """``[drift]``: a test kernel whose candidate ``i`` launches exb
+    ``reps[i]`` times, tuned, then called with every call monitored: a
+    healthy run must make no transition; slowing the winner must demote,
+    re-tune (measuring again), canary and promote the other one-launch
+    candidate."""
+    from repro_torch.core import (
+        ATRegion, AutotunedOp, BasicParams, KernelSpec, ParamSpace, PerfParam, TuningDB,
+    )
+    from repro_torch.fleet import DriftMonitor
+    from repro_torch.kernels.exb import exb as exb_mod, ref as exb_ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    inp = exb_ref.make_inputs(gen, dims=EXB_DIMS, device=device)
+    reps = list(DRIFT_REPS)
+
+    def instantiate(point):
+        def run(x):
+            for _ in range(reps[point["i"]]):
+                out = exb_mod.exb(x)
+            return out
+        return run
+
+    spec = KernelSpec(
+        name="drift_exb",
+        make_region=lambda bp: ATRegion(
+            "drift_exb", ParamSpace([PerfParam("i", tuple(range(len(reps))))]), instantiate),
+        shape_class=lambda x: BasicParams.make(kernel="drift_exb", backend="cuda"),
+    )
+    monitor = DriftMonitor(factor=2.0)
+    db = TuningDB()
+    # the straggler selector runs at its default tolerance beside the watch,
+    # on the same samples: a healthy run must switch neither
+    op = AutotunedOp(spec, db=db, monitor_every=1, drift=monitor)
+    exb_mod.counter.reset()
+    for _ in range(DRIFT_HEALTHY_CALLS):
+        op(inp)
+    torch.cuda.synchronize()
+    (state,) = op.states().values()
+    recorded = db.best_cost(state.bp)
+    watch = monitor._watches.get(state.bp.fingerprint())
+    switches = state.selector.switches
+    healthy = dict(calls=DRIFT_HEALTHY_CALLS, transitions=len(monitor.transitions),
+                   selector_switches=switches, checks=monitor.checks,
+                   winner=dict(state.region.selected), recorded_ms=recorded * 1e3,
+                   ewma_ms=watch.ewma * 1e3 if watch and watch.ewma else None,
+                   launches=exb_mod.counter.launches)
+    print(f"[drift] healthy: {DRIFT_HEALTHY_CALLS} monitored calls, "
+          f"{len(monitor.transitions)} transitions over {monitor.checks} checks, "
+          f"{switches} selector switches; winner {state.region.selected} "
+          f"recorded {recorded * 1e3:.4f} ms, observed EWMA {healthy['ewma_ms']} ms "
+          f"(CUDA events), {exb_mod.counter.launches} exb launches")
+    winner = state.region.selected
+    if monitor.transitions or switches or not monitor.checks or reps[winner["i"]] != 1:
+        errors.append(f"drift: a healthy run made transitions {monitor.transitions} "
+                      f"and {switches} selector switches over {monitor.checks} checks, "
+                      f"or tuned {winner}")
+    evaluations = state.cost_evaluations
+    trials_before = db.trials(state.bp)
+    reps[winner["i"]] = DRIFT_SLOW_REPS
+    calls = 0
+    while calls < 64 and not any(k == "promoted" or k == "rolled_back"
+                                 for _, k in monitor.transitions):
+        op(inp)
+        calls += 1
+    torch.cuda.synchronize()
+    kinds = [e["kind"] for e in db.events(state.bp) if e["kind"] in DRIFT_LIFECYCLE
+             + ["rolled_back", "retune_failed"]]
+    trials_after = db.trials(state.bp)
+    remeasured = state.cost_evaluations - evaluations
+    key = json.dumps(winner)
+    final = db.tuned_point(state.bp)
+    print(f"[drift] slowed: candidate {winner['i']} at {DRIFT_SLOW_REPS} launches; after "
+          f"{calls} calls the event log holds {kinds}; the re-tune measured {remeasured} "
+          f"points again (candidate {winner['i']} {trials_before.get(key)} -> "
+          f"{trials_after.get(key)} s); now {state.region.selected}, final {final}; "
+          f"{state.selector.switches - switches} selector switches")
+    if kinds != DRIFT_LIFECYCLE or remeasured < len(reps) or final == winner:
+        errors.append(f"drift: event log {kinds}, {remeasured} points measured again, "
+                      f"final {final}")
+    return dict(healthy=healthy, slowed_calls=calls, events=kinds, remeasured=remeasured,
+                slowed_selector_switches=state.selector.switches - switches,
+                final=db.tuned_point(state.bp), launches=exb_mod.counter.launches)
+
+
+def serve_cli_phase(errors, tmp: Path) -> dict:
+    """``[drift]``/``[observe]``: the serve CLI at tinyllama-1.1b's full
+    width, the static Server with the fleet's flags, then the streaming
+    engine traced (the CI obs-smoke job's run) and its files through the
+    observe CLI."""
+    out = {}
+    db = tmp / "serve_db.json"
+    # first the tuning run, then a run on its DB: every class recalled, the
+    # watch holds each final from the first observations on
+    for key, tag, requests in (("server", "serve", SERVE_CLI_REQUESTS),
+                               ("server_recall", "serve recall", SERVE_RECALL_REQUESTS)):
+        t0 = time.perf_counter()
+        res = cli(["-m", "repro_torch.launch.serve", *SERVE_CLI, "--trace", "mixed",
+                   "--requests", requests, "--background-tune", "--fleet-workers", 2,
+                   "--drift-factor", 2, "--device-key", "--tuning-db", db], 600)
+        secs = time.perf_counter() - t0
+        cli_ok(f"[drift] {tag}", res, errors)
+        hot = parsed(r"hot-path tuning evaluations: (\d+)", res.stdout, int)
+        background = parsed(r"\((\d+) evaluations off the hot path\)", res.stdout, int)
+        transitions = parsed(r"drift transitions: (\d+)", res.stdout, int)
+        checks = parsed(r"(\d+) observations held against a recorded final", res.stdout, int)
+        by_class = {k: int(v) for k, v in re.findall(
+            r"([\w/]+)=(\d+)", parsed(r"drift checks by class: (.*)", res.stdout, str) or "")}
+        demotions = res.stdout.count("demoted")
+        tok_s = parsed(r"tokens, ([\d.]+) tok/s", res.stdout)
+        warnings = [line for line in res.stdout.splitlines() if line.startswith("WARNING")]
+        print(f"[drift] {tag} tinyllama-1.1b full, mixed trace of {requests}: {tok_s} tok/s, "
+              f"{hot} hot-path evaluations, {background} off it, {transitions} drift "
+              f"transitions ({demotions} demotions) over {checks} observations held against "
+              f"a final {by_class}, {len(warnings)} warnings, {secs:.1f} s")
+        if res.returncode == 0 and (hot != 0 or transitions != 0 or not checks or warnings):
+            errors.append(f"drift {tag}: {hot} hot-path evaluations, {transitions} "
+                          f"transitions over {checks} checks, {warnings}")
+        out[key] = dict(rc=res.returncode, requests=requests, tok_s=tok_s,
+                        hot_path_evaluations=hot, background_evaluations=background,
+                        transitions=transitions, checks=checks, class_checks=by_class,
+                        seconds=secs)
+
+    trace, metrics, sdb = tmp / "obs_trace.json", tmp / "obs_metrics.prom", tmp / "obs_db.json"
+    t0 = time.perf_counter()
+    res = cli(["-m", "repro_torch.launch.serve", *SERVE_CLI, *STREAM_CLI, "--trace-out", trace,
+               "--metrics-out", metrics, "--tuning-db", sdb], 600)
+    secs = time.perf_counter() - t0
+    cli_ok("[observe] stream", res, errors)
+    print(f"[observe] stream tinyllama-1.1b full (the obs-smoke run): exit {res.returncode}, "
+          f"{secs:.1f} s")
+    obs = {}
+    for cmd, flag, path in (("trace", "--path", trace), ("metrics", "--path", metrics),
+                            ("explain", "--db", sdb)):
+        r = cli(["-m", "repro_torch.launch.observe", cmd, flag, path], 120)
+        cli_ok(f"[observe] {cmd}", r, errors)
+        obs[cmd] = r.returncode
+        if cmd == "explain":
+            named = {n: n in r.stdout for n in EXPLAIN_NAMES}
+            print(f"[observe] explain names {named}")
+            if not all(named.values()):
+                errors.append(f"observe explain: missing {named}")
+            obs["named"] = named
+        else:
+            print(f"[observe] {cmd}: {r.stdout.strip().splitlines()[0] if r.stdout else ''}")
+    out["stream"] = dict(rc=res.returncode, seconds=secs, observe=obs)
+    return out
+
+
+def example_phase(errors, tmp: Path) -> dict:
+    """``[example]``: ``examples/torch_train_lm.py`` on the card at its
+    defaults: the loss must fall by at least 20 %."""
+    t0 = time.perf_counter()
+    res = cli([ROOT / "examples" / "torch_train_lm.py", "--device", "cuda",
+               "--ckpt-dir", tmp / "example_ckpt"], 600)
+    secs = time.perf_counter() - t0
+    cli_ok("[example] torch_train_lm", res, errors)
+    drop = parsed(r"\((-?[\d.]+)% drop\)", res.stdout)
+    steps_s = parsed(r"\(([\d.]+) steps/s on", res.stdout)
+    step_ms = parsed(r"median step time: ([\d.]+) ms", res.stdout)
+    print(f"[example] torch_train_lm: loss drop {drop}%, median step {step_ms} ms, "
+          f"{steps_s} steps/s, {secs:.1f} s in all")
+    if res.returncode == 0 and (drop is None or drop < EXAMPLE_MIN_DROP * 100):
+        errors.append(f"example: loss drop {drop}%")
+    return dict(rc=res.returncode, drop_pct=drop, step_ms=step_ms, steps_s=steps_s,
+                seconds=secs)
+
+
+def fleet_phases(torch, device, errors) -> dict:
+    """The fleet slice's phases, each timed; the card's memory is handed
+    back before the entry points run in processes of their own."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        for name, phase in (
+                ("fleet", lambda: fleet_kernels(torch, device, errors)),
+                ("service", lambda: service_phase(torch, device, errors)),
+                ("drift", lambda: drift_drill(torch, device, errors)),
+                ("fleet_cli", lambda: fleet_cli(errors)),
+                ("serve_cli", lambda: serve_cli_phase(errors, Path(tmp))),
+                ("example", lambda: example_phase(errors, Path(tmp)))):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out[name] = phase()
+            out[name]["seconds_all"] = time.perf_counter() - t0
+            print(f"[time] {name}: {out[name]['seconds_all']:.1f} s")
     return out
 
 
@@ -3386,6 +3896,16 @@ def run() -> int:
         return fail(f"{len(errors)} serve check(s) failed")
     print(json.dumps({"serve": serve}, default=str))
 
+    # -- the fleet slice: sharded search, service, drift, observe, example ---
+    t0 = time.perf_counter()
+    fleet = fleet_phases(torch, device, errors)
+    print(f"[time] fleet phases: {time.perf_counter() - t0:.1f} s")
+    if errors:
+        for e in errors:
+            print(f"[error] {e}", file=sys.stderr)
+        return fail(f"{len(errors)} fleet check(s) failed")
+    print(json.dumps({"fleet": fleet}, default=str))
+
     print(json.dumps({"train": train}, default=str))
 
     # -- the kernels line --------------------------------------------------
@@ -3707,6 +4227,11 @@ def run() -> int:
                 r["run"]: r["trial_launches"][entry["name"]]
                 for r in serve["runs"] if r["trial_launches"][entry["name"]]}
     by_name["flash_attention"]["c3"] = c3
+    for name in ("flash_attention", "exb"):
+        by_name[name]["fleet_launches"] = {
+            str(w): r["launches"] for w, r in fleet["fleet"][name]["runs"].items()}
+    by_name["exb"]["service_launches"] = [h["launches"] for h in fleet["service"]["hosts"]]
+    by_name["exb"]["drift_launches"] = fleet["drift"]["launches"]
     by_name["ssm_scan"].update({"final_state_max_abs_err": fs_err,
                                 "final_state_max_row_err": fs_row, "final_state_point": fs_point,
                                 "final_state_ms": fs_ms[True],

@@ -22,11 +22,18 @@ The life of a call ``autotuned("flash_attention")(q, k, v)``:
    lookup — ppOpen-AT's free ``omp_set_num_threads`` switch, generalized.
 5. **run-time layer** — a :class:`~repro_torch.core.tuner.RuntimeSelector` watches
    measured call times and demotes a regressing candidate to the next-best
-   *precompiled* one.
+   *precompiled* one; a :class:`~repro_torch.fleet.DriftMonitor`
+   (``drift=``) watches the same trickle against the recorded final.
+
+``device_key=True`` (or ``REPRO_DEVICE_KEY=1``) extends every shape class
+with the :class:`~repro_torch.fleet.DeviceFingerprint` of the call's
+tensors' device, so a fleet-shared DB recalls a final only on the device
+that measured it.
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -35,7 +42,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 
 from ..obs.trace import current_tracer
-from .cost import AdaptiveWallClockCost, _block, _leaves, l2_flush
+from .cost import (
+    AdaptiveWallClockCost, _block, _leaves, l2_flush, spin, timed_call, timing_lock,
+)
 from .db import TuningDB
 from .emit import hint_prescreen
 from .params import BasicParams, pp_key, project_point
@@ -138,10 +147,15 @@ class OpState:
 class AutotunedOp:
     """Callable dispatcher for one registered kernel.
 
-    ``monitor=True`` (default) blocks on the output and feeds the measured
-    wall time to the RuntimeSelector; latency-critical callers that do their
-    own timing (the train loop) pass ``monitor=False`` and call
-    ``state.selector.observe`` themselves.
+    ``monitor=True`` (default) blocks on the output of every
+    ``monitor_every``-th call and feeds its measured wall time to the
+    RuntimeSelector; latency-critical callers that do their own timing (the
+    train loop) pass ``monitor=False`` and call ``state.selector.observe``
+    themselves.  ``drift`` (a DriftMonitor, settable later) gets the same
+    calls, timed on the yardstick the recorded final was measured on: on
+    CUDA tensors :func:`~repro_torch.core.cost.timed_call` after the
+    trials' spin, whose event time the selector then takes too (the host
+    clock for CPU tensors, and without ``drift``).
     """
 
     def __init__(
@@ -163,6 +177,8 @@ class AutotunedOp:
         warm_start: bool = True,
         fast_dispatch: bool = True,
         monitor_every: int = 64,
+        device_key: Optional[bool] = None,
+        drift: Optional[Any] = None,
     ) -> None:
         self.spec = spec
         self._registry = registry
@@ -190,6 +206,15 @@ class AutotunedOp:
         # those ops stay on the slow path.
         self.fast_dispatch = fast_dispatch and spec.traffic_class is None
         self.monitor_every = max(1, monitor_every)
+        # fleet device keying: opt-in per op (None defers to
+        # REPRO_DEVICE_KEY); flipping it changes every BP fingerprint, i.e.
+        # starts a fresh device-scoped namespace in an existing DB
+        if device_key is None:
+            device_key = os.environ.get("REPRO_DEVICE_KEY", "").lower() in ("1", "true", "yes")
+        self.device_key = bool(device_key)
+        # drift watch: a DriftMonitor fed by the same run-time trickle the
+        # RuntimeSelector gets; settable later (op.drift = monitor)
+        self.drift = drift
         self._fast: Dict[tuple, _FastEntry] = {}
         self.slow_resolutions = 0  # full shape-class resolutions performed
         self._states: Dict[str, OpState] = {}
@@ -265,10 +290,33 @@ class AutotunedOp:
     def _monitored(self, state: OpState, args: tuple, kwargs: dict) -> Any:
         if state.selector is None:
             return state.region(*args, **kwargs)
-        t0 = time.perf_counter()
-        out = state.region(*args, **kwargs)
-        _block(out)
-        state.selector.observe(time.perf_counter() - t0)
+        device = call_device(args, kwargs) if self.drift is not None else None
+        if device is not None and device.type == "cuda":
+            # the drift watch holds the sample to the recorded final's
+            # yardstick: device time from CUDA events after the trials'
+            # spin (a host time would carry the wrapper's Python, the
+            # launch and the synchronise), in a timed window of its own on
+            # the card.  A trial timing there now would read into the
+            # sample, and waiting for it would hold up the hot path: the
+            # call then runs unsampled.
+            lock = timing_lock(device)
+            if not lock.acquire(blocking=False):
+                return state.region(*args, **kwargs)
+            try:
+                out, cost = timed_call(lambda: state.region(*args, **kwargs), spin(device))
+            finally:
+                lock.release()
+            # the selector's trial costs are event times too: it takes the
+            # same sample
+            state.selector.observe(cost)
+        else:
+            t0 = time.perf_counter()
+            out = state.region(*args, **kwargs)
+            _block(out)
+            cost = time.perf_counter() - t0
+            state.selector.observe(cost)
+        if self.drift is not None:
+            self.drift.observe(self, state, cost, args, kwargs)
         return out
 
     def _fast_lookup(self, args: tuple, kwargs: dict) -> Optional[_FastEntry]:
@@ -331,6 +379,10 @@ class AutotunedOp:
         if self.spec.traffic_class is not None:
             traffic = self.spec.traffic_class(*args, **kwargs)
             bp = bp.with_entries(**traffic.bp_entries())
+        if self.device_key:
+            from ..fleet.fingerprint import device_bp_entries
+
+            bp = bp.with_entries(**device_bp_entries(call_device(args, kwargs)))
         fp = bp.fingerprint()
         # one canonical state per shape class even under concurrent callers:
         # a losing racer must not build (and possibly tune) a duplicate that
@@ -374,6 +426,26 @@ class AutotunedOp:
 
     def states(self) -> Dict[str, OpState]:
         return dict(self._states)
+
+    def retune_state(
+        self, state: OpState, args: tuple, kwargs: dict
+    ) -> Dict[str, Any]:
+        """Fresh re-measure of an already-tuned class (the drift path).
+
+        Unlike :meth:`tune_state` this runs even when ``state.tuned`` /
+        ``from_cache`` — that is the point: the recorded winner drifted.
+        The search re-measures every candidate (``fresh``: the recorded
+        trial costs are what reality walked away from), does NOT select the
+        winner (the caller canaries it first), does NOT record a final (the
+        challenger earns that by surviving its canary window), and warms
+        the challenger so the canary hot swap never builds.
+        """
+        winner = self._tune(state, args, kwargs, select=False, fresh=True,
+                            finalize=False)
+        fn = state.region.candidate(winner)
+        if (args or kwargs) and dict(winner) != dict(state.region.selected):
+            _block(fn(*args, **kwargs))
+        return winner
 
     def tune_state(
         self,
@@ -445,12 +517,15 @@ class AutotunedOp:
         args: tuple,
         kwargs: dict,
         select: bool = True,
+        fresh: bool = False,
+        finalize: bool = True,
         search: Optional[Search] = None,
     ) -> Dict[str, Any]:
         """Search this state's PP space; returns the winning point.
 
         ``select=False`` leaves the region's live selection untouched (the
-        background path swaps only after warming the winner).
+        background path swaps only after warming the winner).  ``fresh`` /
+        ``finalize`` implement the drift re-tune (see :meth:`retune_state`);
         ``search`` overrides the strategy for this one run (the
         BackgroundTuner's fleet-sharded mode).
         """
@@ -481,7 +556,7 @@ class AutotunedOp:
         tuner = Tuner(self.db)
         try:
             result = tuner.tune(region, bp, budgeted, select=select,
-                                search=search)
+                                search=search, fresh=fresh, finalize=finalize)
             state.prescreen_evaluations += result.prescreen_evaluations
             winner = dict(result.best.point)
             self._record_search_event(state, result, winner)
@@ -605,13 +680,16 @@ def _wallclock_cost(
     On CUDA arguments each timed run is device time from CUDA events, and
     the L2 is flushed before it (twice the card's L2 is zeroed), so a
     candidate never profits from the inputs the previous run left cached.
+    The flush and the timed run hold the device's :func:`timing_lock`, so
+    two searches on one card (fleet workers) never time at once.
     """
     cuda = [t for t in _leaves((args, kwargs)) if t.is_cuda]
-    prepare = None
+    prepare = lock = None
     if cuda:
         device = cuda[0].device
         l2 = torch.cuda.get_device_properties(device).L2_cache_size
         prepare = l2_flush(device, 2 * l2)
+        lock = timing_lock(device)
 
     def build(point: Mapping[str, Any]) -> Callable[[], Any]:
         fn = region.instantiate(point)  # NOT region.candidate: only the
@@ -619,5 +697,12 @@ def _wallclock_cost(
         return lambda: fn(*args, **kwargs)
 
     return AdaptiveWallClockCost(
-        build, warmup=1, min_repeats=1, max_repeats=3, prepare=prepare
+        build, warmup=1, min_repeats=1, max_repeats=3, prepare=prepare, lock=lock
     )
+
+
+def call_device(args: tuple, kwargs: dict) -> Optional[torch.device]:
+    """The device of a call's first tensor (``None`` without tensors)."""
+    for t in _leaves((args, kwargs)):
+        return t.device
+    return None

@@ -13,8 +13,19 @@ clock (a launch returns before the kernel ends).  ``prepare``, when given,
 runs untimed before every timed run and is *not* synchronised: the port
 passes :func:`l2_flush` there, so each run finds its inputs cold (exb's
 working set, 55.4 MB, is larger than the H100's 50 MB L2 but would still
-hit it in part), and the stream stays busy while the host enqueues the
-launch, so the start event does not time the wrapper's Python.
+hit it in part), and the stream stays busy for :data:`SPIN_S` while the
+host enqueues the launch, so the start event does not time the wrapper's
+Python.  The drift watch's sampled calls (:func:`timed_call` after
+:func:`spin`) keep the stream busy just as long, so a sample and the
+recorded final it is held against are taken on one yardstick.
+
+:class:`AdaptiveWallClockCost`'s ``lock``, when given (:func:`timing_lock`
+of the card), is held over a point's launches and timed runs, flush
+included: two searches on one card (a fleet's thread workers) would
+otherwise time each other's kernels between their events and flush the L2
+under them.  Building a candidate stays outside it.  The lock counts its
+windows, so a caller that times a span of its own on the host clock (the
+Server's steps) can tell whether a trial ran inside it.
 
 The JAX package's compile-only costs (``CompiledRooflineCost``,
 ``MemoryCost``, ``roofline_from_compiled``) read XLA HLO and have no
@@ -22,11 +33,14 @@ counterpart here.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +70,78 @@ def score_points_concurrently(
         return list(pool.map(score, points))
 
 
+# Seconds the stream is kept busy before a timed run: longer than the host
+# takes to enqueue one (a wrapper's Python and launch, called through a
+# region, took 0.08-0.40 ms on an H100's host, once 1.09 ms:
+# scripts/spin_probe.py), so the start event is reached after the run is
+# enqueued and the events time the device alone.
+SPIN_S = 1e-3
+
+
+class TimingLock:
+    """A device's timing lock: re-entrant, and it counts the windows it has
+    opened, so :meth:`mark` and :meth:`quiet_since` tell a caller whether a
+    timed window was open at any moment of a span of its own."""
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._guard = threading.Lock()
+        self._depth = 0    # nesting of the owner's acquires
+        self._windows = 0  # outermost acquires so far
+
+    def acquire(self, blocking: bool = True) -> bool:
+        if not self._lock.acquire(blocking):
+            return False
+        with self._guard:
+            self._depth += 1
+            if self._depth == 1:
+                self._windows += 1
+        return True
+
+    def release(self) -> None:
+        with self._guard:
+            self._depth -= 1
+        self._lock.release()
+
+    def __enter__(self) -> "TimingLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.release()
+
+    def mark(self) -> tuple:
+        """(windows opened so far, whether one is open now)."""
+        with self._guard:
+            return self._windows, self._depth > 0
+
+    def quiet_since(self, mark: tuple) -> bool:
+        """Whether no window was open at ``mark`` or has opened since."""
+        return not mark[1] and self.mark() == mark
+
+
+_TIMING_LOCKS: Dict[str, TimingLock] = {}
+_TIMING_LOCKS_GUARD = threading.Lock()
+
+
+def timing_lock(device: Any) -> TimingLock:
+    """The one lock of ``device`` that every timed window on it holds.
+
+    Process-wide because the card is: any two costs timing on one device
+    must exclude each other, whoever built them.  Re-entrant, because a
+    measured composite (a train step) may tune a kernel inside its run.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = str(device)
+    with _TIMING_LOCKS_GUARD:
+        lock = _TIMING_LOCKS.get(key)
+        if lock is None:
+            lock = _TIMING_LOCKS[key] = TimingLock()
+    return lock
+
+
 class CostFunction:
     """cost(PP point) -> float seconds (lower is better)."""
 
@@ -63,24 +149,43 @@ class CostFunction:
         raise NotImplementedError
 
 
-def _timed(fn: Callable[[], Any], prepare: Optional[Callable[[], Any]]) -> float:
-    """Seconds one run of ``fn`` takes: CUDA events when it returns CUDA
-    tensors, else the host clock around a synchronised run."""
+def timed_call(
+    fn: Callable[[], Any], prepare: Optional[Callable[[], Any]] = None
+) -> Tuple[Any, float]:
+    """One run of ``fn``: (its output, seconds).  CUDA events when it
+    returns CUDA tensors, else the host clock around a synchronised run.
+
+    The collector waits until the run is enqueued: a collection inside the
+    window would leave the stream idle between the events.
+    """
     if prepare is not None:
         prepare()
     start = end = None
     if torch.cuda.is_available():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    out = fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        if start is not None:
+            start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        if start is not None and _is_cuda(out):
+            end.record()
+    finally:
+        if collecting:
+            gc.enable()
     if start is not None and _is_cuda(out):
-        end.record()
         end.synchronize()
-        return start.elapsed_time(end) / 1e3
+        return out, start.elapsed_time(end) / 1e3
     _block(out)
-    return time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def _timed(fn: Callable[[], Any], prepare: Optional[Callable[[], Any]]) -> float:
+    """Seconds one run of ``fn`` takes (:func:`timed_call`)."""
+    return timed_call(fn, prepare)[1]
 
 
 class WallClockCost(CostFunction):
@@ -141,6 +246,7 @@ class AdaptiveWallClockCost(CostFunction):
         rel_margin: float = 0.25,
         confidence: float = 2.0,
         prepare: Optional[Callable[[], Any]] = None,
+        lock: Optional[threading.RLock] = None,
     ) -> None:
         self.build = build
         self.warmup = warmup
@@ -149,6 +255,7 @@ class AdaptiveWallClockCost(CostFunction):
         self.rel_margin = rel_margin
         self.confidence = confidence
         self.prepare = prepare
+        self.lock = lock
         self.incumbent = math.inf
         self.timed_runs = 0
         self.measured_points = 0
@@ -157,6 +264,10 @@ class AdaptiveWallClockCost(CostFunction):
         self, point: Mapping[str, Any], budget: Optional[int] = None
     ) -> float:
         fn = self.build(point)
+        with self.lock or contextlib.nullcontext():
+            return self._measure(fn, budget)
+
+    def _measure(self, fn: Callable[[], Any], budget: Optional[int]) -> float:
         for _ in range(self.warmup):
             _block(fn())
         cap = self.max_repeats * max(1, int(budget or 1))
@@ -209,20 +320,25 @@ def _block(x: Any) -> Any:
     return x
 
 
-def l2_flush(device: Any, nbytes: int, spin_s: float = 2e-4) -> Callable[[], Any]:
-    """A ``prepare`` hook for timing one call on ``device`` cold.
-
-    It evicts the L2 by zeroing ``nbytes`` of scratch (pass at least the
-    card's L2 size), then keeps the stream busy for ``spin_s`` seconds, so
-    the host enqueues the timed call before the stream reaches the start
-    event and the events time the device alone, not the wrapper's Python.
-    """
-    scratch = torch.empty(max(1, nbytes // 4), dtype=torch.int32, device=device)
+def spin(device: Any) -> Callable[[], Any]:
+    """A ``prepare`` hook that keeps ``device``'s stream busy for
+    :data:`SPIN_S`, so the host enqueues the timed call before the stream
+    reaches the start event and the events time the device alone, not the
+    wrapper's Python."""
     clock_khz = torch.cuda.get_device_properties(device).clock_rate or 2_000_000
-    cycles = int(spin_s * clock_khz * 1e3)
+    cycles = int(SPIN_S * clock_khz * 1e3)
+    return lambda: torch.cuda._sleep(cycles)
+
+
+def l2_flush(device: Any, nbytes: int) -> Callable[[], Any]:
+    """A ``prepare`` hook for timing one call on ``device`` cold: it evicts
+    the L2 by zeroing ``nbytes`` of scratch (pass at least the card's L2
+    size), then keeps the stream busy as :func:`spin` does."""
+    scratch = torch.empty(max(1, nbytes // 4), dtype=torch.int32, device=device)
+    busy = spin(device)
 
     def prepare() -> None:
         scratch.zero_()
-        torch.cuda._sleep(cycles)
+        busy()
 
     return prepare

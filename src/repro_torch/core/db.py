@@ -1,7 +1,7 @@
 """Persistent tuning database (the port's own copy of the JAX package's).
 
 It writes the same schema v2 envelope as the JAX package, so one file can
-be read by either package.  ``devices()`` waits for the fleet slice.
+be read by either package.
 
 FIBER's layered AT only works if results survive between layers: install-time
 results are consulted at before-execution time, before-execution results at
@@ -478,6 +478,26 @@ class TuningDB:
                 if all(k in bp for k in TrafficClass.BP_KEYS):
                     tc = TrafficClass.from_bp_entries(bp)
                     seen[tc.label] = tc
+        return [seen[k] for k in sorted(seen)]
+
+    def devices(self) -> list:
+        """Distinct device fingerprints present in the DB, sorted by label.
+
+        The fleet-merge counterpart of :meth:`traffic_classes`: after
+        ``TuningDB.merge`` unions DBs from heterogeneous hosts, this lists
+        which devices contributed entries.  Entries without the
+        :class:`~repro_torch.fleet.DeviceFingerprint` BP keys (single-host
+        DBs) are skipped.
+        """
+        from ..fleet.fingerprint import DeviceFingerprint
+
+        seen: Dict[str, Any] = {}
+        with self._lock:
+            for entry in self._data.values():
+                bp = entry.get("bp", {})
+                if all(k in bp for k in DeviceFingerprint.BP_KEYS):
+                    df = DeviceFingerprint.from_bp_entries(bp)
+                    seen[df.label] = df
         return [seen[k] for k in sorted(seen)]
 
     # -- internals -------------------------------------------------------------

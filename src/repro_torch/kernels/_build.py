@@ -132,11 +132,27 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 
 
+_BOUND = threading.local()  # the device whose context this thread made current
+
+
 def stream_of(t) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, as a C pointer."""
+    """The current CUDA stream of ``t``'s device, as a C pointer.
+
+    On a thread's first call for a device it also makes that device's
+    context current on the thread (``cudaStreamQuery`` through PyTorch's
+    runtime does).  The wgmma kernels encode their TMA maps through the
+    driver before their first runtime call, and a thread that has made no
+    runtime call yet (a fleet worker whose output tensors came from the
+    allocator's cache) has no current context: the encode then fails and
+    the launch returns ``cudaErrorInvalidValue``.
+    """
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    stream = torch.cuda.current_stream(t.device)
+    if getattr(_BOUND, "device", None) != t.device:
+        stream.query()
+        _BOUND.device = t.device
+    return ctypes.c_void_p(stream.cuda_stream)
 
 
 class Counter:

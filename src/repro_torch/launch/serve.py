@@ -2,10 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
 
-The counterpart of ``repro.launch.serve``, with the same flags but the
-fleet's (``--device-key``, ``--drift-factor``, ``--fleet-workers``); the
+The counterpart of ``repro.launch.serve``, with the same flags; the
 weights are the port's ``init_params`` drawn from a ``torch.Generator``
 seeded 0 on ``--device`` (``cuda`` unless asked for ``cpu``).
+
+Fleet flags: ``--device-key`` namespaces DB entries under the card's
+DeviceFingerprint, ``--drift-factor`` turns on the static Server's drift
+watch (its re-tunes run on the background tuner), and ``--fleet-workers``
+shards each background search across that many in-process workers.
 
 ``--trace mixed`` replays a mixed prefill/decode trace through the
 traffic-class autotuner: unseen classes tune on the
@@ -139,13 +143,39 @@ def main() -> None:
              "full serve step before serving",
     )
     ap.add_argument("--tuning-db", default=None, help="persistent TuningDB path")
+    ap.add_argument(
+        "--device-key", action="store_true",
+        help="namespace DB entries under the card's DeviceFingerprint, so a "
+             "fleet-shared DB never recalls another device's final",
+    )
+    ap.add_argument(
+        "--drift-factor", type=float, default=None,
+        help="enable the drift watch: demote + canary-re-tune a final whose "
+             "observed cost exceeds its recorded cost by this factor "
+             "(requires --background-tune: the re-tune must stay off the "
+             "hot path)",
+    )
+    ap.add_argument(
+        "--fleet-workers", type=int, default=None,
+        help="shard background searches across N in-process fleet workers "
+             "(requires --background-tune; on one card the workers time one "
+             "at a time, so what they overlap is host work)",
+    )
     args = ap.parse_args()
+    if args.drift_factor and not args.background_tune:
+        ap.error("--drift-factor requires --background-tune "
+                 "(an inline re-tune would run the search on the hot path)")
+    if args.fleet_workers and not args.background_tune:
+        ap.error("--fleet-workers requires --background-tune "
+                 "(there is no background search to shard without it)")
     if args.stream:
         if args.trace == "uniform":
             args.trace = "bursty"
         if args.joint_tune:
             ap.error("--joint-tune is a static-Server mode (the engine "
                      "tunes its scheduler knobs per traffic class instead)")
+        if args.drift_factor:
+            ap.error("--drift-factor is a static-Server mode")
     else:
         for flag, val in (("--deadline", args.deadline),
                           ("--queue-limit", args.queue_limit),
@@ -164,6 +194,7 @@ def main() -> None:
         adversarial_trace, bursty_open_loop_trace, mixed_traffic_trace,
         synthetic_requests,
     )
+    from repro_torch.fleet import DriftMonitor, FleetCoordinator
     from repro_torch.models import init_params
     from repro_torch.obs import MetricsRegistry, TickTimer, Tracer, set_tracer
     from repro_torch.runtime import (
@@ -209,7 +240,11 @@ def main() -> None:
             cfg, args.requests, args.prompt_len, args.new_tokens
         )
 
-    tuner = BackgroundTuner() if args.background_tune else None
+    fleet = (
+        FleetCoordinator(workers=args.fleet_workers, backend="thread")
+        if args.fleet_workers else None
+    )
+    tuner = BackgroundTuner(fleet=fleet) if args.background_tune else None
 
     if args.stream:
         max_len = args.max_len or max(
@@ -232,6 +267,7 @@ def main() -> None:
             tuning_db=TuningDB(args.tuning_db) if args.tuning_db else None,
             background_tuner=tuner,
             inline_tune=args.inline_tune,
+            device_key=args.device_key,
             hardened=not args.unhardened,
             queue_limit=args.queue_limit,
             shed_policy=args.shed_policy,
@@ -301,6 +337,10 @@ def main() -> None:
                   f"({tracer.emitted} events, {tracer.dropped} dropped)")
         return
 
+    drift = (
+        DriftMonitor(background=tuner, factor=args.drift_factor)
+        if args.drift_factor else None
+    )
     server = Server(
         cfg,
         params,
@@ -308,6 +348,8 @@ def main() -> None:
         tuning_db=TuningDB(args.tuning_db) if args.tuning_db else None,
         background_tuner=tuner,
         inline_tune=args.inline_tune,
+        device_key=args.device_key,
+        drift_monitor=drift,
     )
     if args.joint_tune:
         r = server.joint_tune(requests)
@@ -329,6 +371,17 @@ def main() -> None:
             print("WARNING: background tuning did not drain within 300s")
         for label, err in tuner.errors:
             print(f"WARNING: background tuning failed for {label}: {err!r}")
+    if drift is not None:
+        kinds = ", ".join(kind for _, kind in drift.transitions)
+        print(f"drift transitions: {len(drift.transitions)} ({kinds or '-'}); "
+              f"{drift.checks} observations held against a recorded final")
+        labels = {fp: st.traffic.label
+                  for op in (server.prefill_op, server.decode_op)
+                  for fp, st in op.states().items() if st.traffic is not None}
+        by_class = ", ".join(f"{labels[fp]}={n}" for fp, n in sorted(
+            drift.class_checks.items(), key=lambda kv: labels.get(kv[0], kv[0]))
+            if fp in labels)
+        print(f"drift checks by class: {by_class or '-'}")
     if args.metrics_out:
         registry = registry or MetricsRegistry()
         registry.register_stats(

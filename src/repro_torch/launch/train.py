@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 100 --ckpt-dir /tmp/run1 [--full]
 
-The counterpart of ``repro.launch.train``, with the same flags but the
-fleet's (``--device-key``), and four of its own: ``--device`` (``cuda``
+The counterpart of ``repro.launch.train``, with the same flags and four
+of its own: ``--device`` (``cuda``
 unless asked for ``cpu``; no card and no ``--device cpu`` exits non-zero),
 ``--dtype`` (the parameters' dtype; AdamW's moments stay float32),
 ``--remat`` (``none``, ``full`` or ``dots``; the config's by default) and
@@ -46,6 +46,11 @@ def main() -> None:
     )
     ap.add_argument("--tuning-db", default=None, help="persistent TuningDB path")
     ap.add_argument(
+        "--device-key", action="store_true",
+        help="namespace DB entries (and the joint-program fingerprint) "
+             "under the training device's DeviceFingerprint",
+    )
+    ap.add_argument(
         "--device", default="cuda",
         help="where the model trains (default: the CUDA card; cpu on request)",
     )
@@ -78,7 +83,7 @@ def main() -> None:
             total_steps=args.steps, ckpt_dir=args.ckpt_dir,
             n_microbatches=args.microbatches, seed=args.seed,
             joint_tune=args.joint_tune, joint_cap=args.joint_cap,
-            joint_k=args.joint_k,
+            joint_k=args.joint_k, device_key=args.device_key,
         ),
         tuning_db=TuningDB(args.tuning_db) if args.tuning_db else None,
         device=device,

@@ -30,10 +30,10 @@ An optional ``on_complete`` callback lets the server mirror the tuned
 degree into its :class:`~repro_torch.core.degree.DegreeController` (the
 ``omp_set_num_threads`` bookkeeping) the moment a winner lands.
 
-The port of ``repro.runtime.background_tuner``, without the fleet: the
-``fleet`` sharding and the global tuning ``service`` (pull before search,
-push after) and the drift monitor's re-tune (``submit_retune``) belong to
-the fleet slice and are absent here.
+The port of ``repro.runtime.background_tuner``, with its fleet hooks:
+``fleet`` shards each search, ``service`` pulls a final before a search and
+pushes the winner after it, and ``submit_retune`` runs the drift monitor's
+re-tune.
 """
 from __future__ import annotations
 
@@ -55,19 +55,50 @@ class TuneJob:
     kwargs: dict
     label: str
     on_complete: Optional[Callable[[OpState], None]] = None
+    # drift re-tune: run even though the class is tuned, fresh-measured,
+    # unselected and unfinalized; the winner (or None on failure) goes to
+    # ``on_winner`` — the DriftMonitor's canary entry.
+    retune: bool = False
+    on_winner: Optional[Callable[[Optional[dict]], None]] = None
     # enqueue stamp (time.perf_counter): the job span reports queue wait
     submitted_s: float = 0.0
 
 
 class BackgroundTuner:
-    """Worker thread + queue that runs before-execution AT off the hot path."""
+    """Worker thread + queue that runs before-execution AT off the hot path.
+
+    ``fleet`` (optional): a :class:`~repro_torch.fleet.FleetCoordinator` —
+    every queued search is then sharded across the coordinator's in-process
+    workers with the merge barrier landing results in the op's DB (the
+    spawn backend cannot sit here: the op's measured cost closes over live
+    tensors).  On one card the workers time one at a time (the card's
+    timing lock), so what the shards overlap is host work.
+
+    ``service`` (optional): a :class:`~repro_torch.fleet.ServiceClient` on
+    the global tuning service.  Before searching, the worker asks the
+    service: an exact device-fingerprint **final** is adopted outright —
+    merged into the op's DB and hot-swapped in with *zero* cost evaluations
+    (:attr:`pulled_labels`); a **nearest** entry is merged so the op's
+    warm-start machinery seeds the (shorter) refinement run.  After a
+    successful local search the winner is pushed back.  All service traffic
+    is ``try_*`` best-effort — a dead or partitioned service degrades this
+    tuner to its local-only behaviour.
+    """
 
     # the stop() sentinel must drain after every queued job regardless of
     # its priority, so it carries a key below any real submission
     _SENTINEL_KEY = 1 << 30
 
-    def __init__(self, name: str = "repro-torch-background-tuner") -> None:
+    def __init__(
+        self,
+        name: str = "repro-torch-background-tuner",
+        fleet: Optional[Any] = None,
+        service: Optional[Any] = None,
+    ) -> None:
         self.name = name
+        self.fleet = fleet
+        self.service = service
+        self.pulled_labels: List[str] = []  # finals adopted from the service
         # (-priority, seq, job): higher priority pops first, FIFO within a
         # priority level.  seq breaks ties before the (unorderable) job.
         self._queue: "queue.PriorityQueue[Tuple[int, int, Optional[TuneJob]]]" \
@@ -156,6 +187,38 @@ class BackgroundTuner:
                           submitted_s=time.perf_counter()),
                   -priority)
         return state
+
+    def submit_retune(
+        self,
+        op: AutotunedOp,
+        state: OpState,
+        args: tuple = (),
+        kwargs: Optional[dict] = None,
+        on_winner: Optional[Callable[[Optional[dict]], None]] = None,
+    ) -> bool:
+        """Queue a *fresh* re-measure of an already-tuned class.
+
+        The DriftMonitor's off-hot-path re-tune: unlike :meth:`submit` this
+        enqueues even though the class is tuned (that is the point — its
+        winner drifted), clears any earlier failure mark (a re-tune is an
+        explicit retry), and hands the challenger point to ``on_winner``
+        instead of selecting it — the canary window decides the hot apply.
+        Returns False when the class is already queued or tuning.
+        """
+        self.start()
+        fp = state.bp.fingerprint()
+        with self._cv:
+            if fp in self._inflight:
+                return False
+            self._failed.pop(fp, None)
+            self._inflight.add(fp)
+        label = state.traffic.label if state.traffic else op.spec.name
+        self._put(TuneJob(
+            op, state, args, dict(kwargs or {}), label,
+            retune=True, on_winner=on_winner,
+            submitted_s=time.perf_counter(),
+        ), 0)
+        return True
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Block until every queued class is tuned; False on timeout."""
@@ -256,35 +319,47 @@ class BackgroundTuner:
             # and the hot swap is stamped by the outcome
             with tr.span(
                 "bgtuner.job", cat="bgtuner", label=job.label,
-                queue_wait_s=round(max(0.0, wait), 6),
+                retune=job.retune, queue_wait_s=round(max(0.0, wait), 6),
             ) as attrs:
                 attrs["outcome"] = self._handle(job)
 
     def _handle(self, job: TuneJob) -> str:
         """Run one job through the queue->tune->swap lifecycle; returns the
-        outcome label (``tuned`` / ``failed``)."""
+        outcome label (``tuned`` / ``adopted`` / ``retuned`` / ``failed``)."""
         fp = job.state.bp.fingerprint()
         outcome = "tuned"
         try:
-            job.op.tune_state(job.state, job.args, job.kwargs)
+            if job.retune:
+                self._run_retune(job)
+                outcome = "retuned"
+            elif self._adopt_from_service(job):
+                outcome = "adopted"  # the service's final landed; no search
+            else:
+                job.op.tune_state(
+                    job.state, job.args, job.kwargs,
+                    search=self._fleet_search(job),
+                )
+                self._push_to_service(job, fp)
         except BaseException as e:  # a bad class must not kill the worker
             self.errors.append((job.label, e))
             outcome = "failed"
             with self._cv:  # never retried: submit() skips failed classes
-                self._failed[fp] = job.label
+                if not job.retune:
+                    self._failed[fp] = job.label
         else:
-            tr = current_tracer()
-            if tr is not None:  # the winner is live from this point on
-                tr.instant(
-                    "bgtuner.swap", cat="bgtuner", label=job.label,
-                    outcome=outcome,
-                )
-            self.completed.append((job.label, job.state))
-            if job.on_complete is not None:
-                try:  # a callback bug is an error, not a failed tune
-                    job.on_complete(job.state)
-                except BaseException as e:
-                    self.errors.append((job.label, e))
+            if not job.retune:
+                tr = current_tracer()
+                if tr is not None:  # the winner is live from this point on
+                    tr.instant(
+                        "bgtuner.swap", cat="bgtuner", label=job.label,
+                        outcome=outcome,
+                    )
+                self.completed.append((job.label, job.state))
+                if job.on_complete is not None:
+                    try:  # a callback bug is an error, not a failed tune
+                        job.on_complete(job.state)
+                    except BaseException as e:
+                        self.errors.append((job.label, e))
         finally:
             try:  # guardrail bookkeeping must not kill the worker either
                 if job.op.db.quarantined(job.state.bp):
@@ -296,3 +371,70 @@ class BackgroundTuner:
                 self._inflight.discard(fp)
                 self._cv.notify_all()
         return outcome
+
+    def _fleet_search(self, job: TuneJob):
+        """This job's search override: fleet-sharded when a coordinator is set."""
+        if self.fleet is None:
+            return None
+        return self.fleet.as_search(bp=job.state.bp, db=job.op.db)
+
+    def _adopt_from_service(self, job: TuneJob) -> bool:
+        """Pull before tuning: adopt a device-matched final, seed from nearest.
+
+        Returns True when the service supplied an exact final — merged
+        into the op's DB and hot-swapped in with zero cost evaluations.
+        A ``nearest`` entry is merged (a warm-start seed for the search
+        this worker is about to run) and False returned; a degraded or
+        absent service is just False.
+        """
+        if self.service is None:
+            return False
+        state = job.state
+        resp = self.service.try_pull(state.bp)
+        if resp is None or resp.get("found") is None:
+            return False
+        job.op.db.merge({resp["fingerprint"]: resp["entry"]})
+        if resp["found"] != "final":
+            return False  # nearest: the merged entry seeds the warm start
+        tuned = job.op.db.tuned_point(
+            state.bp,
+            space_signature=getattr(state.region, "space_signature", None),
+        )
+        if tuned is None:
+            # raced a local demotion, or the service final was searched
+            # under a different emitted space: search normally
+            return False
+        # mirror _build_state's cache-hit path: select, mark, re-rank
+        state.region.select(tuned)
+        state.from_cache = True
+        # fleet-adoption provenance for the explain report: this class is
+        # running a winner another host searched, not a local result
+        job.op.db.record_event(
+            state.bp, "adopted_from_service",
+            fingerprint=resp["fingerprint"], found=str(resp["found"]),
+        )
+        from ..core.tuner import RuntimeSelector
+
+        state.selector = RuntimeSelector(
+            state.region, state.bp, job.op.db,
+            tolerance=job.op.tolerance, window=job.op.window,
+        )
+        self.pulled_labels.append(job.label)
+        return True
+
+    def _push_to_service(self, job: TuneJob, fp: str) -> None:
+        """After a successful local search, publish the winner fleet-wide."""
+        if self.service is not None:
+            self.service.try_push(job.op.db, [fp])
+
+    def _run_retune(self, job: TuneJob) -> None:
+        winner: Optional[dict] = None
+        try:
+            winner = job.op.retune_state(job.state, job.args, job.kwargs)
+        except BaseException as e:
+            self.errors.append((job.label, e))
+        if job.on_winner is not None:
+            try:  # None signals a failed re-tune to the drift monitor
+                job.on_winner(winner)
+            except BaseException as e:
+                self.errors.append((job.label, e))

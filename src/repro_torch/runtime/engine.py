@@ -409,6 +409,7 @@ class StreamingEngine:
         tuning_db: Optional[TuningDB] = None,
         background_tuner: Optional[BackgroundTuner] = None,
         inline_tune: bool = False,
+        device_key: bool = False,
         hardened: bool = True,
         queue_limit: Optional[int] = None,
         shed_policy: Optional[str] = None,
@@ -433,6 +434,9 @@ class StreamingEngine:
         self.db = tuning_db or TuningDB()
         self.background = background_tuner
         self.inline_tune = inline_tune
+        # namespace every class under the card's DeviceFingerprint, so a
+        # fleet-shared DB never hands this engine another device's final
+        self.device_key = device_key
         # how the model's kernel calls resolve inside every engine call
         self.rule = ServingRule(self.db, background_tuner, inline_tune)
         self.hardened = bool(hardened)
@@ -551,6 +555,7 @@ class StreamingEngine:
         )
         return AutotunedOp(
             spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False,
+            device_key=self.device_key,
         )
 
     def _make_decode_op(self) -> AutotunedOp:
@@ -609,6 +614,7 @@ class StreamingEngine:
         )
         return AutotunedOp(
             spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False,
+            device_key=self.device_key,
         )
 
     def _make_sched_op(self) -> AutotunedOp:
@@ -690,6 +696,7 @@ class StreamingEngine:
         )
         return AutotunedOp(
             spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False,
+            device_key=self.device_key,
         )
 
     # -- tuning hand-off (same contract as Server._resolve) ------------------

@@ -26,6 +26,15 @@ when it lands.  ``inline_tune=True`` tunes on the hot path instead (the
 latency baseline, counted in :attr:`Server.hot_path_cost_evaluations`);
 the default is no tuning at all.
 
+Fleet hooks: ``device_key=True`` namespaces every traffic class (and the
+joint program) under the card's
+:class:`~repro_torch.fleet.DeviceFingerprint`, so a fleet-shared DB never
+hands this server another device's final; ``drift_monitor`` (a
+:class:`~repro_torch.fleet.DriftMonitor`) watches the same step times the
+run-time selector gets, but for steps a trial overlapped (a window of the
+card's timing lock open at any moment of the step), and mirrors its
+selections into the DegreeController as tuned winners are.
+
 The decode step is functional, as the JAX one is: a candidate steps a copy
 of the cache it is given (the model's decode writes in place), so a
 background trial on the captured arguments never touches the live cache.
@@ -59,6 +68,7 @@ from ..core import (
     register_kernel,
 )
 from ..core.autotuned import OpState
+from ..core.cost import TimingLock, timing_lock
 from ..data.pipeline import ServingRequest
 from ..models import ServingRule, cache_batch_axis, decode_fn, prefill_fn, serving
 from ..models.config import ModelConfig
@@ -232,6 +242,8 @@ class Server:
         tuning_db: Optional[TuningDB] = None,
         background_tuner: Optional[BackgroundTuner] = None,
         inline_tune: bool = False,
+        device_key: bool = False,
+        drift_monitor: Optional[Any] = None,
     ) -> None:
         self.cfg = cfg
         self.params = params
@@ -242,6 +254,10 @@ class Server:
         self.db = tuning_db or TuningDB()
         self.background = background_tuner
         self.inline_tune = inline_tune
+        self.device_key = device_key
+        self.drift = drift_monitor
+        if self.drift is not None and self.drift.on_apply is None:
+            self.drift.on_apply = self._on_tuned
         # how the model's kernel calls resolve inside every serve call
         self.rule = ServingRule(self.db, background_tuner, inline_tune)
         self.degree = DegreeController(max_degree=batch_size)
@@ -327,7 +343,8 @@ class Server:
             ),
             replace=True,
         )
-        return AutotunedOp(spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False)
+        return AutotunedOp(spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False,
+                           device_key=self.device_key)
 
     def _make_decode_op(self) -> AutotunedOp:
         cfg, decode = self.cfg, self._decode
@@ -366,7 +383,8 @@ class Server:
             ),
             replace=True,
         )
-        return AutotunedOp(spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False)
+        return AutotunedOp(spec, db=self.db, tune=self.inline_tune, warm=False, monitor=False,
+                           device_key=self.device_key)
 
     # -- tuning hand-off -------------------------------------------------------
 
@@ -385,6 +403,15 @@ class Server:
         if state.tuned or state.from_cache:  # winner already known (DB hit /
             self._on_tuned(state)            # inline tune): mirror its degree
         return state
+
+    def _watch_drift(self, lock: TimingLock, mark: tuple) -> bool:
+        """Feed the drift watch a step timed since ``mark``?  Not if a trial
+        timed on the card at any moment of it: the trial's kernels ran
+        beside the step's (one such step read 767.7 ms against the 136.1 ms
+        its final was recorded at, alone, on an H100), which the finals,
+        each timed in a window of its own, never saw.  Classes queued or
+        tuned on the host meanwhile do not hold the watch up."""
+        return self.drift is not None and lock.quiet_since(mark)
 
     def _on_tuned(self, state: OpState) -> None:
         """Mirror the live selection's degree into the DegreeController so
@@ -471,13 +498,20 @@ class Server:
             self._on_tuned(pstate)
             self._on_tuned(dstate)
 
+        device_extra = {}
+        if self.device_key:
+            # a joint winner measured on one device must not be recalled on
+            # another, like every other DB key of this server
+            from ..fleet.fingerprint import device_bp_entries
+
+            device_extra = device_bp_entries(self.device)
         return ProgramSpec(
             f"serve_step/{cfg.name}", members, db=self.db, build=build,
             on_apply=on_apply,
             extra={
                 "batch": self.batch_size, "plen": int(plen),
                 "steps": int(decode_steps), "backend": self.device.type,
-                **mesh_bp_entries(),
+                **mesh_bp_entries(), **device_extra,
             },
         )
 
@@ -505,6 +539,7 @@ class Server:
         check_well_formed(requests)
         out: Dict[int, List[int]] = {}
         cfg, device = self.cfg, self.device
+        lock = timing_lock(device)
         for i in range(0, len(requests), self.batch_size):
             real = list(requests[i: i + self.batch_size])
             group = list(real)
@@ -516,6 +551,7 @@ class Server:
             t_batch = time.perf_counter()
             pstate = self._resolve(self.prefill_op, self.params, batch)
             plabel = pstate.traffic.label if pstate.traffic else "prefill"
+            mark = lock.mark()
             t0 = time.perf_counter()
             with self.degree.region(plabel):
                 # dispatch through the resolved region directly: re-resolving
@@ -529,6 +565,12 @@ class Server:
                 # regressed winner demotes to the next-best precompiled one
                 if pstate.selector.observe(prefill_elapsed):
                     self._on_tuned(pstate)  # keep the controller in sync
+            if self._watch_drift(lock, mark):
+                # the drift watch rides the same observation; the call args
+                # are captured so a scheduled re-tune measures candidates on
+                # a real batch
+                self.drift.observe(self.prefill_op, pstate, prefill_elapsed,
+                                   (self.params, batch))
 
             n_steps = max(r.max_new_tokens for r in group)
             gen: List[List[int]] = [[] for _ in group]
@@ -544,14 +586,18 @@ class Server:
                 dstate = self._resolve(self.decode_op, self.params, dbatch, cache)
                 dlabel = dstate.traffic.label if dstate.traffic else "decode"
                 step_times: List[float] = []
+                quiet_times: List[float] = []  # those no trial overlapped
                 # one set/restore per group, not per token: the label (and
                 # the executed candidate) is fixed for the whole decode loop
                 with self.degree.region(dlabel):
                     for _ in range(n_steps - 1):
+                        mark = lock.mark()
                         ts = time.perf_counter()
                         logits, cache = dstate.region(self.params, dbatch, cache)
                         sync(device)
                         step_times.append(time.perf_counter() - ts)
+                        if self._watch_drift(lock, mark):
+                            quiet_times.append(step_times[-1])
                         next_tok = greedy(logits)
                         for gi, t in enumerate(next_tok.tolist()):
                             gen[gi].append(t)
@@ -562,6 +608,9 @@ class Server:
                     # observation per group, never per token
                     if dstate.selector.observe(float(np.median(step_times))):
                         self._on_tuned(dstate)  # keep the controller in sync
+                if quiet_times:
+                    self.drift.observe(self.decode_op, dstate, float(np.median(quiet_times)),
+                                       (self.params, dbatch, cache))
             self.stats.decode_s += time.perf_counter() - t0
             # only tokens delivered to real requests count: padded tail rows
             # and steps past a request's own max_new_tokens are not output

@@ -33,8 +33,10 @@ The port of ``repro.runtime.train``:
 Before it measures a joint assignment or times the loop, the Trainer runs
 one untimed warm step (:meth:`Trainer.warm`), so every kernel shape class
 the step reaches (the flash forward's and backward's) is tuned or recalled
-there, not inside a measured step.  ``device_key`` (fleet keying) waits
-for the fleet's port and raises if set.
+there, not inside a measured step.  ``device_key`` namespaces the train
+step's BP and the joint program's fingerprint under the card's
+:class:`~repro_torch.fleet.DeviceFingerprint`, so a fleet-shared TuningDB
+never hands this host another device's winner.
 """
 from __future__ import annotations
 
@@ -89,7 +91,8 @@ class TrainLoopConfig:
     joint_cap: Optional[int] = 16
     joint_k: Optional[int] = None
     remat_candidates: Sequence[str] = ("none", "full")
-    # fleet device keying: not ported yet (it needs the fleet's fingerprint)
+    # fleet device keying: namespace the train step's BP and the joint
+    # program's fingerprint under the training device's DeviceFingerprint
     device_key: bool = False
 
 
@@ -162,10 +165,6 @@ class Trainer:
         tuning_db: Optional[TuningDB] = None,
         device: Any = "cuda",
     ) -> None:
-        if loop_cfg.device_key:
-            raise NotImplementedError(
-                "TrainLoopConfig.device_key needs the fleet's device fingerprint, which "
-                "the port does not have yet (ROADMAP.md §A item 8)")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.loop = loop_cfg
@@ -195,6 +194,10 @@ class Trainer:
         self._step_remat = cfg.remat
         bp = BasicParams.make(arch=cfg.name, kind="train_runtime", micro=degrees,
                               backend=self.device.type, framework="torch")
+        if loop_cfg.device_key:
+            from ..fleet.fingerprint import device_bp_entries
+
+            bp = bp.with_entries(**device_bp_entries(self.device))
         spec = register_kernel(
             KernelSpec(
                 name=f"train_step/{cfg.name}",
@@ -275,6 +278,10 @@ class Trainer:
             "batch": int(tokens.shape[0]) if tokens is not None else 0,
             "seq": int(tokens.shape[1]) if tokens is not None else 0,
         }
+        if loop.device_key:  # device-namespaced program fingerprint
+            from ..fleet.fingerprint import device_bp_entries
+
+            extra.update(device_bp_entries(self.device))
         return ProgramSpec(
             f"train_step/{cfg.name}", members, db=self.db, build=build,
             on_apply=self._on_joint_apply, extra=extra,

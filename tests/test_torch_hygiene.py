@@ -118,8 +118,47 @@ def test_training_modules_import_and_train_with_jax_absent(tmp_path):
     assert out.returncode == 0, out.stderr
 
 
+FLEET_MODULES = (
+    "repro_torch.fleet", "repro_torch.fleet.fingerprint", "repro_torch.fleet.transport",
+    "repro_torch.fleet.workloads", "repro_torch.fleet.coordinator", "repro_torch.fleet.drift",
+    "repro_torch.fleet.service", "repro_torch.launch.fleet", "repro_torch.launch.observe",
+)
+
+
+def test_fleet_modules_import_and_run_with_jax_absent(tmp_path):
+    """The fleet slice's modules import, and its CLIs run (a sharded demo
+    search through a tuning service, then the observe CLI on the DB it
+    left), in a process where importing jax or the JAX package raises."""
+    assert set(FLEET_MODULES) <= set(_modules())
+    code = (
+        "import importlib, runpy, sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is absent')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        f"for m in {list(FLEET_MODULES)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "db = sys.argv[1]\n"
+        "sys.argv = ['fleet', '--kernel', 'demo', '--workers', '3', '--device', 'cpu',\n"
+        "            '--db', db, '--check-equivalence']\n"
+        "runpy.run_module('repro_torch.launch.fleet', run_name='__main__')\n"
+        "sys.argv = ['observe', 'explain', '--db', db]\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.observe', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "db.json")], env=_env(),
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "equivalence OK" in out.stdout and "fleet/demo" in out.stdout
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     hits = [
         f"{f.relative_to(ROOT)}:{i}: {line}"
         for f in files

@@ -49,6 +49,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan as ssm_mod
 from repro_torch.models import rglru, ssm
 from repro_torch.models.transformer import maybe_checkpoint
 from test_torch_arch import SXM
+from test_torch_serve_common import restore_port_registry  # noqa: F401  (autouse)
 from test_torch_train_step import check_train_step_matches_jax
 
 TOL = DEFAULT_TOL["float32"]  # (1e-4, 1e-4), the scans' conformance tolerance
@@ -510,3 +511,15 @@ def test_a_second_trainer_recalls_the_backward_classes(arch, kernel, monkeypatch
     states = second.rule.states().values()
     assert {st.bp["kernel"] for st in states} == kernels
     assert sum(st.cost_evaluations for st in states) == 0
+
+
+def test_the_trainers_leave_the_registry_as_they_found_it():
+    """A Trainer registers ``train_step/<arch>`` in the port's registry; the
+    autouse ``restore_port_registry`` takes it out again when the test that
+    built it ends, so the tests above leave the package's own names alone
+    (``test_torch_slice.py`` pins them)."""
+    from repro_torch.core import kernel_names
+
+    assert not [n for n in kernel_names() if n.startswith("train_step/")]
+    assert set(kernel_names()) == {"exb", "flash_attention", "stress", "ssm_scan", "rglru_scan",
+                                   "flash_attention_bwd", "ssm_scan_bwd", "rglru_scan_bwd"}

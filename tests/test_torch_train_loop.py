@@ -5,7 +5,7 @@ bit for bit to an uninterrupted run's, tunes (microbatch degree × remat)
 jointly and a second Trainer on the same TuningDB recalls the winner with
 0 evaluations (the counterparts of ``tests/test_runtime.py:100-147`` and
 ``tests/test_program.py:454``); the train CLI runs on ``--device cpu``;
-and fleet keying, which waits for the fleet, raises."""
+and fleet keying keys the step as the JAX package's does."""
 from __future__ import annotations
 
 import contextlib
@@ -144,8 +144,18 @@ def test_parameters_take_the_configs_dtype():
 
 
 def test_device_key_waits_for_the_fleet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(SMOKE, _opt_cfg(), TrainLoopConfig(device_key=True), device="cpu")
+    """The fleet is ported: ``device_key`` keys the train step by the
+    training device's fingerprint, the same entries the JAX package adds on
+    this host."""
+    from repro.fleet import device_bp_entries as jax_device_entries
+
+    trainer = Trainer(SMOKE, _opt_cfg(), TrainLoopConfig(device_key=True), device="cpu")
+    (state,) = trainer.op.states().values()
+    assert state.bp.fingerprint() == trainer.bp.fingerprint()
+    keyed = {k: v for k, v in trainer.bp.asdict().items() if k.startswith("device_")}
+    assert keyed == jax_device_entries()
+    plain = Trainer(SMOKE, _opt_cfg(), TrainLoopConfig(), device="cpu")
+    assert plain.bp.fingerprint() != trainer.bp.fingerprint()
 
 
 def test_train_cli_runs_on_the_cpu():
