@@ -83,6 +83,14 @@ Phases, each of which fails the run:
    recalling every kernel class with 0 evaluations, the step overfitting
    one batch from tempered weights (the loss must fall) and one profiled
    step; the restart drill again on recurrentgemma-2b at 3 layers;
+2b. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun.run_cell``
+   on a (1, 1) mesh for tinyllama-1.1b uncut at the [train] cell (B=4,
+   S=4096, bf16 parameters, float32 moments), one row a (micro, remat)
+   that phase measured, in a worker that sees no card (started with the
+   run; a forked worker a row, all at once): the predicted per-device peak
+   beside the measured peak
+   and their ratio, which must lie in 0.75-1.25; the phase allocates
+   nothing on the card and takes under 30 s;
 3. kernels: every point of each emitted space launched at the slice shapes
    (flash also in f32, at a padded S=2000, and in bf16 at qwen3-0.6b's
    width, 16 query heads, 8 KV heads, head_dim 128; both scans also in
@@ -2652,6 +2660,98 @@ def train_phases(torch, device, arch_spec, errors) -> dict:
     return out
 
 
+# -- [dryrun]: the dry-run's memory prediction held to the card's --------------
+
+DRYRUN_RATIO = (0.75, 1.25)   # predicted / measured per-device peak
+DRYRUN_LIMIT_S = 30.0
+# every (micro, remat) row of the [train] cell through the dry-run on a (1, 1)
+# mesh, in a worker process that sees no card: started with the run, it
+# imports the port while the kernels build, then waits for the rows on its
+# stdin (it exits at end of file); a forked worker a row, all at once; it
+# prints each row's record, in the rows' order
+DRYRUN_WORKER = """
+import json, multiprocessing, sys
+import torch.distributed.device_mesh
+import torch.testing._internal.distributed.fake_pg
+import repro_torch.runtime.train
+from repro_torch.configs import ShapeCell
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.optim import AdamWConfig
+line = sys.stdin.readline()
+if not line:
+    sys.exit(0)
+arch, B, S, steps, rows = json.loads(line)
+
+def row(nr):
+    n, remat = nr
+    return run_cell(arch, ShapeCell("chip_train", "train", S, B), False, "tp", verbose=False,
+                    cfg_overrides={"remat": remat}, n_micro=n, mesh_shape=(1, 1),
+                    opt_cfg=AdamWConfig(warmup_steps=4, total_steps=steps))
+
+with multiprocessing.get_context("fork").Pool(len(rows)) as pool:
+    for rec in pool.map(row, rows):
+        print(json.dumps(rec))
+"""
+
+
+def start_dryrun_worker() -> subprocess.Popen:
+    """The [dryrun] phase's worker (``DRYRUN_WORKER``), started now."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_WORKER], env=env, cwd=str(ROOT),
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_phase(torch, worker, rows, errors) -> dict:
+    """The dry-run's per-device peak of every (micro, remat) row the [train]
+    phase measured on tinyllama-1.1b, beside the measured peak: the rows
+    traced by ``worker`` (:func:`start_dryrun_worker`), a process that sees
+    no card (CUDA_VISIBLE_DEVICES empty), a forked worker a row; the card's
+    allocated bytes the same before and after."""
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    arg = json.dumps([TRAIN["arch"], TRAIN["B"], TRAIN["S"], TRAIN["steps"],
+                      [[row["micro"], row["remat"]] for row in rows]])
+    try:
+        stdout, stderr = worker.communicate(arg + "\n", timeout=120)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+    recs = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    if worker.returncode or len(recs) != len(rows):
+        errors.append(f"dryrun: exit {worker.returncode}, {len(recs)} records for {len(rows)} "
+                      f"rows: {stderr[-2000:]}")
+    out = []
+    for row, rec in zip(rows, recs):
+        pred = rec["memory"]["per_device_total"] / 1e9
+        ratio = pred / row["peak_gb"]
+        print(f"[dryrun] {TRAIN['arch']} B={TRAIN['B']} S={TRAIN['S']} micro {row['micro']} "
+              f"remat {row['remat']}: predicted peak {pred:.2f} GB (arguments "
+              f"{rec['memory']['argument_bytes'] / 1e9:.2f}, outputs "
+              f"{rec['memory']['output_bytes'] / 1e9:.2f}, temporaries "
+              f"{rec['memory']['temp_bytes'] / 1e9:.2f}), measured {row['peak_gb']:.2f} GB, "
+              f"ratio {ratio:.3f}; traced in {rec['compile_s']:.1f} s")
+        out.append({"micro": row["micro"], "remat": row["remat"], "predicted_gb": pred,
+                    "measured_gb": row["peak_gb"], "ratio": ratio,
+                    "memory": rec["memory"], "compile_s": rec["compile_s"]})
+        if not DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]:
+            errors.append(f"dryrun micro {row['micro']} remat {row['remat']}: predicted "
+                          f"{pred:.2f} GB, measured {row['peak_gb']:.2f} GB, ratio "
+                          f"{ratio:.3f} outside {DRYRUN_RATIO}")
+    seconds = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    print(f"[dryrun] {card_line()}: {len(out)} rows in {seconds:.1f} s; the card's allocated "
+          f"bytes {before} before, {after} after")
+    if after != before:
+        errors.append(f"dryrun: the card's allocated bytes went from {before} to {after}")
+    if seconds >= DRYRUN_LIMIT_S:
+        errors.append(f"dryrun: {seconds:.1f} s, past {DRYRUN_LIMIT_S} s")
+    if not rows:
+        errors.append("dryrun: the [train] phase measured no row")
+    return {"rows": out, "seconds": seconds, "allocated_before": before,
+            "allocated_after": after}
+
+
 # -- the fleet slice: sharded search, the tuning service, the drift watch,
 # -- the observe CLI and the training example ------------------------------
 
@@ -2991,10 +3091,12 @@ def drift_drill(torch, device, errors) -> dict:
                    selector_switches=switches, checks=monitor.checks,
                    winner=dict(state.region.selected), recorded_ms=recorded * 1e3,
                    ewma_ms=watch.ewma * 1e3 if watch and watch.ewma else None,
+                   host_bound_samples=op.host_bound_samples,
                    launches=exb_mod.counter.launches)
     print(f"[drift] healthy: {DRIFT_HEALTHY_CALLS} monitored calls, "
           f"{len(monitor.transitions)} transitions over {monitor.checks} checks, "
-          f"{switches} selector switches; winner {state.region.selected} "
+          f"{op.host_bound_samples} samples dropped (the host's enqueue outlasted the "
+          f"spin), {switches} selector switches; winner {state.region.selected} "
           f"recorded {recorded * 1e3:.4f} ms, observed EWMA {healthy['ewma_ms']} ms "
           f"(CUDA events), {exb_mod.counter.launches} exb launches")
     winner = state.region.selected
@@ -3003,6 +3105,7 @@ def drift_drill(torch, device, errors) -> dict:
                       f"and {switches} selector switches over {monitor.checks} checks, "
                       f"or tuned {winner}")
     evaluations = state.cost_evaluations
+    dropped = op.host_bound_samples
     trials_before = db.trials(state.bp)
     reps[winner["i"]] = DRIFT_SLOW_REPS
     calls = 0
@@ -3021,12 +3124,14 @@ def drift_drill(torch, device, errors) -> dict:
           f"{calls} calls the event log holds {kinds}; the re-tune measured {remeasured} "
           f"points again (candidate {winner['i']} {trials_before.get(key)} -> "
           f"{trials_after.get(key)} s); now {state.region.selected}, final {final}; "
-          f"{state.selector.switches - switches} selector switches")
+          f"{state.selector.switches - switches} selector switches, "
+          f"{op.host_bound_samples - dropped} samples dropped")
     if kinds != DRIFT_LIFECYCLE or remeasured < len(reps) or final == winner:
         errors.append(f"drift: event log {kinds}, {remeasured} points measured again, "
                       f"final {final}")
     return dict(healthy=healthy, slowed_calls=calls, events=kinds, remeasured=remeasured,
                 slowed_selector_switches=state.selector.switches - switches,
+                slowed_host_bound_samples=op.host_bound_samples - dropped,
                 final=db.tuned_point(state.bp), launches=exb_mod.counter.launches)
 
 
@@ -3217,6 +3322,7 @@ def run() -> int:
     arch = detect(device)
     print(f"[arch] {arch}")
 
+    dryrun_worker = start_dryrun_worker()  # imports the port while the kernels build
     t0 = time.perf_counter()
     for name in _build.sources():
         _build.library(name)
@@ -3377,6 +3483,14 @@ def run() -> int:
             print(f"[error] {e}", file=sys.stderr)
         return fail(f"{len(errors)} train check(s) failed")
     torch.cuda.empty_cache()
+
+    # -- the dry-run's memory prediction against the [train] rows ----------
+    dryrun = dryrun_phase(torch, dryrun_worker, train["tinyllama"]["assignments"], errors)
+    print(f"[time] dryrun phase: {dryrun['seconds']:.1f} s")
+    if errors:
+        for e in errors:
+            print(f"[error] {e}", file=sys.stderr)
+        return fail(f"{len(errors)} dryrun check(s) failed")
 
     timer = Timer(torch, device, arch.l2_bytes)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -3907,6 +4021,7 @@ def run() -> int:
     print(json.dumps({"fleet": fleet}, default=str))
 
     print(json.dumps({"train": train}, default=str))
+    print(json.dumps({"dryrun": dryrun}, default=str))
 
     # -- the kernels line --------------------------------------------------
     iv, iz, mx, my = EXB_DIMS

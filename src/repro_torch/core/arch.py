@@ -43,6 +43,14 @@ class ArchSpec:
     ``peak_flops_tf32`` the dense TF32 tensor-core rate, ``peak_flops_fp32``
     the float32 rate outside the tensor cores.
     ``wave_overhead_s`` is the fixed cost of one wave of CTAs over the SMs.
+
+    The dry-run's roofline also reads the card's capacity and links:
+    ``hbm_bytes`` (device memory), ``nvlink_bandwidth`` (NVLink, per GPU
+    and direction, between the ``gpus_per_node`` GPUs of one node) and
+    ``internode_bandwidth`` (the GPU's network port, per direction, between
+    nodes).  They stay out of :meth:`bp_entries` and of equality: no
+    kernel's space depends on them, and adding them would re-key every
+    tuned entry.
     """
 
     name: str
@@ -57,6 +65,13 @@ class ArchSpec:
     warp_size: int = 32
     mma_edge: int = 16                  # smallest tensor-core fragment edge
     wave_overhead_s: float = 3e-6
+    hbm_bytes: int = dataclasses.field(default=80_000_000_000,  # H100 SXM5: 80 GB HBM3
+                                       compare=False)
+    nvlink_bandwidth: float = dataclasses.field(default=450e9,  # NVLink 4: 900 GB/s, 2 ways
+                                                compare=False)
+    internode_bandwidth: float = dataclasses.field(default=50e9,  # one NDR port: 400 Gb/s
+                                                   compare=False)
+    gpus_per_node: int = dataclasses.field(default=8, compare=False)  # HGX/DGX H100 node
 
     BP_KEYS: Tuple[str, ...] = dataclasses.field(
         default=_FIELDS, init=False, repr=False, compare=False,
@@ -84,16 +99,26 @@ class ArchSpec:
 
 # Datasheet rows (NVIDIA H100/H200 data sheets, dense rates): memory
 # bandwidth, bf16 and TF32 tensor-core peaks, float32 peak, opt-in shared
-# memory per block.  Matched by substring of the lower-cased device name, first hit wins.
+# memory per block, memory capacity and the NVLink rate per direction (the
+# NVIDIA H100 Tensor Core GPU datasheet: SXM 80 GB and NVLink 900 GB/s,
+# PCIe 80 GB and an NVLink bridge of 600 GB/s, NVL 94 GB and 600 GB/s; the
+# H200 datasheet: 141 GB and 900 GB/s).  Between nodes every row keeps the
+# default: one NDR InfiniBand port a GPU, 400 Gb/s a direction (the NVIDIA
+# ConnectX-7 datasheet, as the DGX H100 pairs one with each GPU).  Matched
+# by substring of the lower-cased device name, first hit wins.
 _DATASHEET: Tuple[Tuple[Tuple[str, ...], Dict[str, Any]], ...] = (
     (("h100", "pcie"), dict(hbm_bandwidth=2.0e12, peak_flops=756e12, peak_flops_tf32=378e12,
-                            peak_flops_fp32=51e12, smem_per_block=232_448)),
+                            peak_flops_fp32=51e12, smem_per_block=232_448,
+                            hbm_bytes=80_000_000_000, nvlink_bandwidth=300e9)),
     (("h100", "nvl"), dict(hbm_bandwidth=3.9e12, peak_flops=835e12, peak_flops_tf32=417.5e12,
-                           peak_flops_fp32=60e12, smem_per_block=232_448)),
+                           peak_flops_fp32=60e12, smem_per_block=232_448,
+                           hbm_bytes=94_000_000_000, nvlink_bandwidth=300e9)),
     (("h100",), dict(hbm_bandwidth=3.35e12, peak_flops=989e12, peak_flops_tf32=495e12,
-                     peak_flops_fp32=67e12, smem_per_block=232_448)),
+                     peak_flops_fp32=67e12, smem_per_block=232_448,
+                     hbm_bytes=80_000_000_000, nvlink_bandwidth=450e9)),
     (("h200",), dict(hbm_bandwidth=4.8e12, peak_flops=989e12, peak_flops_tf32=495e12,
-                     peak_flops_fp32=67e12, smem_per_block=232_448)),
+                     peak_flops_fp32=67e12, smem_per_block=232_448,
+                     hbm_bytes=141_000_000_000, nvlink_bandwidth=450e9)),
 )
 
 # The CPU host runs every kernel's plain PyTorch version; its arch only
@@ -109,7 +134,8 @@ def from_properties(props: Any) -> ArchSpec:
     object with ``name``, ``multi_processor_count``, ``L2_cache_size`` and
     ``shared_memory_per_block``).  A card missing from the datasheet table
     keeps the 48 KB default shared-memory limit, which every CUDA device
-    grants without opt-in, and the H100 SXM rates.
+    grants without opt-in, and the H100 SXM rates.  A card's memory
+    capacity is its own ``total_memory`` where the properties give it.
     """
     name = str(props.name)
     lowered = name.lower()
@@ -118,6 +144,8 @@ def from_properties(props: Any) -> ArchSpec:
         if all(k in lowered for k in keys):
             row = dict(values)
             break
+    if getattr(props, "total_memory", None):
+        row["hbm_bytes"] = int(props.total_memory)
     return ArchSpec(
         name=name,
         backend="cuda",

@@ -43,7 +43,7 @@ import torch
 
 from ..obs.trace import current_tracer
 from .cost import (
-    AdaptiveWallClockCost, _block, _leaves, l2_flush, spin, timed_call, timing_lock,
+    AdaptiveWallClockCost, _block, _leaves, l2_flush, sampled_call, timing_lock,
 )
 from .db import TuningDB
 from .emit import hint_prescreen
@@ -153,9 +153,11 @@ class AutotunedOp:
     train loop) pass ``monitor=False`` and call ``state.selector.observe``
     themselves.  ``drift`` (a DriftMonitor, settable later) gets the same
     calls, timed on the yardstick the recorded final was measured on: on
-    CUDA tensors :func:`~repro_torch.core.cost.timed_call` after the
-    trials' spin, whose event time the selector then takes too (the host
-    clock for CPU tensors, and without ``drift``).
+    CUDA tensors :func:`~repro_torch.core.cost.sampled_call` (event time
+    after the trials' spin), whose time the selector then takes too (the
+    host clock for CPU tensors, and without ``drift``).  A CUDA sample
+    whose host enqueue outlasted the spin feeds neither and counts in
+    ``host_bound_samples``.
     """
 
     def __init__(
@@ -217,6 +219,7 @@ class AutotunedOp:
         self.drift = drift
         self._fast: Dict[tuple, _FastEntry] = {}
         self.slow_resolutions = 0  # full shape-class resolutions performed
+        self.host_bound_samples = 0  # CUDA samples dropped: enqueue outlasted the spin
         self._states: Dict[str, OpState] = {}
         self._state_lock = threading.Lock()  # guards the two dicts below
         self._build_locks: Dict[str, threading.Lock] = {}
@@ -298,14 +301,18 @@ class AutotunedOp:
             # launch and the synchronise), in a timed window of its own on
             # the card.  A trial timing there now would read into the
             # sample, and waiting for it would hold up the hot path: the
-            # call then runs unsampled.
+            # call then runs unsampled.  So does a call whose enqueue
+            # outlasted the spin (its events may hold host time).
             lock = timing_lock(device)
             if not lock.acquire(blocking=False):
                 return state.region(*args, **kwargs)
             try:
-                out, cost = timed_call(lambda: state.region(*args, **kwargs), spin(device))
+                out, cost = sampled_call(lambda: state.region(*args, **kwargs), device)
             finally:
                 lock.release()
+            if cost is None:
+                self.host_bound_samples += 1
+                return out
             # the selector's trial costs are event times too: it takes the
             # same sample
             state.selector.observe(cost)

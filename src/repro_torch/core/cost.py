@@ -15,9 +15,10 @@ passes :func:`l2_flush` there, so each run finds its inputs cold (exb's
 working set, 55.4 MB, is larger than the H100's 50 MB L2 but would still
 hit it in part), and the stream stays busy for :data:`SPIN_S` while the
 host enqueues the launch, so the start event does not time the wrapper's
-Python.  The drift watch's sampled calls (:func:`timed_call` after
-:func:`spin`) keep the stream busy just as long, so a sample and the
-recorded final it is held against are taken on one yardstick.
+Python.  The drift watch's sampled calls (:func:`sampled_call`) keep the
+stream busy just as long, so a sample and the recorded final it is held
+against are taken on one yardstick; a sample whose enqueue outlasted the
+spin is dropped, since its events may hold host time.
 
 :class:`AdaptiveWallClockCost`'s ``lock``, when given (:func:`timing_lock`
 of the card), is held over a point's launches and timed runs, flush
@@ -29,7 +30,10 @@ Server's steps) can tell whether a trial ran inside it.
 
 The JAX package's compile-only costs (``CompiledRooflineCost``,
 ``MemoryCost``, ``roofline_from_compiled``) read XLA HLO and have no
-counterpart here.
+counterpart here.  The dry-run's three-term roofline
+(:class:`RooflineTerms`) is filled from a step traced on fake tensors
+instead (:func:`roofline_from_trace`, over an H100 cluster's
+:class:`~repro_torch.core.arch.ArchSpec`).
 """
 from __future__ import annotations
 
@@ -40,9 +44,102 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclass
+class RooflineTerms:
+    """The three roofline terms, in seconds, for one traced candidate (the
+    JAX package's fields and ``asdict`` keys; ``hlo_*`` name the totals
+    over every device of the mesh, as the JAX ones do)."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    hlo_flops: float
+    hlo_bytes: float
+    collective_bytes: float
+    per_device_hbm_bytes: float = 0.0
+    collective_breakdown: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def total_s(self) -> float:
+        """Roofline lower bound: terms overlap perfectly, so cost = max."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    def asdict(self) -> Dict[str, Any]:
+        return {
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "total_s": self.total_s,
+            "bottleneck": self.bottleneck,
+            "hlo_flops": self.hlo_flops,
+            "hlo_bytes": self.hlo_bytes,
+            "collective_bytes": self.collective_bytes,
+            "per_device_hbm_bytes": self.per_device_hbm_bytes,
+            "collective_breakdown": dict(self.collective_breakdown),
+        }
+
+
+# Ring-model execution factors: an all-reduce moves ~2× its payload per
+# device ((k-1)/k reduce-scatter + (k-1)/k all-gather); others ~1×.
+_COLLECTIVE_EXEC_FACTOR = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+def link_bandwidth(ranks: Sequence[int], arch: Any) -> float:
+    """Bytes/s a device moves in a collective over ``ranks``: NVLink while
+    the group stays inside one node of ``arch.gpus_per_node`` GPUs (ranks
+    numbered node by node), the inter-node port once it spans two."""
+    nodes = {r // arch.gpus_per_node for r in ranks}
+    return arch.nvlink_bandwidth if len(nodes) <= 1 else arch.internode_bandwidth
+
+
+def roofline_from_trace(trace: Any, n_chips: int, arch: Any,
+                        per_device_hbm_bytes: float = 0.0) -> RooflineTerms:
+    """The three terms of one device's traced step
+    (:class:`~repro_torch.distributed.trace.StepTrace`) on ``arch``:
+
+    * compute    = the device's FLOPs / the bf16 dense peak;
+    * memory     = the device's bytes / HBM bandwidth;
+    * collective = Σ factor × payload / the group's link rate, all-reduce
+      weighted 2× (ring model), a group that spans nodes at the inter-node
+      rate.
+
+    ``hlo_*`` and the breakdown report the totals over ``n_chips`` devices
+    (every device runs the same step), as the JAX terms do."""
+    coll_s = 0.0
+    for kind, nbytes, ranks in trace.collective_calls:
+        coll_s += _COLLECTIVE_EXEC_FACTOR.get(kind, 1.0) * nbytes / link_bandwidth(ranks, arch)
+    coll_bytes = float(sum(trace.collectives.values()))
+    return RooflineTerms(
+        compute_s=trace.flops / arch.peak_flops,
+        memory_s=trace.bytes / arch.hbm_bandwidth,
+        collective_s=coll_s,
+        hlo_flops=trace.flops * n_chips,
+        hlo_bytes=trace.bytes * n_chips,
+        collective_bytes=coll_bytes * n_chips,
+        per_device_hbm_bytes=float(per_device_hbm_bytes),
+        collective_breakdown={k: int(v * n_chips) for k, v in trace.collectives.items()},
+    )
 
 
 def score_points_concurrently(
@@ -181,6 +278,41 @@ def timed_call(
         return out, start.elapsed_time(end) / 1e3
     _block(out)
     return out, time.perf_counter() - t0
+
+
+def sampled_call(fn: Callable[[], Any], device: Any) -> Tuple[Any, Optional[float]]:
+    """One run of ``fn`` after :func:`spin` on ``device``: (its output,
+    seconds by CUDA events), or (its output, None) where the stream may
+    have waited on the host between the events.
+
+    The spin covers the host's enqueue only while it lasts.  If the start
+    event has completed by the time the end event is enqueued, the host was
+    still enqueueing when the stream reached the start (a slow wrapper, a
+    preempted thread, another thread holding the interpreter), and the
+    stream may have idled inside the window: the time is not the device's
+    alone.  If it has not, the stream was still spinning after the whole
+    run was enqueued, and the events time the device alone.
+    """
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    busy = spin(device)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        busy()
+        start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        if not _is_cuda(out):
+            _block(out)
+            return out, time.perf_counter() - t0
+        end.record()
+        covered = not start.query()
+    finally:
+        if collecting:
+            gc.enable()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3 if covered else None
 
 
 def _timed(fn: Callable[[], Any], prepare: Optional[Callable[[], Any]]) -> float:

@@ -17,6 +17,8 @@ from .model import (
     forward,
     init_cache,
     init_params,
+    input_logical_axes,
+    input_specs,
     make_concrete_batch,
     param_specs,
     prefill_fn,
@@ -44,4 +46,6 @@ __all__ = [
     "serving",
     "ServingRule",
     "cache_batch_axis",
+    "input_specs",
+    "input_logical_axes",
 ]

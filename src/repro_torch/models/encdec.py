@@ -10,7 +10,8 @@ decoder's causal self-attention takes the kernel route
 attention and the cross attention are torch ops, as the JAX package uses
 XLA there.  Remat follows the JAX rule for this family: every encoder and
 decoder layer is recomputed whole (``full``) for any ``remat`` but
-``none``, ``dots`` included.
+``none``, ``dots`` included.  The activations carry the JAX package's
+three sharding constraints (``constrain``; a no-op on one card).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import constrain
 from .attention import (
     attn_spec, causal_attention, cross_attention, decode_attention, full_attention, output_proj,
     project_qkv,
@@ -88,12 +90,13 @@ def _encoder_layer(x, lp, cfg: ModelConfig):
     q, k, v = project_qkv(hh, lp["attn"], cfg, positions=None)  # no RoPE
     x = x + output_proj(full_attention(q, k, v, causal=False), lp["attn"])
     hh = layernorm(x, lp["ln2"], cfg.norm_eps)
-    return x + gelu_mlp(hh, lp["mlp"])
+    return constrain(x + gelu_mlp(hh, lp["mlp"]), ("batch", "seq", "act_embed"))
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, enc_len, d) stubbed embeddings -> encoder states."""
     x = frames.to(torch.bfloat16) + params["enc_pos"].to(torch.bfloat16)
+    x = constrain(x, ("batch", "seq", "act_embed"))
     body = _remat(functools.partial(_encoder_layer, cfg=cfg), cfg)
     for lp in params["enc_layers"]:
         x = body(x, lp)
@@ -118,7 +121,8 @@ def _decoder_layer(h, lp, cfg: ModelConfig, enc_out):
     kx, vx = _cross_kv(enc_out, lp["cross_attn"])
     h = h + output_proj(cross_attention(qx, kx, vx), lp["cross_attn"])
     hh = layernorm(h, lp["ln2"], cfg.norm_eps)
-    return h + gelu_mlp(hh, lp["mlp"]), (k, v), (kx, vx)
+    h = constrain(h + gelu_mlp(hh, lp["mlp"]), ("batch", "seq", "act_embed"))
+    return h, (k, v), (kx, vx)
 
 
 def forward(

@@ -31,8 +31,74 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...d,d...->......", x, w)``: x's last axis against w's
     first, the product in the promoted dtype."""
     x, w = promote(x, w)
+    if hasattr(x, "device_mesh") or hasattr(w, "device_mesh"):
+        return _dot_on_shards(x, w)
     out = x @ w.reshape(w.shape[0], -1)
     return out.reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _dot_on_shards(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`dot` of DTensors (the dry-run) on each device's shards, per
+    mesh axis as XLA's partitioner runs a sharded product: x's leading dims
+    (batch, sequence) stay sharded against a replicated w; w's output dims
+    stay sharded against a replicated x (tensor parallel); a contraction
+    sharded on either side is sharded on both, its sum all-reduced after;
+    where x's batch and any dim of w share an axis, w is gathered (FSDP),
+    and where x's sequence and w's output dims do, x is (a sequence shard
+    before a column-parallel product).  The gradient of an
+    operand replicated against the other's shards is a partial sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from .route import run_on_shards
+
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    x = resolve_partial(x) if isinstance(x, DTensor) else x
+    w = resolve_partial(w) if isinstance(w, DTensor) else w
+    rep = (Replicate(),) * mesh.ndim
+    xp = x.placements if isinstance(x, DTensor) else rep
+    wp = w.placements if isinstance(w, DTensor) else rep
+    lead = x.dim() - 1
+    x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
+    for px, pw in zip(xp, wp):
+        x_lead = isinstance(px, Shard) and px.dim < lead
+        x_contract = isinstance(px, Shard) and px.dim == lead
+        w_contract = isinstance(pw, Shard) and pw.dim == 0
+        w_out = isinstance(pw, Shard) and pw.dim > 0
+        if x_lead and (px.dim == 0 or not w_out):  # data parallel; FSDP gathers w
+            x_pl.append(px), w_pl.append(Replicate()), out_pl.append(px)
+            x_grad.append(px), w_grad.append(Partial())
+        elif w_out:  # tensor parallel over w's output dims (x gathered)
+            x_pl.append(Replicate()), w_pl.append(pw), out_pl.append(Shard(lead + pw.dim - 1))
+            x_grad.append(Partial()), w_grad.append(pw)
+        elif x_contract or w_contract:  # row parallel: a partial sum
+            x_pl.append(Shard(lead)), w_pl.append(Shard(0)), out_pl.append(Partial())
+            x_grad.append(Shard(lead)), w_grad.append(Shard(0))
+        else:
+            for pls in (x_pl, w_pl, out_pl, x_grad, w_grad):
+                pls.append(Replicate())
+
+    def local(x, w):
+        out = x @ w.reshape(w.shape[0], -1)
+        return out.reshape(x.shape[:-1] + w.shape[1:])
+
+    out = run_on_shards(local, (x, w), (tuple(x_pl), tuple(w_pl)), tuple(out_pl),
+                        grad_placements=(tuple(x_grad), tuple(w_grad)))
+    return resolve_partial(out)
+
+
+def resolve_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor whose placements hold a partial sum (a product contracted
+    over a sharded axis, in the dry-run) with the sum all-reduced, as XLA's
+    partitioner reduces a row-parallel product; any other tensor as it is."""
+    placements = getattr(t, "placements", None)
+    if placements is None:
+        return t
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not any(isinstance(p, Partial) for p in placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                          for p in placements])
 
 
 # ---------------------------------------------------------------------------
@@ -108,8 +174,8 @@ def mrope_apply(
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {half}")
     freqs = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)
     pos_per_slot = positions.float()[sec_id]  # (half, ..., seq)
     ang = torch.movedim(pos_per_slot, 0, -1) * freqs  # (..., seq, half)
     return _rotate(x, ang)
@@ -181,10 +247,48 @@ def unembed_spec(cfg: ModelConfig) -> ParamSpec:
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; where a gradient is wanted, through
-    :class:`Embed`, whose backward sums in a fixed order."""
+    :class:`Embed`, whose backward sums in a fixed order.  A DTensor table
+    (the dry-run) is read on each device's shard of its rows
+    (:func:`_embed_on_shards`)."""
+    if hasattr(table, "device_mesh"):
+        return _embed_on_shards(tokens, table)
     if torch.is_grad_enabled() and table.requires_grad:
         return Embed.apply(table, tokens)
     return table[tokens]
+
+
+def _embed_on_shards(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The lookup on a DTensor table whose rows (the vocab) are sharded: each
+    device reads the tokens among its own rows (zeros for the others) and
+    the rows are summed over the vocab's mesh axes, as XLA's partitioner
+    does; an index would gather the whole table.  The table's gradient
+    stays on its shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .route import run_on_shards
+
+    mesh = table.device_mesh
+    t_pl, tok_pl, out_pl, vocab_axes = [], [], [], []
+    for axis, (pt, pk) in enumerate(zip(table.placements, tokens.placements)):
+        if isinstance(pt, Shard) and pt.dim == 0:
+            t_pl.append(pt), tok_pl.append(Replicate()), out_pl.append(Partial())
+            vocab_axes.append(axis)
+        elif isinstance(pk, Shard):
+            t_pl.append(Replicate()), tok_pl.append(pk), out_pl.append(pk)
+        else:
+            t_pl.append(Replicate()), tok_pl.append(Replicate()), out_pl.append(Replicate())
+
+    def local(tok, tab):
+        part = 0
+        for a in vocab_axes:
+            part = part * mesh.size(a) + mesh.get_local_rank(a)
+        idx = tok.long() - part * tab.shape[0]
+        mine = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab)
+        return rows * mine[..., None].to(rows.dtype)
+
+    out = run_on_shards(local, (tokens, table), (tuple(tok_pl), tuple(t_pl)), tuple(out_pl))
+    return resolve_partial(out)
 
 
 @contextlib.contextmanager

@@ -15,13 +15,13 @@ The port of ``repro.models.model``.  Entry points:
   useful FLOPs of a step (plain Python, copied as is).
 * :func:`cache_batch_axis` — where each decode-cache leaf keeps its batch
   (serving splits, joins, gathers and scatters caches by it).
-
-Left out, as the JAX package's XLA side: ``input_specs`` /
-``input_logical_axes`` (the dry-run's sharded stand-ins).
+* :func:`input_specs` / :func:`input_logical_axes` — the dry-run's data
+  contract: meta tensors of every input of one cell, and the logical axes
+  the sharding rule places each by.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -177,13 +177,80 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torc
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor]):
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    if hasattr(logits, "device_mesh"):
+        nll = _nll_on_shards(logits, targets)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is not None:
         m = mask.float()
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.mean(nll)
+
+
+class _ShardedNll(torch.autograd.Function):
+    """Each position's -log softmax(logits)[target] from one device's shard
+    of the vocab (rows ``lo`` onward of it): the local max, sum of exps
+    and target logit, all-reduced over the vocab's mesh axes (``groups``),
+    as XLA's partitioner takes a softmax over a sharded axis.  Its
+    backward, softmax minus the one-hot target, is local."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        def all_reduce(t, op):
+            for g in groups:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+            return t
+
+        n = logits.shape[-1]
+        idx = targets.long() - lo
+        mine = (idx >= 0) & (idx < n)
+        m = all_reduce(logits.amax(dim=-1), "max")
+        z = all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), "sum")
+        gold = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        gold = all_reduce(torch.where(mine, gold, torch.zeros_like(gold)), "sum")
+        ctx.save_for_backward(logits, idx, m, z)
+        return torch.log(z) + m - gold
+
+    @staticmethod
+    def backward(ctx, dnll):
+        logits, idx, m, z = ctx.saved_tensors
+        n = logits.shape[-1]
+        grad = torch.exp(logits - m[..., None]) / z[..., None]
+        onehot = (torch.arange(n, device=idx.device) == idx[..., None]).to(grad.dtype)
+        return (grad - onehot) * dnll[..., None], None, None, None
+
+
+def _nll_on_shards(logits, targets):
+    """The CE's per-position nll of DTensor logits (B, S, V) on each
+    device's shards: the batch stays as the logits keep it, the vocab
+    sharded (:class:`_ShardedNll`), anything else gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .route import run_on_shards
+
+    mesh = logits.device_mesh
+    pl, t_pl, vocab_axes = [], [], []
+    for axis, p in enumerate(logits.placements):
+        if isinstance(p, Shard) and p.dim in (0, 2):
+            pl.append(p)
+            t_pl.append(p if p.dim == 0 else Replicate())
+            if p.dim == 2:
+                vocab_axes.append(axis)
+        else:
+            pl.append(Replicate())
+            t_pl.append(Replicate())
+
+    def local(lg, tg):
+        part = 0
+        for a in vocab_axes:
+            part = part * mesh.size(a) + mesh.get_local_rank(a)
+        return _ShardedNll.apply(lg, tg, part * lg.shape[-1], [(mesh, a) for a in vocab_axes])
+
+    return run_on_shards(local, (logits, targets), (tuple(pl), tuple(t_pl)), tuple(t_pl))
 
 
 @torch.no_grad()
@@ -240,6 +307,91 @@ def cache_batch_axis(key: str, rank: int) -> Optional[int]:
     if suffix == "h":
         return 1 if rank == 4 else rank - 2
     return None
+
+
+# ---------------------------------------------------------------------------
+# Input specs (dry-run data contract)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int) -> Dict[str, Any]:
+    """Meta tensors standing in for every model input of one cell (the JAX
+    ``ShapeDtypeStruct`` s, shape and dtype for shape and dtype).
+
+    kind: "train" | "prefill" | "decode".  For decode, ``seq_len`` is the
+    KV-cache length; the step consumes one new token (written at slot
+    seq_len-1, attending over all seq_len slots).  The cache is
+    :func:`init_cache` on the meta device, its ``len`` an int32 scalar as
+    the JAX cache holds it.
+    """
+    B, S = global_batch, seq_len
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def token_batch(seq: int) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"tokens": sds((B, seq), torch.int32)}
+        if cfg.family == "vlm":
+            d["vision_embeds"] = sds((B, cfg.n_vision_tokens, cfg.d_model), torch.bfloat16)
+            d["positions"] = sds((3, B, seq), torch.int32)
+        if cfg.is_encoder_decoder:
+            d["frames"] = sds((B, cfg.encoder_len, cfg.d_model), torch.bfloat16)
+        return d
+
+    if kind == "train":
+        batch = token_batch(S)
+        batch["targets"] = sds((B, S), torch.int32)
+        batch["loss_mask"] = sds((B, S), torch.float32)
+        return {"batch": batch}
+    if kind == "prefill":
+        return {"batch": token_batch(S)}
+    if kind == "decode":
+        cache = init_cache(cfg, B, S, "meta")
+        cache["len"] = sds((), torch.int32)
+        return {"batch": token_batch(1), "cache": cache}
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+_BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "targets": ("batch", "seq"),
+    "loss_mask": ("batch", "seq"),
+    "vision_embeds": ("batch", None, None),
+    "positions": (None, "batch", "seq"),
+    "frames": ("batch", None, None),
+}
+
+# the cache leaves' other axes, keyed by the name's suffix: attention K/V
+# (.., batch, slots, kv_heads, head_dim), where "kv_slots" lets a rule
+# shard the cache length (flash decoding: no assigned arch has kv_heads
+# divisible by the 16-way model axis); the SSM's conv (.., batch, K-1,
+# d_inner) and h (.., batch, d_inner, N), the RG-LRU's h (.., batch, w)
+_CACHE_TAIL_AXES = {"k": ("kv_slots", "act_kv", None), "v": ("kv_slots", "act_kv", None),
+                    "conv": (None, "act_rnn")}
+
+
+def _cache_leaf_axes(key: str, rank: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of one cache leaf: "batch" where :func:`cache_batch_axis`
+    puts it, the suffix's axes after it, None before."""
+    b = cache_batch_axis(key, rank)
+    if b is None:
+        return (None,) * rank
+    suffix = key.split("_")[-1]
+    tail = _CACHE_TAIL_AXES.get(suffix)
+    if tail is None:  # h: (.., B, d_inner, N) for the SSM, (.., B, w) for the RG-LRU
+        tail = ("act_rnn", None)[:rank - b - 1]
+    return (None,) * b + ("batch",) + tail
+
+
+def input_logical_axes(cfg: ModelConfig, kind: str, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """Logical axis names for every leaf of :func:`input_specs` output;
+    the dry-run turns them into placements through the active rule."""
+    out: Dict[str, Any] = {
+        "batch": {k: _BATCH_AXES.get(k, (None,) * v.dim()) for k, v in specs["batch"].items()}
+    }
+    if "cache" in specs:
+        out["cache"] = {k: _cache_leaf_axes(k, v.dim()) for k, v in specs["cache"].items()}
+    return out
 
 
 def make_concrete_batch(

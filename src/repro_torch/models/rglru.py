@@ -30,7 +30,10 @@ import torch.nn.functional as F
 from ..kernels.rglru_scan import rglru_scan as rg_mod
 from .config import ModelConfig
 from .layers import dot, gelu, promote, sigmoid
-from .route import in_this_context, needs_grad, on_kernel, run_kernel
+from .route import (
+    in_this_context, needs_grad, on_kernel, on_stand_in, rglru_bwd_stand_in, rglru_stand_in,
+    run_kernel, run_on_shards, scan_placements,
+)
 from .spec import ParamSpec
 from .ssm import _causal_conv1d, conv_tail
 
@@ -63,12 +66,31 @@ def lru_scan(xs: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Tens
     """The recurrence over float32 (B, S, w) x, r, i and (w,) Λ: h at every
     step, (B, S, w) float32."""
     args = tuple(t.float().contiguous() for t in (xs, r, i, lam))
+    if on_stand_in(xs):
+        return _stand_in(args)
     if on_kernel(xs):
         if needs_grad(*args):
             return LruScanFn.apply(*args, kernel_forward, in_this_context(kernel_backward))
         return run_kernel("rglru_scan", *args)
     rg_mod.counter.ran_plain()
     return rg_mod.rglru_scan_plain(*args)
+
+
+def _stand_in(args):
+    """The dry-run's recurrence (:func:`.route.on_stand_in`): the kernels'
+    shape-only stand-ins through :class:`LruScanFn`, on each device's
+    shards of DTensor operands."""
+
+    def local(x, r, i, lam):
+        if needs_grad(x, r, i, lam):
+            return LruScanFn.apply(x, r, i, lam, rglru_stand_in,
+                                   in_this_context(rglru_bwd_stand_in))
+        return rglru_stand_in(x, r, i, lam)
+
+    if not hasattr(args[0], "device_mesh"):  # not a DTensor
+        return local(*args)
+    pl = scan_placements(args[0], {"x": (0, 2), "lam": (None, 0)})
+    return run_on_shards(local, args, (pl["x"],) * 3 + (pl["lam"],), pl["x"])
 
 
 def kernel_forward(x, r, i, lam):

@@ -64,6 +64,25 @@ def count_params(tree: Any) -> int:
     return sum(spec.size for spec in spec_leaves(tree))
 
 
+def map_specs(fn, tree: Any) -> Any:
+    """``fn`` over the specs of a tree of dicts and lists, the tree kept."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return [map_specs(fn, v) for v in tree]
+
+
+def as_shape_dtype_structs(tree: Any, fake_mode: Any = None) -> Any:
+    """A tensor of each spec's shape and dtype that holds no data (the JAX
+    ``ShapeDtypeStruct`` stand-ins): a fake tensor of ``fake_mode`` where
+    one is given (on the CPU), else a meta tensor."""
+    if fake_mode is None:
+        return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+    with fake_mode:
+        return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype), tree)
+
+
 class Params(nn.Module):
     """A dict of parameters and sub-trees that is also an ``nn.Module``
     (so ``.to``, ``state_dict`` and ``parameters`` see every leaf)."""

@@ -32,7 +32,10 @@ import torch.nn.functional as F
 from ..kernels.ssm_scan import ssm_scan as ssm_mod
 from .config import ModelConfig
 from .layers import dot, promote, silu
-from .route import in_this_context, kernel_state, needs_grad, on_kernel, run_kernel
+from .route import (
+    in_this_context, kernel_state, needs_grad, on_kernel, on_stand_in, run_kernel, run_on_shards,
+    scan_placements, ssm_bwd_stand_in, ssm_stand_in,
+)
 from .spec import ParamSpec
 
 
@@ -80,6 +83,8 @@ def selective_scan(xs, dt, A, Bt, Ct, final_state: bool = False):
     gradient is wanted), on CPU tensors the plain version."""
     skip = torch.zeros(xs.shape[-1], dtype=torch.float32, device=xs.device)
     args = tuple(t.contiguous() for t in (xs, dt, A, Bt, Ct, skip))
+    if on_stand_in(xs):
+        return _stand_in(args, final_state)
     if on_kernel(xs):
         if needs_grad(*args):
             return SelectiveScanFn.apply(*args, final_state, kernel_forward,
@@ -89,6 +94,25 @@ def selective_scan(xs, dt, A, Bt, Ct, final_state: bool = False):
         return kernel_forward(*args, True)
     ssm_mod.counter.ran_plain()
     return ssm_mod.ssm_scan_plain(*args, final_state=final_state)
+
+
+def _stand_in(args, final_state: bool):
+    """The dry-run's scan (:func:`.route.on_stand_in`): the kernels'
+    shape-only stand-ins through :class:`SelectiveScanFn`, on each device's
+    shards of DTensor operands."""
+
+    def local(x, dt, A, Bc, Cc, skip):
+        if needs_grad(x, dt, A, Bc, Cc, skip):
+            return SelectiveScanFn.apply(x, dt, A, Bc, Cc, skip, final_state, ssm_stand_in,
+                                         in_this_context(ssm_bwd_stand_in))
+        return ssm_stand_in(x, dt, A, Bc, Cc, skip, final_state)
+
+    if not hasattr(args[0], "device_mesh"):  # not a DTensor
+        return local(*args)
+    pl = scan_placements(args[0], {"x": (0, 2), "A": (None, 0), "bc": (0, None),
+                                   "h": (0, 1)})
+    ins = (pl["x"], pl["x"], pl["A"], pl["bc"], pl["bc"], pl["A"])
+    return run_on_shards(local, args, ins, (pl["x"], pl["h"]) if final_state else pl["x"])
 
 
 def kernel_forward(x, dt, A, Bc, Cc, skip, final_state: bool):

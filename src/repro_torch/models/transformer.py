@@ -9,8 +9,11 @@ period-groups of its block pattern plus a tail), the port loops over a
 ``block_pattern[i % period]``.  Remat (:func:`maybe_checkpoint`, the JAX
 ``_maybe_checkpoint``) wraps what the JAX package wraps, where a gradient
 is wanted: each layer, and for the hybrid family each period-group of the
-block pattern and each layer of a homogeneous tail.  Left out, as XLA's:
-``scan_layers`` and sharding constraints (one card).
+block pattern and each layer of a homogeneous tail.  The activations carry
+the JAX package's sharding constraints (``constrain``, at the same six
+sites with the same logical axes): a no-op on one card, a redistribution
+of the DTensor under the dry-run's ``activation_sharding``.  Left out, as
+XLA's: ``scan_layers``.
 
 The decode cache keeps the JAX package's layout, key for key: stacked
 (layers, B, capacity, KV, hd) bf16 K/V and an int ``len`` for the
@@ -36,9 +39,10 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from ..distributed.sharding import constrain
 from .attention import (
     attn_spec, causal_attention, decode_attention, local_window_attention, output_proj,
-    project_qkv,
+    project_qkv, write_slot_on_shards,
 )
 from .config import ModelConfig
 from .layers import (
@@ -152,19 +156,22 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 def _dense_layer(x, p, cfg: ModelConfig, positions):
     x, kv = attention_mix(x, p, cfg, positions)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]), kv, _zero(x)
+    x = constrain(x + swiglu(h, p["mlp"]), ("batch", "seq", "act_embed"))
+    return x, kv, _zero(x)
 
 
 def _moe_layer(x, p, cfg: ModelConfig, positions):
     x, kv = attention_mix(x, p, cfg, positions)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     delta, aux = moe_block(h, p["moe"], cfg)
-    return x + delta, kv, aux
+    x = constrain(x + delta, ("batch", "seq", "act_embed"))
+    return x, kv, aux
 
 
 def _ssm_layer(x, p, cfg: ModelConfig, positions):
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    return x + ssm_block(h, p["ssm"], cfg), None, _zero(x)
+    x = constrain(x + ssm_block(h, p["ssm"], cfg), ("batch", "seq", "act_embed"))
+    return x, None, _zero(x)
 
 
 def _hybrid_layer(x, p, cfg: ModelConfig, positions, kind: str):
@@ -175,7 +182,8 @@ def _hybrid_layer(x, p, cfg: ModelConfig, positions, kind: str):
     else:
         x, kv = attention_mix(x, p, cfg, positions, window=cfg.local_window)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]), kv, _zero(x)
+    x = constrain(x + swiglu(h, p["mlp"]), ("batch", "seq", "act_embed"))
+    return x, kv, _zero(x)
 
 
 _LAYER_FN = {"dense": _dense_layer, "vlm": _dense_layer, "moe": _moe_layer,
@@ -285,12 +293,13 @@ def _embed_inputs(params, tokens, cfg, positions, vision_embeds):
         B, S = tokens.shape
         pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         positions = pos.expand(3, B, S) if cfg.mrope else pos
+    x = constrain(x, ("batch", "seq", "act_embed"))
     return x, positions
 
 
 def _logits(params, x, cfg):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return unembed(x, w)
+    return constrain(unembed(x, w), ("batch", "seq", "act_vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +381,10 @@ def prefill(
             hs.append(final["h"])
         cache = {"conv": torch.stack(convs), "h": torch.stack(hs), "len": S}
     elif cfg.family == "hybrid":
-        cache = init_cache(cfg, B, cap, x.device)
+        # the dry-run's DTensors build their cache from the layers' states
+        # (_hybrid_prefill); the meta cache names its leaves' shapes and dtypes
+        sharded = hasattr(x, "device_mesh")
+        cache = init_cache(cfg, B, cap, "meta" if sharded else x.device)
         x = _hybrid_prefill(params, x, cfg, positions, cache)
         cache["len"] = S
     else:
@@ -409,23 +421,35 @@ def _check_tail(cfg: ModelConfig) -> None:
 
 
 def _hybrid_prefill(params, x, cfg, positions, cache):
+    """The hybrid stack's prefill, each layer's state written into its slot
+    of ``cache``; on the dry-run's DTensors (``cache`` on the meta device,
+    naming shapes and dtypes) each slot's states are stacked into a new
+    leaf instead."""
     _check_tail(cfg)
     first = next((i for i, kind in enumerate(cfg.block_pattern) if kind == "attn"), None)
     W = cache[f"b{first}_k"].shape[2] if first is not None else cfg.local_window
+    sharded = hasattr(x, "device_mesh")
+    parts: Dict[str, list] = {}
     for i, lp in enumerate(params["layers"]):
         prefix, g = hybrid_slot(cfg, i)
         if hybrid_kind(cfg, i) == "rec":
             hh = rmsnorm(x, lp["ln1"], cfg.norm_eps)
             y, final = rglru_block_with_state(hh, lp["rec"], cfg)
             x = x + y
-            _slot(cache, prefix, g, "conv").copy_(final["conv"])
-            _slot(cache, prefix, g, "h").copy_(final["h"])
+            states = {"conv": final["conv"], "h": final["h"]}
         else:
             x, (k, v) = attention_mix(x, lp, cfg, positions, window=cfg.local_window)
-            _slot(cache, prefix, g, "k").copy_(pad_cap(k, W))
-            _slot(cache, prefix, g, "v").copy_(pad_cap(v, W))
+            states = {"k": pad_cap(k, W), "v": pad_cap(v, W)}
+        for name, val in states.items():
+            key = f"{prefix}_{name}"
+            if sharded:
+                parts.setdefault(key, []).append(val.to(cache[key].dtype))
+            else:
+                _slot(cache, prefix, g, name).copy_(val)
         hh = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + swiglu(hh, lp["mlp"])
+    for key, vals in parts.items():
+        cache[key] = torch.stack(vals) if key.startswith("b") else vals[0]
     return x
 
 
@@ -508,8 +532,11 @@ def at_most(pos, hi: int):
 
 def write_slot(c: torch.Tensor, rows, slot, val: torch.Tensor) -> None:
     """``c[:, slot] = val`` in place: one slot for every row (``rows``
-    None), or slot ``slot[b]`` of row b."""
-    if rows is None:
+    None), or slot ``slot[b]`` of row b; on a DTensor cache, on its
+    shards (:func:`.attention.write_slot_on_shards`)."""
+    if hasattr(c, "device_mesh"):
+        write_slot_on_shards(c, rows, slot, val)
+    elif rows is None:
         c[:, slot] = val.to(c.dtype)
     else:
         c[rows, slot] = val.to(c.dtype)

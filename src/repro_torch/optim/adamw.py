@@ -16,8 +16,10 @@ replaces it) over runs of leaves of at most ``GROUP_ELEMENTS`` elements,
 so its float32 temporaries stay bounded at any model size (every op is
 elementwise, so the groups change no bit), with the step's scalars
 (learning rate, clip scale, bias corrections) read to the host once a
-step.  ``adamw_init_specs`` (the
-dry-run's state specs) is left out until the dry-run is ported.
+step.  :func:`adamw_init_specs` gives the state's specs for the
+dry-run, which runs :func:`adamw_update` on DTensors of fake tensors:
+there the step's scalars hold no value, and the update runs on 1.0 in
+their place (it counts the work, and its numbers are never read).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
+from ..models.spec import ParamSpec, map_specs
 from ..tree import flatten, tree_map, unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,6 +74,26 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> Dict[str, Any]:
     }
 
 
+def adamw_init_specs(spec_tree: Any, cfg: AdamWConfig) -> Dict[str, Any]:
+    """Optimizer-state *specs* (for the dry-run: shapes, logical axes)."""
+    mdt = _DTYPES[cfg.moment_dtype]
+    tree = map_specs(lambda s: ParamSpec(s.shape, s.logical_axes, dtype=mdt, init="zeros"),
+                     spec_tree)
+    return {
+        "m": tree,
+        "v": tree,
+        "count": ParamSpec((), (), dtype=torch.int32, init="zeros"),
+    }
+
+
+def _holds_values(t: torch.Tensor) -> bool:
+    """False for a tensor with no data: meta, fake, or a DTensor of them."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    t = getattr(t, "_local_tensor", t)
+    return not (t.is_meta or is_fake(t))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares,
     summed leaf by leaf in tree order."""
@@ -111,7 +134,11 @@ def adamw_update(
     c = count.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** c
     bc2 = 1.0 - cfg.b2 ** c
-    lr_f, scale_f, bc1_f, bc2_f = (float(x) for x in torch.stack([lr, scale, bc1, bc2]).cpu())
+    scalars = torch.stack([lr, scale, bc1, bc2])
+    if _holds_values(scalars):
+        lr_f, scale_f, bc1_f, bc2_f = (float(x) for x in scalars.cpu())
+    else:
+        lr_f = scale_f = bc1_f = bc2_f = 1.0
     mdt = _DTYPES[cfg.moment_dtype]
 
     flat_p, structure = flatten(params)

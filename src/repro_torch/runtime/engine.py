@@ -103,6 +103,7 @@ from ..models import (
 )
 from ..models.config import ModelConfig
 from ..obs.trace import current_tracer
+from ..distributed.sharding import mesh_bp_entries
 from .background_tuner import BackgroundTuner
 from .serve import (
     _batch_chunk,
@@ -112,7 +113,6 @@ from .serve import (
     decode_inputs,
     full_precision_reductions,
     greedy,
-    mesh_bp_entries,
     params_device,
     sync,
 )
@@ -419,6 +419,7 @@ class StreamingEngine:
         chaos: Any = None,
         timer: Any = None,
         tracer: Any = None,
+        mesh: Any = None,
     ) -> None:
         if shed_policy is not None and shed_policy not in SHED_POLICIES:
             raise ValueError(
@@ -428,6 +429,7 @@ class StreamingEngine:
             raise ValueError("queue_limit must be >= 1")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh  # what the BP keys name; None is one card, "host"
         self.device = params_device(params)
         full_precision_reductions(self.device)
         self.max_len = int(max_len)
@@ -529,7 +531,7 @@ class StreamingEngine:
             return BasicParams.make(
                 kernel="engine_prefill", arch=cfg.name,
                 batch=int(batch["tokens"].shape[0]), capacity=cap,
-                backend=self.device.type, **mesh_bp_entries(),
+                backend=self.device.type, **mesh_bp_entries(self.mesh),
             )
 
         def traffic_class(params, batch) -> TrafficClass:
@@ -586,7 +588,7 @@ class StreamingEngine:
             return BasicParams.make(
                 kernel="engine_decode", arch=cfg.name,
                 bucket=int(idx.shape[0]), capacity=cap,
-                backend=self.device.type, **mesh_bp_entries(),
+                backend=self.device.type, **mesh_bp_entries(self.mesh),
             )
 
         def traffic_class(params, pool, idx, toks, len_hint=0) -> TrafficClass:
@@ -655,7 +657,7 @@ class StreamingEngine:
             return BasicParams.make(
                 kernel="serve_scheduler", arch=cfg.name, pool=n_blocks,
                 capacity=self.max_len, backend=self.device.type,
-                **mesh_bp_entries(),
+                **mesh_bp_entries(self.mesh),
             )
 
         def traffic_class(snapshot) -> TrafficClass:

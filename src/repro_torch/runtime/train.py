@@ -126,15 +126,17 @@ def _loss_and_grads(leaves: List[torch.Tensor], structure: Any, batch, cfg: Mode
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, n_microbatches: int) -> Callable:
-    """The pure train step for one microbatch degree."""
+    """The pure train step for one microbatch degree (the dry-run traces it
+    on DTensors of fake tensors, ``repro_torch.launch.dryrun``)."""
 
     def step_fn(params, opt_state, batch):
         leaves, structure = flatten(params)
         if n_microbatches == 1:
             loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
         else:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            # zeros like each leaf (a DTensor's shards in the dry-run)
+            gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+            loss = 0.0
             for mb in _microbatches(batch, n_microbatches):
                 mloss, mgrads = _loss_and_grads(leaves, structure, mb, cfg)
                 torch._foreach_add_(gsum, [g.float() for g in mgrads])

@@ -212,8 +212,9 @@ def test_the_server_watches_drift_between_trials(trial_running):
         done.set()
         if trial_running:
             holder.join(10)
-    # two groups, each a prefill and a decode observation
-    assert monitor.seen == (0 if trial_running else 4)
+    # two groups of one class, each a decode observation, and the second
+    # group's prefill (a class's first prefill pays what a process pays once)
+    assert monitor.seen == (0 if trial_running else 3)
     assert monitor.transitions == []
 
 

@@ -156,6 +156,44 @@ def test_fleet_modules_import_and_run_with_jax_absent(tmp_path):
     assert "equivalence OK" in out.stdout and "fleet/demo" in out.stdout
 
 
+DRYRUN_MODULES = (
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.trace", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.launch.tune_cell", "repro_torch.launch.hillclimb",
+)
+
+
+def test_dryrun_modules_import_and_run_with_jax_absent():
+    """The distribution slice's modules import, and the dry-run traces a
+    SMOKE cell of each kind on a (2, 2) fake mesh, in a process where
+    importing jax or the JAX package raises."""
+    assert set(DRYRUN_MODULES) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        "class Absent:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is absent')\n"
+        "sys.meta_path.insert(0, Absent())\n"
+        f"for m in {list(DRYRUN_MODULES)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing starts no process group\n"
+        "from repro_torch.configs import ShapeCell\n"
+        "from repro_torch.launch.dryrun import run_cell\n"
+        "for kind in ('train', 'prefill', 'decode'):\n"
+        "    rec = run_cell('qwen3-0.6b', ShapeCell('smoke', kind, 64, 8), False,\n"
+        "                   'tp_kvseq', mesh_shape=(2, 2), smoke=True)\n"
+        "    assert rec['status'] == 'ok' and rec['chips'] == 4, rec\n"
+        "    assert rec['memory']['per_device_total'] > 0, rec\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("[dryrun] qwen3-0.6b") == 3
+
+
 def test_no_source_line_imports_jax_or_the_jax_package():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "examples").glob("torch_*.py")))
