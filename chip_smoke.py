@@ -30,18 +30,26 @@ runs for all five ported kernels at real sizes:
   then greedy decode) on random bf16 weights from the seed, at full width:
   tinyllama-1.1b at full depth (22 layers, flash at hd 64), falcon-mamba-7b
   at 2 layers (``ssm_scan`` with its final state) and recurrentgemma-2b at
-  3 layers (``rglru_scan``, flash at hd 256), B=1, a 2048-token prompt,
-  sharing the kernel phases' TuningDB; and every arch at its SMOKE config;
-* the serving slice (``repro_torch.runtime``) on the same models: the
-  static ``Server`` and the continuous-batching ``StreamingEngine``, each
-  run with its own TuningDB and ``BackgroundTuner``;
+  3 layers (``rglru_scan``, flash at hd 256), qwen3-0.6b (per-head
+  qk_norm, 16|8 heads at hd 128), granite-moe-1b-a400m (32 experts top-8),
+  qwen2-vl-2b (12|2 heads, M-RoPE, 256 vision positions), whisper-large-v3
+  (32 + 32 layers, 1500 frames, a 448-token decoder prompt) and
+  qwen2.5-32b (40|8 heads; 65.5 GB of weights) uncut, B=1, a 2048-token
+  prompt, sharing the kernel phases' TuningDB; and every arch at its SMOKE
+  config;
+* the serving slice (``repro_torch.runtime``) on the same models (but
+  qwen2.5-32b): the static ``Server`` and the continuous-batching
+  ``StreamingEngine``, each run with its own TuningDB and
+  ``BackgroundTuner``;
 * the training slice (``repro_torch.runtime.Trainer``), run first while
   the card's memory is empty: tinyllama-1.1b uncut, bf16, B=4, S=4096,
   causal attention forward and backward on the flash kernels; then the
   scans' families on their backward kernels (``ssm_scan_bwd``,
   ``rglru_scan_bwd``): recurrentgemma-2b uncut (B=1, S=2048; flash at hd
   256 forward and backward) and falcon-mamba-7b at full width, 8 of 64
-  layers (B=2, S=2048).
+  layers (B=2, S=2048); and qwen3-0.6b, granite-moe-1b-a400m (B=4,
+  S=4096), qwen2-vl-2b (B=2, S=4096; the flash backward at a group of 6)
+  and whisper-large-v3 (B=4, 448 decoder tokens) uncut at remat full.
 
 Phases, each of which fails the run:
 
@@ -56,7 +64,7 @@ Phases, each of which fails the run:
    ‖g−r‖/‖r‖ ≤ 1e-3 in float32 params, 3e-2 in bf16, exact launches);
    uncut at B=4, S=4096: ``Trainer.joint_tune`` over micro (1, 2, 4) ×
    remat (none, full), each measured step read through its ``trial`` hook
-   (time, peak memory, exact flash launches), 20 steps at the winner
+   (time, peak memory, exact flash launches), 10 steps at the winner
    (step ms beside ``analytic_step_flops`` at the bf16 peak, MFU,
    tokens/s, launches exactly 22 forward (44 with full) and 22 backward a
    step × n_micro, 0 plain calls, each kernel class's evaluations), a
@@ -82,7 +90,15 @@ Phases, each of which fails the run:
    8 a step, or ssm_scan 8 and 8; 0 plain calls), a second Trainer
    recalling every kernel class with 0 evaluations, the step overfitting
    one batch from tempered weights (the loss must fall) and one profiled
-   step; the restart drill again on recurrentgemma-2b at 3 layers;
+   step; the gradient check at full width, 2 layers (Whisper 2 + 2), on
+   qwen3-0.6b, granite-moe-1b-a400m (its kernel route on the plain route's
+   expert picks, ``MoeRouting``), qwen2-vl-2b and whisper-large-v3 (its
+   encoder's leaves, bf16 noise on both routes, within 0.2), and those four
+   uncut through the ``Trainer`` as the scans' families, at remat full
+   (at none each passed 76 GB): qwen3-0.6b and granite-moe-1b-a400m at
+   B=4, S=4096, qwen2-vl-2b at B=2, S=4096, whisper-large-v3 at B=4, 448
+   decoder tokens; the restart drill again on recurrentgemma-2b at 3
+   layers;
 2b. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun.run_cell``
    on a (1, 1) mesh for tinyllama-1.1b uncut at the [train] cell (B=4,
    S=4096, bf16 parameters, float32 moments), one row a (micro, remat)
@@ -109,8 +125,9 @@ Phases, each of which fails the run:
    64³ and 256³ (6 × 9 each) against the plain body on the card, each call
    timed once;
 3e. the flash backward: at tinyllama width (32|4, hd 64), S=4096 at B=1
-   and at the train step's B=4, and S=2000, qwen3-0.6b's (16|8, hd 128) and
-   hd 36 (8|2), bf16 and f32, the forward with its lse (o equal to the call
+   and at the train step's B=4, and S=2000, qwen3-0.6b's (16|8, hd 128),
+   hd 36 (8|2) and qwen2-vl-2b's (1,4096,12|2,128), a group of 6, bf16 and
+   f32, the forward with its lse (o equal to the call
    without it, lse against the plain version's), then every emitted point
    of ``flash_attention_bwd`` (``kv_split`` included; at recurrentgemma-2b's
    (10|1, hd 256) too, bf16 and f32, tuned through the registry beside its
@@ -174,7 +191,9 @@ Phases, each of which fails the run:
    bf16 ulp flipping a softmax), the kernel route's last logits against
    the plain versions' on the card (worst row within 4·2⁻⁸) and decode
    after prefill (prompt[:512] and one step against prefill of
-   prompt[:513], within ``tests/test_models.py``'s rtol 0.1, atol 0.08),
+   prompt[:513], Whisper's [:447] and [:448], within
+   ``tests/test_models.py``'s rtol 0.1, atol 0.08; the VLM's positions and
+   vision embeddings, Whisper's frames, cut alike),
    both also reported, unchecked, at the JAX init; then every arch at
    SMOKE, tempered: prefill and 4 decode steps on the card against the
    port's CPU run on the same weights (worst row within 4·2⁻⁸);
@@ -192,8 +211,10 @@ Phases, each of which fails the run:
    trace with no tuner (the control), and again on the drained DB with no
    tuner (0 evaluations; every class that landed is recalled, flash's and
    a degree class's among them); falcon-mamba-7b (2 layers) and
-   recurrentgemma-2b (3 layers) at full width through the engine on 8
-   requests; every arch at SMOKE through the engine on the card against
+   recurrentgemma-2b (3 layers) at full width, qwen3-0.6b,
+   granite-moe-1b-a400m, qwen2-vl-2b and whisper-large-v3 uncut (these four
+   with no tuner), through the engine on 8 requests; every arch at SMOKE
+   through the engine on the card against
    the port's engine on the CPU; tinyllama's SMOKE config on
    ``adversarial_trace`` under a seeded ``ChaosInjector`` with a
    ``TickTimer``.  Each run prints its requests, tokens and tok/s, TTFT
@@ -235,13 +256,14 @@ Phases, each of which fails the run:
    static Server on a mixed trace of 64 with ``--background-tune
    --fleet-workers 2 --drift-factor 2 --device-key``, then of 128 on its
    DB: each run 0 hot-path evaluations, 0 transitions over a non-zero
-   number of observations held against a final, printed by class) and the
-   CI obs-smoke job's streaming run
+   number of observations held against a final, printed by class); run
+   earlier, beside the serving phases after tinyllama's (they check no
+   time), the CI obs-smoke job's streaming run
    (``[observe]``: ``launch.observe trace``, ``metrics`` and ``explain`` on
    its files exit 0, ``explain`` naming ``engine_prefill``,
-   ``engine_decode`` and ``serve_scheduler``); ``[example]``:
-   ``examples/torch_train_lm.py --device cuda`` at its defaults, a loss drop
-   of at least 20%, its steps a second printed.
+   ``engine_decode`` and ``serve_scheduler``) and ``[example]``:
+   ``examples/torch_train_lm.py --device cuda`` at its defaults, a loss
+   drop of at least 20%, its steps a second printed.
 
 The line before the last is ``{"kernels": [...]}``: per kernel its launches
 on the main path, max error over the sweep, time at the tuned point, the
@@ -262,7 +284,8 @@ also give ``model_launches`` (a prefill's, per model),
 ``fleet_launches`` (the ``[fleet]`` searches', per worker count), exb
 ``service_launches`` (per host) and ``drift_launches``, flash its
 ``c3`` rows and ``ssm_scan`` its final state's errors; flash also its
-``lse_ms`` and ``train_launches``, and ``flash_attention_bwd`` its time,
+``lse_ms``, ``train_launches`` and ``model_train_launches`` (each family's
+``[train]`` run's), and ``flash_attention_bwd`` its time,
 bound, plain and SDPA-backward times (``library_ms``, ``sdpa_bwd_ms``) in
 bf16, at B=4 (``b4_*``, with ``passes_ms`` as at B=1) and in f32
 (``f32_*``) and at hd 256 (``hd256_*``, ``f32_hd256_*``), and
@@ -272,8 +295,9 @@ launches in the falcon-mamba-7b and recurrentgemma-2b ``[train]`` runs,
 the time of the point the Trainer tuned at that run's shape in float32, the
 bound, the plain backward's time, the forward's time beside it and every
 swept shape's fastest point.  A ``{"models": ...}``,
-a ``{"serve": ...}``, a ``{"fleet": ...}`` and a ``{"train": ...}`` line
-before it hold the model, serve, fleet and train phases' records.  The last line is
+a ``{"serve": ...}`` (with ``beside``: the obs-smoke and example
+records), a ``{"fleet": ...}`` and a ``{"train": ...}`` line before it hold
+the model, serve, fleet and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
 """
@@ -361,10 +385,17 @@ SCAN_BWD_SUMMED = {"ssm_scan": (2, 3, 4, 5), "rglru_scan": (3,)}
 SUM_ROW_TOL = 1e-4
 
 # the model zoo on the card: (arch, depth or None for the full depth,
-# decode steps) at full width, B=1, a 2048-token prompt
+# decode steps) at full width, B=1, a 2048-token prompt (the VLM's first 256
+# positions its vision embeddings); qwen2.5-32b last, its 65.5 GB of bf16
+# weights on a card the other phases have handed back
 MODELS = (("tinyllama-1.1b", None, 32), ("falcon-mamba-7b", 2, 16),
-          ("recurrentgemma-2b", 3, 16))
+          ("recurrentgemma-2b", 3, 16), ("qwen3-0.6b", None, 32),
+          ("granite-moe-1b-a400m", None, 32), ("qwen2-vl-2b", None, 32),
+          ("whisper-large-v3", None, 32), ("qwen2.5-32b", None, 16))
 MODEL_S = 2048
+# whisper-large-v3's decoder prompt: its published max_target_positions (the
+# encoder reads its 1500 frames)
+MODEL_PROMPT = {"whisper-large-v3": 448}
 MODEL_CHECK_S = 512  # decode after prefill: prompt[:512] + one step vs prompt[:513]
 SMOKE_STEPS = 4      # decode steps of each SMOKE config, card against CPU
 # C3: head dims off the kernels' 16-byte rule, run padded (S=2048, 8|2 heads)
@@ -375,10 +406,19 @@ KERNEL_ENTRIES = {"flash_attention": ("flash_fwd",), "ssm_scan": ("ssm_kernel",)
                   "rglru_scan": ("rglru_kernel",)}
 # the serving slice: tinyllama-1.1b uncut through the Server (batch 4) and
 # the StreamingEngine (8 blocks); falcon-mamba-7b and recurrentgemma-2b at
-# full width, 2 of 64 and 3 of 26 layers, through the engine
+# full width, 2 of 64 and 3 of 26 layers, and qwen3-0.6b,
+# granite-moe-1b-a400m, qwen2-vl-2b and whisper-large-v3 uncut, through the
+# engine
 SERVE_BATCH = 4
 SERVE_BLOCKS = 8
-SERVE_ENGINES = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
+# (arch, depth or None, with a BackgroundTuner): the four uncut families run
+# with none, as the tinyllama engine's control run (their tuner's last job,
+# a whole-model trial, held a run 3-24 s after it ended, and its trials
+# slowed the serving thread; the tuned path is tinyllama's, falcon's and
+# recurrentgemma's)
+SERVE_ENGINES = (("falcon-mamba-7b", 2, True), ("recurrentgemma-2b", 3, True),
+                 ("qwen3-0.6b", None, False), ("granite-moe-1b-a400m", None, False),
+                 ("qwen2-vl-2b", None, False), ("whisper-large-v3", None, False))
 SERVE_DRAIN_S = 60.0  # the Server's background tuner must drain within this
 # a request may part from its oracle only where both runs' own logits of the
 # two tokens lie within 2 bf16 ulps; at most half of a run's requests, and
@@ -816,15 +856,29 @@ def decode_bytes(tm, cfg, ctx: int) -> float:
 
 def decode_step_bytes(tm, cfg, ctxs) -> float:
     """Bytes one decode step over rows at ``ctxs`` cached positions must
-    move: every weight once (the embedding table only where it is also the
-    unembedding: a lookup gathers one row), and for each row the K/V
-    positions it attends and each recurrent state read and written."""
-    n = tm.count_params(tm.param_specs(cfg))
-    weights = 2.0 * (n - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+    move: every weight it reads once (the embedding table only where it is
+    also the unembedding: a lookup gathers one row; of an MoE layer's
+    experts only the min(E, top_k · rows) its rows can pick; of an
+    encoder-decoder none of the encoder's, nor the cross-attention's K and
+    V projections, whose outputs the cache holds), and for each row the K/V
+    positions it attends (the encoder's frames too, for cross-attention)
+    and each recurrent state read and written."""
+    specs = tm.param_specs(cfg)
+    unread = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    if cfg.family == "moe":
+        unread += (cfg.n_layers * (cfg.n_experts - min(cfg.n_experts, cfg.top_k * len(ctxs)))
+                   * 3 * cfg.d_model * cfg.d_ff)
+    if cfg.is_encoder_decoder:
+        unread += sum(tm.count_params(v) for k, v in specs.items() if k.startswith("enc_"))
+        unread += sum(tm.count_params([lp["cross_attn"][w] for w in ("wk", "wv")])
+                      for lp in specs["dec_layers"])
+    weights = 2.0 * (tm.count_params(specs) - unread)
     kinds = model_kernels(cfg)
     kv_row = 2.0 * 2 * cfg.n_kv_heads * cfg.head_dim_ * kinds["flash_attention"]
     if cfg.family == "hybrid":
         kv = kv_row * sum(min(c, cfg.local_window) for c in ctxs)
+    elif cfg.is_encoder_decoder:
+        kv = kv_row * sum(c + cfg.encoder_len for c in ctxs)
     else:
         kv = kv_row * sum(ctxs)
     state = 0.0
@@ -931,16 +985,86 @@ def temper(torch, tm, params) -> None:
                     w.mul_(math.sqrt(w.shape[1] / w.shape[0]))
 
 
+def card_memory(torch) -> dict:
+    """What the card holds after a garbage collection (a tensor caught in a
+    reference cycle is freed only by one): allocated and reserved GB, and
+    the five largest CUDA storages that live Python tensors hold, as
+    (shape, dtype, GB)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {}
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+            storage = obj.untyped_storage()
+            seen.setdefault(storage.data_ptr(), (storage.nbytes(), tuple(obj.shape),
+                                                 str(obj.dtype).replace("torch.", "")))
+        except (RuntimeError, ReferenceError):
+            continue
+    largest = sorted(seen.values(), reverse=True)[:5]
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "largest": [(shape, dtype, round(n / 1e9, 3)) for n, shape, dtype in largest]}
+
+
+def prefix(batch: dict, n: int) -> dict:
+    """The model batch of the first ``n`` positions of ``batch``: its
+    tokens (and the VLM's M-RoPE positions) cut, the vision embeddings and
+    the encoder's frames whole."""
+    out = dict(batch, tokens=batch["tokens"][:, :n])
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, :, :n]
+    return out
+
+
+def position(batch: dict, i: int) -> dict:
+    """The decode batch of position ``i`` of ``batch``: its token (and M-RoPE
+    position); decode reads no vision embedding or frame."""
+    out = {"tokens": batch["tokens"][:, i:i + 1]}
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, :, i:i + 1]
+    return out
+
+
+def check_call(torch, name, args, kwargs, got) -> tuple:
+    """One recorded kernel call against its plain version on the same
+    inputs (:func:`check_calls`): (max abs error, worst row, the rules it
+    broke, largest |output| of the plain version)."""
+    from repro_torch import models as tm
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.models import rglru, ssm
+
+    if name == "causal_attention":
+        ref = fa_mod.attention_plain(*args)
+        dtype, tol = str(args[0].dtype).replace("torch.", ""), None
+    else:
+        with tm.plain_versions():
+            ref = (ssm.selective_scan if name == "selective_scan" else rglru.lru_scan)(
+                *args, **kwargs)
+        dtype, tol = "float32", SCAN_TOL
+    err, row, failed = max_err(torch, outputs(got), outputs(ref), dtype, tol)
+    if name == "causal_attention":
+        failed = [f for f in failed if not f.startswith("element")]
+    return err, row, failed, max(float(t.abs().max()) for t in outputs(ref))
+
+
 class KernelCalls:
     """Records every call the model path makes to a kernel route (its
     inputs and output), to hold each against the kernel's plain version on
     the same inputs afterwards; with ``this_thread`` only the calls made on
-    the thread that enters (the serving thread, not a background tuner's)."""
+    the thread that enters (the serving thread, not a background tuner's).
+    With ``hold_now`` each flash call is held at once and only its result
+    kept (no inputs held: 64 layers' q, k, v and o of qwen2.5-32b are
+    3.2 GB); the attention's plain version touches no kernel counter."""
 
-    def __init__(self, this_thread: bool = False):
+    def __init__(self, this_thread: bool = False, hold_now: bool = False):
         self.calls = []
         self._patches = []
         self._thread = threading.get_ident() if this_thread else None
+        self._hold_now = hold_now
 
     def __enter__(self):
         from repro_torch.models import encdec, rglru, ssm, transformer
@@ -952,7 +1076,14 @@ class KernelCalls:
 
             def record(*args, _fn=fn, _name=name, **kwargs):
                 out = _fn(*args, **kwargs)
-                if self._thread is None or self._thread == threading.get_ident():
+                if self._thread is not None and self._thread != threading.get_ident():
+                    return out
+                if self._hold_now and _name == "causal_attention":
+                    import torch
+
+                    self.calls.append((_name, None, None,
+                                       check_call(torch, _name, args, kwargs, out)))
+                else:
                     self.calls.append((_name, args, kwargs, out))
                 return out
 
@@ -972,28 +1103,15 @@ def check_calls(torch, label, calls, errors, tag: str = "model") -> dict:
     are not: at the JAX init its outputs reach tens, where one bf16 ulp is
     0.125-0.5, and a softmax near a tie of two such values of opposite
     sign gives outputs near 0); the scans' routes
-    run on their plain versions, held to the scans' f32 tolerance; returns
-    {route: (calls, max abs error, worst row, largest |output|)}."""
-    from repro_torch import models as tm
-    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
-    from repro_torch.models import rglru, ssm
-
+    run on their plain versions, held to the scans' f32 tolerance (a call
+    :class:`KernelCalls` held as it was made comes with its result);
+    returns {route: (calls, max abs error, worst row, largest |output|)}."""
     out = {}
     for name, args, kwargs, got in calls:
-        if name == "causal_attention":
-            ref = fa_mod.attention_plain(*args)
-            dtype, tol = str(args[0].dtype).replace("torch.", ""), None
-        else:
-            with tm.plain_versions():
-                ref = (ssm.selective_scan if name == "selective_scan" else rglru.lru_scan)(
-                    *args, **kwargs)
-            dtype, tol = "float32", SCAN_TOL
-        err, row, failed = max_err(torch, outputs(got), outputs(ref), dtype, tol)
-        if name == "causal_attention":
-            failed = [f for f in failed if not f.startswith("element")]
+        err, row, failed, scale = (got if args is None
+                                   else check_call(torch, name, args, kwargs, got))
         n, e, r, m = out.get(name, (0, 0.0, 0.0, 0.0))
-        out[name] = (n + 1, max(e, err), max(r, row),
-                     max(m, max(float(t.abs().max()) for t in outputs(ref))))
+        out[name] = (n + 1, max(e, err), max(r, row), max(m, scale))
         if failed:
             errors.append(f"{label}: {name} call {n} off its plain version by {err}, row "
                           f"{row}; failed {failed}")
@@ -1021,14 +1139,19 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
     if depth is not None:
         cfg = cfg.with_(n_layers=depth)
     label = f"{arch} (depth {cfg.n_layers})"
+    S = MODEL_PROMPT.get(arch, MODEL_S)
+    held = card_memory(torch)
+    print(f"[model] {label}: before init, {held['allocated_gb']:.3f} GB allocated on the card "
+          f"({held['reserved_gb']:.3f} GB reserved); the largest live tensors "
+          f"{held['largest']}")
     gen = torch.Generator(device=device).manual_seed(SEED)
     t0 = time.perf_counter()
     params = tm.init_params(cfg, gen, device)
-    prompt = torch.randint(0, cfg.vocab_size - 1, (1, MODEL_S + 1), generator=gen, device=device)
+    whole = tm.make_concrete_batch(gen, cfg, "prefill", 1, S + 1, device)["batch"]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = {"tokens": prompt[:, :MODEL_S]}
-    cap = MODEL_S + steps
+    batch = prefix(whole, S)
+    cap = S + steps
 
     def prefill():
         return tm.prefill_fn(params, batch, cfg, capacity=cap)
@@ -1057,7 +1180,7 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
     # each call recorded and held against its plain version after
     for c in counters.values():
         c.reset()
-    with KernelCalls() as rec:
+    with KernelCalls(hold_now=True) as rec:
         logits, cache = prefill()
     torch.cuda.synchronize()
     launches = {name: c.launches for name, c in counters.items()}
@@ -1109,10 +1232,10 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
             theirs, _ = prefill()
         plain_calls = {name: c.plain_calls for name, c in counters.items()}
         vs_plain = worst_row(torch, ours, theirs)
-        s = MODEL_CHECK_S
-        full, _ = tm.prefill_fn(params, {"tokens": prompt[:, :s + 1]}, cfg)
-        _, short = tm.prefill_fn(params, {"tokens": prompt[:, :s]}, cfg, capacity=s + 1)
-        step, _ = tm.decode_fn(params, {"tokens": prompt[:, s:s + 1]}, short, cfg)
+        s = min(MODEL_CHECK_S, S - 1)
+        full, _ = tm.prefill_fn(params, prefix(whole, s + 1), cfg)
+        _, short = tm.prefill_fn(params, prefix(whole, s), cfg, capacity=s + 1)
+        step, _ = tm.decode_fn(params, position(whole, s), short, cfg)
         gap = (step.float() - full.float()).abs()
         dap_ok = bool((gap <= 0.08 + 0.1 * full.float().abs()).all())
         dap_row = worst_row(torch, step, full)
@@ -1132,9 +1255,9 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
     temper(torch, tm, params)
     tempered = end_to_end(gate=True)
 
-    flops = tm.analytic_step_flops(cfg, "prefill", 1, MODEL_S)
+    flops = tm.analytic_step_flops(cfg, "prefill", 1, S)
     prefill_bound = flops / arch_spec.peak_flops * 1e3
-    dbytes = decode_bytes(tm, cfg, MODEL_S + steps // 2)
+    dbytes = decode_bytes(tm, cfg, S + steps // 2)
     decode_bound = dbytes / arch_spec.hbm_bandwidth * 1e3
     share = None if device_ms is None else ours_ms / device_ms
     print(f"[model] {label}: prefill {prefill_ms:.3f} ms (bound {prefill_bound:.3f} ms, "
@@ -1144,7 +1267,7 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
           f"profiled prefill (share {share})")
     for name, ms in top:
         print(f"[profile] {label}: {ms:.3f} ms {name}")
-    return {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "seq": MODEL_S,
+    return {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "seq": S,
             "decode_steps": steps, "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound,
             "prefill_flops": flops, "decode_ms_per_token": decode_ms,
             "decode_bound_ms": decode_bound, "decode_bytes": dbytes, "launches": launches,
@@ -1153,7 +1276,8 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
             "decode_after_prefill_worst_row": tempered[1], "jax_init_vs_plain_worst_row": raw[0],
             "jax_init_decode_after_prefill_worst_row": raw[1],
             "kernel_ms": ours_ms, "device_ms": device_ms, "kernel_share": share,
-            "top_device_ms": top, "init_s": init_s, "cold_prefill_s": cold_s}
+            "top_device_ms": top, "init_s": init_s, "cold_prefill_s": cold_s,
+            "allocated_before_gb": held["allocated_gb"]}
 
 
 def smoke_sweep(torch, device, errors) -> dict:
@@ -1798,15 +1922,21 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
     from repro_torch.data import bursty_open_loop_trace
 
     records = serve_tinyllama(torch, device, arch_spec, counters, errors)
-    for arch, depth in SERVE_ENGINES:
+    beside = cli_phases_beside(errors)
+    for arch, depth, tuner in SERVE_ENGINES:
+        t0 = time.perf_counter()
         cfg, params = serve_setup(torch, arch, depth, device)
         reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4, burst_gap_s=0.05)
         max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
         oracle = serve_oracle(cfg, params, reqs, max_len)
-        rec, _, _ = serve_engine_run(torch, f"{arch} (depth {depth}) StreamingEngine", cfg,
-                                     params, reqs, max_len, arch_spec, counters, errors, oracle)
+        rec, _, _ = serve_engine_run(torch, f"{arch} (depth {cfg.n_layers}) StreamingEngine",
+                                     cfg, params, reqs, max_len, arch_spec, counters, errors,
+                                     oracle, tuner=tuner)
         records.append(rec)
         del params
+        torch.cuda.empty_cache()
+        print(f"[time] serve {arch}: {time.perf_counter() - t0:.1f} s (init and the oracle "
+              f"included)")
     smoke = serve_smoke(torch, device, counters, errors)
     tallies = [r["oracle"] for r in records] + [v.get("oracle", v) for v in smoke.values()]
     compared = sum(sum(t.values()) for t in tallies)
@@ -1815,7 +1945,8 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
           f"{NEAR_TIE_SHARE:.1%}), each within {NEAR_TIE_ULPS} bf16 ulps on both paths")
     if near > NEAR_TIE_SHARE * compared:
         errors.append(f"serve: {near} of {compared} requests part at near-ties")
-    return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared}
+    return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared,
+            "beside": beside()}
 
 
 # ---------------------------------------------------------------------------
@@ -1825,11 +1956,13 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
 # tinyllama-1.1b's width at the [train] phase's S, at its B = 4 (the batch
 # offsets of every pass) and at S = 2000 (a tail no tile divides),
 # qwen3-0.6b's (16|8, hd 128), a C3 head dim (hd 36, padded to 40 by the
-# wrapper) and recurrentgemma-2b's (10|1, hd 256: kv_split 1, 2, 5 and 10
-# in bf16), which its [train] phase launches
+# wrapper), recurrentgemma-2b's (10|1, hd 256: kv_split 1, 2, 5 and 10
+# in bf16), which its [train] phase launches, and qwen2-vl-2b's at its
+# [train] phase's S (12|2, hd 128: a group of 6, kv_split 1, 2, 3 and 6)
 FLASH_BWD = dict(B=1, S=4096, H=32, KV=4, hd=64)
 FLASH_BWD_SHAPES = (FLASH_BWD, dict(FLASH_BWD, B=4), dict(FLASH_BWD, S=2000), FLASH_HD128,
-                    dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256)
+                    dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256,
+                    dict(B=1, S=4096, H=12, KV=2, hd=128))
 
 
 def bwd_rows(outs) -> tuple:
@@ -1936,8 +2069,10 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
                       if not all(torch.equal(a, b) for a, b in zip(
                           fa_mod.flash_attention_bwd_cuda(*args, **p),
                           fa_mod.flash_attention_bwd_cuda(*args, **p)))]
+            bound, bound_by = flash_bwd_bound_ms(arch, B, S, H, KV, hd, dtype_name)
             print(f"[kernel] flash bwd {dtype_name} {tag}: two calls of each of "
-                  f"{len(times)} points bit-identical: {not differ}")
+                  f"{len(times)} points bit-identical: {not differ}; fastest "
+                  f"{min(times.values()):.4f} ms beside the bound {bound:.4f} ms ({bound_by})")
             for point in region.space.points():  # the hint's rank beside the card's
                 hint = region.hints[pp_key(point)]
                 print(f"[hint] flash bwd {dtype_name} {tag} {pp_key(point)}: est "
@@ -2072,13 +2207,17 @@ def flash_bwd_main(torch, F, fa_mod, fa_ref, arch, timer, cases, db_path, errors
 # [train]: the training slice (repro_torch.runtime.train) on the card
 # ---------------------------------------------------------------------------
 
-TRAIN = dict(arch="tinyllama-1.1b", B=4, S=4096, steps=20, micro=(1, 2, 4),
+TRAIN = dict(arch="tinyllama-1.1b", B=4, S=4096, steps=10, micro=(1, 2, 4),
              remat=("none", "full"), overfit=10)
 TRAIN_GRADS = dict(layers=2, B=1, S=2048)
 # the scans' families at full width in the gradient check: falcon-mamba-7b at
 # 2 of 64 layers, recurrentgemma-2b at 3 of 26 (one (rec, rec, attn) group)
 TRAIN_GRADS_SCANS = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
-TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=2, fail_at=5)
+# the dense-GQA, MoE, VLM and encoder-decoder families at full width, 2 layers
+# (Whisper 2 + 2)
+TRAIN_GRADS_FAMILIES = (("qwen3-0.6b", 2), ("granite-moe-1b-a400m", 2), ("qwen2-vl-2b", 2),
+                        ("whisper-large-v3", 2))
+TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=4, fail_at=5)
 # the restart drill on the hybrid family: recurrentgemma-2b at 3 layers.  A
 # checkpoint of it holds 0.86 B parameters and their moments (8.6 GB, the
 # 256000 x 2560 embedding most of it), so it saves twice (at step 4 and at
@@ -2086,16 +2225,33 @@ TRAIN_RESTART = dict(layers=2, B=2, S=1024, steps=8, save_every=2, fail_at=5)
 # reference saves none: the drill compares losses
 TRAIN_RESTART_HYBRID = dict(TRAIN_RESTART, arch="recurrentgemma-2b", layers=3, steps=6,
                             save_every=4, fail_at=5)
-# the scans' families through the Trainer at remat none, bf16 parameters and
-# float32 AdamW moments: recurrentgemma-2b uncut (26 layers, 2.9 B params);
+# families through the Trainer at remat none, bf16 parameters and float32
+# AdamW moments: recurrentgemma-2b uncut (26 layers, 2.9 B params);
 # falcon-mamba-7b at full width, 8 of 64 layers (7.27 B params uncut take
-# ~101 GB with float32 gradients and moments; 8 layers ~1.37 B, ~19 GB)
-TRAIN_SCANS = (dict(arch="recurrentgemma-2b", layers=None, B=1, S=2048),
-               dict(arch="falcon-mamba-7b", layers=8, B=2, S=2048))
-TRAIN_SCAN_STEPS = 10
-TRAIN_SCAN_OVERFIT = 6
+# ~101 GB with float32 gradients and moments; 8 layers ~1.37 B, ~19 GB);
+# qwen3-0.6b and granite-moe-1b-a400m uncut at the train_4k cell's length
+# (B=4, S=4096), qwen2-vl-2b uncut at B=2, S=4096 (256 vision positions),
+# whisper-large-v3 uncut at B=4, 448 decoder tokens (its published
+# max_target_positions) and 1500 frames.  A step whose peak would pass 76 GB
+# takes remat full, then half the batch: at remat none qwen3-0.6b,
+# granite-moe-1b-a400m and whisper-large-v3 ran out of the card's 80 GB and
+# qwen2-vl-2b peaked at 78.31 GB, so all four take remat full
+TRAIN_MODELS = (dict(arch="recurrentgemma-2b", layers=None, B=1, S=2048),
+                dict(arch="falcon-mamba-7b", layers=8, B=2, S=2048),
+                dict(arch="qwen3-0.6b", layers=None, B=4, S=4096, remat="full"),
+                dict(arch="granite-moe-1b-a400m", layers=None, B=4, S=4096, remat="full"),
+                dict(arch="qwen2-vl-2b", layers=None, B=2, S=4096, remat="full"),
+                dict(arch="whisper-large-v3", layers=None, B=4, S=448, remat="full"))
+TRAIN_MODEL_STEPS = 10
+TRAIN_MODEL_OVERFIT = 4
 # the worst gradient leaf's ||g - r|| / ||r||, kernel route against plain versions
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# Whisper's encoder leaves, in either dtype: the encoder runs in bf16 as the
+# JAX model keeps it (ROADMAP §C), so its gradient is bf16 noise on both
+# routes; the JAX step's own grad_norm reads 3.577 jitted and 3.927 op by op
+# (9.8% apart), and this bound is twice that spread, as
+# tests/test_torch_train_step.py holds Whisper's grad_norm
+ENCODER_GRAD_TOL = 0.2
 # train SMOKE card vs CPU: the loss's relative error, and each leaf's update
 # ||Δcard - Δcpu|| / ||Δcpu|| (as tests/test_torch_train_step.py).  Every
 # gradient of Whisper runs through its bf16 encoder (the decoder reads it
@@ -2166,6 +2322,64 @@ def step_launches(cfg, remat: str, n_micro: int = 1) -> dict:
     return {name: (n * n_micro * again, n * n_micro) for name, n in layers.items() if n}
 
 
+class MoeRouting:
+    """The MoE layers' expert picks, recorded on one run (``record()``, then
+    entered) and replayed on the next runs entered: a replayed run routes
+    each token to the experts the recorded run chose, its gate values taken
+    from its own router logits.  Routing is a discrete choice: the kernel
+    route's attention differs from the plain route's in the last bits, and
+    a token whose 8th and 9th router logits lie that close picks another
+    expert, which moves a whole token's share of an expert's gradient.
+    Replayed, both routes run the same graph, and the gradient check sees
+    the kernels.  ``parted``/``picked`` count the dispatches' tokens of the
+    last replayed run (a recompute's too) whose own picks differed, and all
+    of them.  For any other family it does nothing (``on`` False)."""
+
+    def __init__(self, cfg):
+        self.on = cfg.family == "moe"
+        self.picks, self.names = {}, {}
+        self.replaying, self.parted, self.picked = False, 0, 0
+
+    def bind(self, leaves, names) -> None:
+        """Name each router by its leaf (the step works on views of them)."""
+        self.names = {t.data_ptr(): n for t, n in zip(leaves, names)}
+
+    def record(self) -> None:
+        self.picks, self.replaying, self.parted, self.picked = {}, False, 0, 0
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from repro_torch.models import moe
+
+        self._moe, self._saved = moe, (moe._dispatch_one_group, moe.top_k)
+        dispatch, top_k = self._saved
+        self.parted = self.picked = 0
+
+        def dispatching(xf, router, *args, **kwargs):
+            self._layer = self.names[router.data_ptr()]
+            return dispatch(xf, router, *args, **kwargs)
+
+        def picking(logits, k):
+            vals, sel = top_k(logits, k)
+            if not self.replaying:
+                self.picks.setdefault(self._layer, sel)
+                return vals, sel
+            want = self.picks[self._layer]
+            self.parted += int((sel.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            self.picked += sel.shape[0]
+            return logits.gather(-1, want), want
+
+        moe._dispatch_one_group, moe.top_k = dispatching, picking
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            self._moe._dispatch_one_group, self._moe.top_k = self._saved
+            self.replaying = True
+        return False
+
+
 def train_grads(torch, device, errors, archs=((TRAIN["arch"], TRAIN_GRADS["layers"]),)) -> dict:
     """Each of ``archs`` (arch, layers) at full width, B=1, S=2048, wq and
     wk tempered: the loss and every gradient leaf on the kernel route
@@ -2174,7 +2388,9 @@ def train_grads(torch, device, errors, archs=((TRAIN["arch"], TRAIN_GRADS["layer
     which sees each kernel's autograd Function, ``FlashAttentionFn``,
     ``SelectiveScanFn``, ``LruScanFn``, as one op: its forward runs again in
     the recompute, and what it saves must reach the backward); each
-    kernel's launches exact (:func:`step_launches`) and no plain call."""
+    kernel's launches exact (:func:`step_launches`) and no plain call.  The
+    MoE family's kernel route takes the plain route's expert picks
+    (:class:`MoeRouting`)."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
@@ -2184,48 +2400,62 @@ def train_grads(torch, device, errors, archs=((TRAIN["arch"], TRAIN_GRADS["layer
     out = {}
     for arch, layers in archs:
         cfg = get_config(arch).with_(n_layers=layers)
+        if cfg.is_encoder_decoder:
+            cfg = cfg.with_(n_encoder_layers=layers)
         params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
         temper(torch, tm, params)
         base = as_tree(params)
         del params
         batch = batch_tensors(SyntheticLMDataset(cfg, TRAIN_GRADS["B"], TRAIN_GRADS["S"],
                                                  seed=SEED).batch(0), device)
-        refs = {}
+        refs, routing = {}, MoeRouting(cfg)
         for dtype_name, remat in itertools.product(("float32", "bfloat16"), ("full", "dots")):
             cfg = cfg.with_(remat=remat)
             tree = tree_map(lambda t: t.to(getattr(torch, dtype_name)), base)
             leaves, structure = flatten(tree)
             names = leaf_names(tree)
             _loss_and_grads(leaves, structure, batch, cfg)  # the kernel classes resolved first
+            routing.bind(leaves, names)
+            if dtype_name not in refs:  # remat changes no value: one plain run a dtype
+                routing.record()
+                with routing, tm.plain_versions():
+                    refs[dtype_name] = _loss_and_grads(leaves, structure, batch, cfg)
             reset_train_counts()
-            loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
+            with routing:  # the kernel route on the plain route's expert picks
+                loss, grads = _loss_and_grads(leaves, structure, batch, cfg)
             torch.cuda.synchronize()
             counts, plain = train_counts()
-            if dtype_name not in refs:  # remat changes no value: one plain run a dtype
-                with tm.plain_versions():
-                    refs[dtype_name] = _loss_and_grads(leaves, structure, batch, cfg)
             ref_loss, ref = refs[dtype_name]
             rel = [(float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)), n)
                    for g, r, n in zip(grads, ref, names)]
-            worst, name = max(rel)
+            worst, name = max(r for r in rel if not r[1].startswith("enc_"))
+            enc = max((r for r in rel if r[1].startswith("enc_")), default=(0.0, None))
             loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
             want = step_launches(cfg, remat)
             print(f"[train] grads {arch} {dtype_name} params ({layers} layers, remat {remat}): "
                   f"loss {float(loss):.6f} vs plain {float(ref_loss):.6f} (rel {loss_rel:.2e}); "
-                  f"worst leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); launches "
-                  f"(forward, backward) {counts} (expect {want}), plain calls on the kernel "
-                  f"route {plain}")
+                  f"worst leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); "
+                  + (f"worst encoder leaf {enc[1]} {enc[0]:.3e} (tol {ENCODER_GRAD_TOL}); "
+                     if enc[1] else "")
+                  + f"launches (forward, backward) {counts} (expect {want}), plain calls on "
+                  f"the kernel route {plain}"
+                  + (f"; MoE tokens whose own expert picks part from the plain route's "
+                     f"{routing.parted} of {routing.picked} (replayed)" if routing.on else ""))
             key = f"{dtype_name} {remat}" if arch == TRAIN["arch"] else f"{arch} {dtype_name} {remat}"
             out[key] = {"loss": float(loss), "plain_loss": float(ref_loss), "worst_leaf": name,
                         "worst_leaf_rel": worst, "launches": counts}
+            if enc[1]:
+                out[key].update(worst_encoder_leaf=enc[1], worst_encoder_leaf_rel=enc[0])
+            if routing.on:
+                out[key].update(moe_parted=routing.parted, moe_picked=routing.picked)
             if arch == TRAIN["arch"]:
                 out[key].update(flash_launches=counts["flash_attention"][0],
                                 flash_bwd_launches=counts["flash_attention"][1])
             if (worst > GRAD_TOL[dtype_name] or loss_rel > GRAD_TOL[dtype_name]
-                    or counts != want or plain):
+                    or enc[0] > ENCODER_GRAD_TOL or counts != want or plain):
                 errors.append(f"train grads {arch} {dtype_name} {remat}: worst leaf {name} "
-                              f"{worst}, loss {loss_rel}, launches {counts} (expect {want}), "
-                              f"plain {plain}")
+                              f"{worst}, encoder leaf {enc}, loss {loss_rel}, launches {counts} "
+                              f"(expect {want}), plain {plain}")
             del grads, ref, tree, leaves
             if remat == "dots":
                 del refs[dtype_name]
@@ -2237,7 +2467,7 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
     """tinyllama-1.1b uncut (bf16 parameters, float32 AdamW moments) on
     ``SyntheticLMDataset(seed 0)`` at B=4, S=4096: ``Trainer.joint_tune``
     over micro x remat, each of its measured steps read through its
-    ``trial`` hook (peak memory, exact flash launches), 20 steps at the
+    ``trial`` hook (peak memory, exact flash launches), 10 steps at the
     winner with the counts reset before and read after, then a second
     Trainer on the same DB recalling the winner and every kernel class with
     0 evaluations, and the winner's step overfitting the first batch from
@@ -2352,7 +2582,7 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
 
     # a second Trainer on the same DB recalls the joint winner and every kernel
     # class.  Then it overfits the stream's first batch from tempered weights
-    # (its loss must fall): the stream itself is not learnt in 20 steps (a
+    # (its loss must fall): the stream itself is not learnt in 10 steps (a
     # random walk inside a band of the vocabulary), nor, under the JAX init's
     # chaotic attention (ROADMAP §C), is one batch
     trainer2 = Trainer(cfg, opt, dataclasses.replace(loop, total_steps=1),
@@ -2409,11 +2639,11 @@ def train_tinyllama(torch, device, arch_spec, errors) -> dict:
     }
 
 
-def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> dict:
+def train_model(torch, device, arch_spec, errors, arch, layers, B, S, remat="none") -> dict:
     """``arch`` at full width (``layers`` of its layers, or uncut), bf16
-    parameters and float32 AdamW moments, remat none, on
+    parameters and float32 AdamW moments, at ``remat``, on
     ``SyntheticLMDataset(seed 0)`` through the ``Trainer``: one warm step
-    (the kernel classes tuned inline), then TRAIN_SCAN_STEPS steps with the
+    (the kernel classes tuned inline), then TRAIN_MODEL_STEPS steps with the
     counts set to 0 just before and read just after (each kernel's forward
     and backward launches exact, :func:`step_launches`, and no plain call),
     the step's time beside ``analytic_step_flops`` at the bf16 peak, its
@@ -2435,14 +2665,14 @@ def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> di
     from repro_torch.tree import as_tree
 
     cfg = get_config(arch)
-    cfg = (cfg.with_(n_layers=layers) if layers else cfg).with_(remat="none")
-    steps = TRAIN_SCAN_STEPS
+    cfg = (cfg.with_(n_layers=layers) if layers else cfg).with_(remat=remat)
+    steps = TRAIN_MODEL_STEPS
     opt = AdamWConfig(warmup_steps=2, total_steps=steps)
     loop = TrainLoopConfig(total_steps=steps, n_microbatches=1, microbatch_candidates=(1,),
-                           seed=SEED)
+                           remat_candidates=(remat,), seed=SEED)
     ds = SyntheticLMDataset(cfg, B, S, seed=SEED)
-    db_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_train_scan_"), "train_db.json")
-    label = f"{cfg.name} ({cfg.n_layers} layers) B={B} S={S}"
+    db_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_train_model_"), "train_db.json")
+    label = f"{cfg.name} ({cfg.n_layers} layers) B={B} S={S} remat {remat}"
     trainer = Trainer(cfg, opt, loop, tuning_db=TuningDB(db_path), device=device)
     params, state = trainer.init_state()
     t0 = time.perf_counter()
@@ -2458,7 +2688,7 @@ def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> di
     counts, plain = train_counts()
     step_ms = sorted(hist["step_time"][1:])[len(hist["step_time"][1:]) // 2] * 1e3
     bound_ms = analytic_step_flops(cfg, "train", B, S) / arch_spec.peak_flops * 1e3
-    per = step_launches(cfg, "none")
+    per = step_launches(cfg, remat)
     want = {name: (f * steps, b * steps) for name, (f, b) in per.items()}
     classes = [{"kernel": st.bp["kernel"], "dtype": st.bp["dtype"], "point": st.region.selected,
                 "evaluations": st.cost_evaluations}
@@ -2500,7 +2730,7 @@ def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> di
     step = make_train_step(cfg, opt, 1)
     batch0, fit = batch_tensors(ds.batch(0), device), []
     with serving(trainer2.rule):
-        for _ in range(TRAIN_SCAN_OVERFIT):
+        for _ in range(TRAIN_MODEL_OVERFIT):
             params, state, metrics = step(params, state, batch0)
             fit.append(float(metrics["loss"]))
         prof = step_profile(torch, lambda: step(params, state, batch0))
@@ -2520,7 +2750,7 @@ def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> di
     del params, state, batch0
     torch.cuda.empty_cache()
     return {
-        "arch": cfg.name, "layers": cfg.n_layers, "B": B, "S": S, "remat": "none",
+        "arch": cfg.name, "layers": cfg.n_layers, "B": B, "S": S, "remat": remat,
         "params_b": analytic_param_count(cfg) / 1e9, "warm_s": warm_s,
         "steps": len(hist["loss"]), "step_ms": step_ms,
         "step_times_ms": [x * 1e3 for x in hist["step_time"]], "bound_ms": bound_ms,
@@ -2533,7 +2763,7 @@ def train_scan_model(torch, device, arch_spec, errors, arch, layers, B, S) -> di
 
 def train_restart(torch, device, errors, r=TRAIN_RESTART) -> dict:
     """``r["arch"]`` (tinyllama-1.1b by default) at full width, 2 layers,
-    B=2, S=1024, 8 steps saving every 2 (recurrentgemma-2b: 3 layers, 6
+    B=2, S=1024, 8 steps saving every 4 (recurrentgemma-2b: 3 layers, 6
     steps saving every 4), a SimulatedFailure before step 5: one restart,
     resumed from the step-4 checkpoint, losses equal bit for bit to an
     uninterrupted run's (both on one TuningDB, so both run the same kernel
@@ -2643,9 +2873,11 @@ def train_phases(torch, device, arch_spec, errors) -> dict:
     memory is empty; then the scans' families; each phase's time."""
     phases = [("grads", lambda: train_grads(torch, device, errors)),
               ("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors)),
-              ("grads_scans", lambda: train_grads(torch, device, errors, TRAIN_GRADS_SCANS))]
-    for run in TRAIN_SCANS:
-        phases.append((run["arch"], lambda run=run: train_scan_model(
+              ("grads_scans", lambda: train_grads(torch, device, errors, TRAIN_GRADS_SCANS)),
+              ("grads_families", lambda: train_grads(torch, device, errors,
+                                                     TRAIN_GRADS_FAMILIES))]
+    for run in TRAIN_MODELS:
+        phases.append((run["arch"], lambda run=run: train_model(
             torch, device, arch_spec, errors, **run)))
     phases += [("restart", lambda: train_restart(torch, device, errors)),
                ("restart_hybrid", lambda: train_restart(torch, device, errors,
@@ -3136,10 +3368,8 @@ def drift_drill(torch, device, errors) -> dict:
 
 
 def serve_cli_phase(errors, tmp: Path) -> dict:
-    """``[drift]``/``[observe]``: the serve CLI at tinyllama-1.1b's full
-    width, the static Server with the fleet's flags, then the streaming
-    engine traced (the CI obs-smoke job's run) and its files through the
-    observe CLI."""
+    """``[drift]``: the serve CLI at tinyllama-1.1b's full width, the
+    static Server with the fleet's flags (timed: it runs alone)."""
     out = {}
     db = tmp / "serve_db.json"
     # first the tuning run, then a run on its DB: every class recalled, the
@@ -3173,6 +3403,13 @@ def serve_cli_phase(errors, tmp: Path) -> dict:
                         transitions=transitions, checks=checks, class_checks=by_class,
                         seconds=secs)
 
+    return out
+
+
+def obs_smoke_phase(errors, tmp: Path) -> dict:
+    """``[observe]``: the serve CLI's streaming engine traced at
+    tinyllama-1.1b's full width (the CI obs-smoke job's run) and its files
+    through the observe CLI."""
     trace, metrics, sdb = tmp / "obs_trace.json", tmp / "obs_metrics.prom", tmp / "obs_db.json"
     t0 = time.perf_counter()
     res = cli(["-m", "repro_torch.launch.serve", *SERVE_CLI, *STREAM_CLI, "--trace-out", trace,
@@ -3195,8 +3432,35 @@ def serve_cli_phase(errors, tmp: Path) -> dict:
             obs["named"] = named
         else:
             print(f"[observe] {cmd}: {r.stdout.strip().splitlines()[0] if r.stdout else ''}")
-    out["stream"] = dict(rc=res.returncode, seconds=secs, observe=obs)
-    return out
+    return dict(rc=res.returncode, seconds=secs, observe=obs)
+
+
+def cli_phases_beside(errors):
+    """``[observe]`` and ``[example]`` (``obs_smoke_phase``,
+    ``example_phase``), each CLI a process of its own on a thread of its
+    own, started beside the serving phases that check tokens, launches and
+    evaluations but no time (the stream run keeps a virtual clock; the
+    timed drift runs stay alone in the fleet phases).  Returns a function
+    that waits for both and gives their records."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    out = {}
+    threads = [threading.Thread(target=lambda: out.update(stream=obs_smoke_phase(errors, tmp))),
+               threading.Thread(target=lambda: out.update(example=example_phase(errors, tmp)))]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+
+    def join() -> dict:
+        import shutil
+
+        for t in threads:
+            t.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+        print(f"[time] the obs-smoke stream run and the example beside serving: "
+              f"{time.perf_counter() - t0:.1f} s")
+        return out
+
+    return join
 
 
 def example_phase(errors, tmp: Path) -> dict:
@@ -3228,8 +3492,7 @@ def fleet_phases(torch, device, errors) -> dict:
                 ("service", lambda: service_phase(torch, device, errors)),
                 ("drift", lambda: drift_drill(torch, device, errors)),
                 ("fleet_cli", lambda: fleet_cli(errors)),
-                ("serve_cli", lambda: serve_cli_phase(errors, Path(tmp))),
-                ("example", lambda: example_phase(errors, Path(tmp)))):
+                ("serve_cli", lambda: serve_cli_phase(errors, Path(tmp)))):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out[name] = phase()
@@ -3482,7 +3745,11 @@ def run() -> int:
         for e in errors:
             print(f"[error] {e}", file=sys.stderr)
         return fail(f"{len(errors)} train check(s) failed")
-    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated() / 1e9
+    held = card_memory(torch)
+    print(f"[train] after the train phases: {allocated:.3f} GB allocated on the card, "
+          f"{held['allocated_gb']:.3f} GB after a garbage collection; the largest live "
+          f"tensors {held['largest']}")
 
     # -- the dry-run's memory prediction against the [train] rows ----------
     dryrun = dryrun_phase(torch, dryrun_worker, train["tinyllama"]["assignments"], errors)
@@ -4048,6 +4315,10 @@ def run() -> int:
             q32t, k32t, v32t, is_causal=True))
     print(f"[library] flash f32: scaled_dot_product_attention on "
           f"{SDPBackend.EFFICIENT_ATTENTION.name} {f32_library_ms:.4f} ms")
+    # (forward, backward) flash launches of each family's [train] run
+    flash_train = {run["arch"]: train[run["arch"]]["launches"]["flash_attention"]
+                   for run in TRAIN_MODELS
+                   if "flash_attention" in train[run["arch"]]["launches"]}
     kernels = [
         {
             "name": "exb", "route": "cuda", "source": "src/repro_torch/csrc/exb.cu",
@@ -4102,6 +4373,7 @@ def run() -> int:
             "f32_lse_ms": timer.ms(lambda: fa_mod.flash_attention_cuda(
                 *qkv32, **f32_pt, return_lse=True), reps=20),
             "train_launches": train["tinyllama"]["flash_launches"],
+            "model_train_launches": {a: f for a, (f, _) in flash_train.items()},
         },
         {
             "name": "flash_attention_bwd", "route": "cuda",
@@ -4127,6 +4399,7 @@ def run() -> int:
             **{f"f32_hd256_{k}": v for k, v in bwd_main["float32_hd256"].items()},
             "recurrentgemma_train_launches":
                 train["recurrentgemma-2b"]["launches"]["flash_attention"][1],
+            "model_train_launches": {a: b for a, (_, b) in flash_train.items()},
         },
     ]
     # the scans' backward kernels at their [train] phases' shapes, float32

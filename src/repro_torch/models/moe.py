@@ -124,7 +124,8 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig) -> Tuple[torch.Tensor, torch
         raise ValueError(f"tokens {T} must divide moe_groups {G}")
     Tg = T // G
     C = capacity(Tg, cfg)
-    if hasattr(x, "device_mesh"):  # the dry-run: only the batch stays sharded into groups
+    x_pl = getattr(x, "placements", None)
+    if x_pl is not None:  # the dry-run: only the batch stays sharded into groups
         from torch.distributed.tensor import Replicate, Shard
 
         x = x.redistribute(x.device_mesh, [p if isinstance(p, Shard) and p.dim == 0
@@ -134,8 +135,14 @@ def moe_block(x: torch.Tensor, p, cfg: ModelConfig) -> Tuple[torch.Tensor, torch
         out, aux = _groups_on_shards(xg, p, cfg, C)
     else:
         out, aux = _groups(xg, p, cfg, C)
-    out = constrain(out, ("moe_capacity", None, "act_embed"))
-    return out.reshape(B, S, d), aux
+    out = constrain(out, ("moe_capacity", None, "act_embed")).reshape(B, S, d)
+    if x_pl is not None:
+        # back onto the block input's placements here: left to the residual
+        # add, the gradient would come back in them through the reshape as
+        # a strided shard of the groups, whose redistribution reads shard
+        # offsets off a fake tensor
+        out = out.redistribute(out.device_mesh, x_pl)
+    return out, aux
 
 
 def _groups(xg, p, cfg: ModelConfig, C: int, first_expert: int = 0, n_groups=None):

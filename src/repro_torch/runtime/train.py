@@ -191,9 +191,11 @@ class Trainer:
         # wall-clock-tuned so restarted runs stay bit-deterministic;
         # joint_tune replaces the pin with a whole-program search whose cost
         # is the measured full step.  The remat directive lives in a mutable
-        # cell so a joint winner hot-applies without rebuilding the region.
+        # cell so a joint winner hot-applies without rebuilding the region;
+        # the registry keeps the spec, whose closures hold that cell and not
+        # the Trainer (whose final parameters would stay on the card).
         degrees = tuple(loop_cfg.microbatch_candidates)
-        self._step_remat = cfg.remat
+        remat_cell = self._remat_cell = [cfg.remat]
         bp = BasicParams.make(arch=cfg.name, kind="train_runtime", micro=degrees,
                               backend=self.device.type, framework="torch")
         if loop_cfg.device_key:
@@ -207,7 +209,7 @@ class Trainer:
                     name="train_step",
                     space=ParamSpace([PerfParam("n_micro", degrees)]),
                     instantiate=lambda pt: make_train_step(
-                        cfg.with_(remat=self._step_remat), opt_cfg, pt["n_micro"]),
+                        cfg.with_(remat=remat_cell[0]), opt_cfg, pt["n_micro"]),
                 ),
                 shape_class=lambda *a, **k: bp,
                 tags=("runtime",),
@@ -227,6 +229,14 @@ class Trainer:
         self.region = self._state.region
         self.joint_result: Optional[ProgramResult] = None
         self._warmed: set = set()  # microbatch degrees warmed
+
+    @property
+    def _step_remat(self) -> str:
+        return self._remat_cell[0]
+
+    @_step_remat.setter
+    def _step_remat(self, remat: str) -> None:
+        self._remat_cell[0] = remat
 
     # -- whole-program joint AT -------------------------------------------------
 

@@ -222,11 +222,11 @@ def test_input_specs_match_jax(arch):
                             j_logical_to_spec(J_RULES[name], j.shape, j_axes[part][key], mesh))
 
 
-def _jax_argument_bytes(arch, cell, mesh, rule_name) -> int:
+def _jax_argument_bytes(arch, cell, mesh, rule_name, smoke: bool = False) -> int:
     """One device's bytes of the JAX step's arguments: the shard shape of
     every leaf (params and inputs by ``logical_to_spec``, AdamW state by
-    ``zero_spec``), summed in numpy."""
-    j_cfg = j_get_config(arch)
+    ``zero_spec``), summed in numpy; of the SMOKE config with ``smoke``."""
+    j_cfg = j_get_config(arch, smoke=smoke)
     rule = J_RULES[rule_name]
 
     def shard_bytes(shape, dtype, spec):

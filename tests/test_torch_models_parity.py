@@ -1,6 +1,8 @@
 """Shared by the other ``tests/test_torch_models_*.py`` (this module holds
 no test itself): run one arch's serving entry points in the JAX package
-and in the port on the same weights and inputs, and compare.
+and in the port on the same weights and inputs, and compare.  An arch runs
+at its SMOKE config, or, given a ``cut`` (a tuple of (field, value) pairs),
+at its FULL config with those fields replaced (:func:`configs`).
 
 The weights are the JAX ``init_params`` tree, carried across by
 ``repro_torch.carry.model_params``; the inputs are drawn with numpy from a
@@ -23,7 +25,7 @@ Tolerances (stated here, used by every parity test):
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
@@ -44,17 +46,25 @@ STEPS = 8
 B = 2
 
 
+def configs(arch: str, cut=None):
+    """(JAX config, port config) of ``arch``: the SMOKE configs, or with
+    ``cut`` the FULL configs with its fields replaced."""
+    if cut is None:
+        return jax_config(arch, smoke=True), get_config(arch, smoke=True)
+    return jax_config(arch).with_(**dict(cut)), get_config(arch).with_(**dict(cut))
+
+
 def prompt_len(cfg) -> int:
     """The prompt: past the hybrid window, so the local-window path and
     the ring quirk run; longer than the VLM's vision tokens."""
     if cfg.family == "hybrid":
         return cfg.local_window + 8
-    return 16
+    return max(16, cfg.n_vision_tokens + 8) if cfg.family == "vlm" else 16
 
 
-def inputs(cfg, seed: int) -> Dict[str, np.ndarray]:
+def inputs(cfg, seed: int, seq: Optional[int] = None) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
-    S = prompt_len(cfg)
+    S = seq or prompt_len(cfg)
     batch = {"tokens": rng.integers(0, cfg.vocab_size - 1, (B, S)).astype(np.int32)}
     if cfg.family == "vlm":
         batch["vision_embeds"] = rng.standard_normal(
@@ -68,17 +78,35 @@ def inputs(cfg, seed: int) -> Dict[str, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_init(arch: str, seed: int):
+def _jax_init(arch: str, seed: int, cut=None):
     """``init_params`` under one ``jax.jit`` (a third of its time op by op)."""
-    specs = param_specs(jax_config(arch, smoke=True))
+    specs = param_specs(configs(arch, cut)[0])
     return jax.jit(lambda key: init_params(key, specs))(jax.random.PRNGKey(seed))
 
 
-def jax_params(arch: str, mode: str, seed: int = 0):
-    """The JAX ``init_params`` weights of ``arch``'s SMOKE config (drawn
-    once per process), or their float32 cast."""
-    params = dict(_jax_init(arch, seed))
-    if mode == "f32":
+def _temper(params):
+    """wq and wk of every attention drawn at the fan-in of d_model: scaled
+    by sqrt(heads / d_model).  The JAX init takes a (d, heads, hd)
+    projection's fan-in as its heads (``ROADMAP.md`` §C), so at a published
+    width its scores reach std ~180 and every softmax is nearly one-hot: a
+    one-ulp bf16 difference flips which key it picks (``chip_smoke.py``
+    ``temper`` does the same on the card)."""
+    def one(path, a):
+        if getattr(path[-1], "key", None) in ("wq", "wk"):
+            return (a * np.sqrt(a.shape[-2] / a.shape[-3])).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(one, params)
+
+
+def jax_params(arch: str, mode: str, seed: int = 0, cut=None):
+    """The JAX ``init_params`` weights of ``arch``'s SMOKE config (or its
+    ``cut`` FULL config; drawn once per process), or their float32 cast;
+    a mode "<mode>-tempered" has wq and wk tempered (:func:`_temper`)."""
+    params = dict(_jax_init(arch, seed, cut))
+    if mode.endswith("-tempered"):
+        params = _temper(params)
+    if mode.startswith("f32"):
         encoder = params.pop("enc_layers", None)
         params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
         if encoder is not None:
@@ -101,29 +129,31 @@ def _np(tree):
     return jax.tree.map(lambda a: np.asarray(a, np.float32) if hasattr(a, "dtype") else a, tree)
 
 
-def run_jax(arch: str, mode: str, seed: int = 0) -> Dict[str, Any]:
-    """forward logits, prefill logits and cache, and STEPS greedy decode
+def run_jax(arch: str, mode: str, seed: int = 0, cut=None, seq: Optional[int] = None,
+            steps: int = STEPS) -> Dict[str, Any]:
+    """forward logits, prefill logits and cache, and ``steps`` greedy decode
     steps (tokens and logits) of the JAX package, as numpy, run op by op
     (``jax.disable_jit``): compiled, XLA keeps excess precision across the
     bf16 operations it fuses, and the JAX forward differs from its own
     op-by-op run by 3.7% (worst row) at tinyllama's SMOKE config."""
-    params = jax_params(arch, mode, seed)
+    params = jax_params(arch, mode, seed, cut)
     with jax.disable_jit():
-        return _run_jax(arch, params, seed)
+        return _run_jax(arch, params, seed, cut, seq, steps)
 
 
-def _run_jax(arch: str, params, seed: int) -> Dict[str, Any]:
-    cfg = jax_config(arch, smoke=True)
-    batch_np = inputs(cfg, seed)
+def _run_jax(arch: str, params, seed: int, cut=None, seq: Optional[int] = None,
+             steps: int = STEPS) -> Dict[str, Any]:
+    cfg = configs(arch, cut)[0]
+    batch_np = inputs(cfg, seed, seq)
     batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     fwd, _ = _jax_forward(params, batch, cfg)
     S = batch_np["tokens"].shape[1]
-    logits, cache = jax_prefill(params, batch, cfg, capacity=S + STEPS)
+    logits, cache = jax_prefill(params, batch, cfg, capacity=S + steps)
     out = {"params": jax.tree.map(np.asarray, params), "batch": batch_np,
            "forward": np.asarray(fwd), "prefill": np.asarray(logits),
            "cache": _np(cache), "tokens": [], "steps": []}
     extra = {"frames": batch["frames"]} if cfg.is_encoder_decoder else {}
-    for _ in range(STEPS):
+    for _ in range(steps):
         tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
         logits, cache = jax_decode(params, {"tokens": tok, **extra}, cache, cfg)
         out["tokens"].append(np.asarray(tok))
@@ -132,16 +162,16 @@ def _run_jax(arch: str, params, seed: int) -> Dict[str, Any]:
     return out
 
 
-def run_port(arch: str, mode: str, ref: Dict[str, Any]) -> Dict[str, Any]:
+def run_port(arch: str, mode: str, ref: Dict[str, Any], cut=None) -> Dict[str, Any]:
     """The same in the port, on the CPU, on the carried weights, decode fed
     the JAX side's tokens; also the port's own greedy tokens."""
-    cfg = get_config(arch, smoke=True)
+    cfg = configs(arch, cut)[1]
     params = carry.model_params(cfg, ref["params"], device="cpu")
     batch = {k: torch.from_numpy(np.array(v)).long() if v.dtype == np.int32
              else torch.from_numpy(np.array(v)) for k, v in ref["batch"].items()}
     fwd, _ = tm.forward(params, batch, cfg)
     S = batch["tokens"].shape[1]
-    logits, cache = tm.prefill_fn(params, batch, cfg, capacity=S + STEPS)
+    logits, cache = tm.prefill_fn(params, batch, cfg, capacity=S + len(ref["tokens"]))
     out = {"forward": fwd.numpy(), "prefill": logits.numpy(), "cache": _cache_np(cache),
            "tokens": [], "steps": []}
     extra = {"frames": batch["frames"]} if cfg.is_encoder_decoder else {}
@@ -173,7 +203,7 @@ def row_errors(got: np.ndarray, ref: np.ndarray):
 
 def assert_rows(got, ref, mode: str, what: str, bf16_leaf: bool = False) -> None:
     rel_max, rel_norm = row_errors(got, ref)
-    if mode == "f32" and not bf16_leaf:
+    if mode.startswith("f32") and not bf16_leaf:
         assert rel_max <= F32_ROW_REL, f"{what}: row max error {rel_max} > {F32_ROW_REL}"
     else:
         assert rel_norm <= BF16_ROW, f"{what}: worst row error {rel_norm} > {BF16_ROW}"
@@ -225,13 +255,16 @@ def check_decode(arch: str, mode: str, ref: Dict[str, Any], port: Dict[str, Any]
 
 
 class Runs:
-    """The JAX and port runs of each (arch, mode), made once per test module."""
+    """The JAX and port runs of each (arch, mode) (and ``cut``, prompt length
+    and decode steps), made once per test module."""
 
     def __init__(self) -> None:
         self._runs: Dict[Any, Any] = {}
 
-    def __call__(self, arch: str, mode: str):
-        if (arch, mode) not in self._runs:
-            ref = run_jax(arch, mode)
-            self._runs[(arch, mode)] = (ref, run_port(arch, mode, ref))
-        return self._runs[(arch, mode)]
+    def __call__(self, arch: str, mode: str, cut=None, seq: Optional[int] = None,
+                 steps: int = STEPS):
+        key = (arch, mode, cut, seq, steps)
+        if key not in self._runs:
+            ref = run_jax(arch, mode, cut=cut, seq=seq, steps=steps)
+            self._runs[key] = (ref, run_port(arch, mode, ref, cut))
+        return self._runs[key]

@@ -19,16 +19,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.configs import get_config as jax_config
 from repro.data import SyntheticLMDataset as JaxDataset
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
 from repro.runtime.train import make_train_step as jax_make_train_step
 from repro_torch import carry
-from repro_torch.configs import get_config
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.tree import as_tree
-from test_torch_models_parity import jax_params
+from test_torch_models_parity import configs, jax_params
 
 # one arch per family: dense, moe, ssm, hybrid, vlm, encdec
 FAMILIES = ("tinyllama-1.1b", "granite-moe-1b-a400m", "falcon-mamba-7b",
@@ -41,8 +39,10 @@ def opt_cfgs():
     return JaxAdamWConfig(**OPT), AdamWConfig(**OPT)
 
 
-def jax_batches(arch: str, steps: int, batch: int = B, seq: int = S):
-    ds = JaxDataset(jax_config(arch, smoke=True), global_batch=batch, seq_len=seq, seed=0)
+def jax_batches(arch: str, steps: int, batch: int = B, seq: int = S, cut=None):
+    """The JAX dataset's first ``steps`` batches of ``arch``'s SMOKE config
+    (or its ``cut`` FULL config, ``test_torch_models_parity.configs``)."""
+    ds = JaxDataset(configs(arch, cut)[0], global_batch=batch, seq_len=seq, seed=0)
     return [ds.batch(i) for i in range(steps)]
 
 
@@ -51,11 +51,13 @@ def jax_run_mode(arch: str):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_steps(arch: str, steps: int, n_micro: int = 1):
+def jax_steps(arch: str, steps: int, n_micro: int = 1, cut=None, seq: int = S,
+              mode: str = "f32"):
     """The JAX package's ``steps`` float32 train steps of ``arch`` from its
-    init: [(params as numpy, metrics as floats)] after each step."""
-    jcfg = jax_config(arch, smoke=True)
-    params = jax_params(arch, "f32")
+    init (of weight mode ``mode``, ``test_torch_models_parity.jax_params``):
+    [(params as numpy, metrics as floats)] after each step."""
+    jcfg = configs(arch, cut)[0]
+    params = jax_params(arch, mode, cut=cut)
     jopt = opt_cfgs()[0]
     state = jax_adamw_init(params, jopt)
     step = jax_make_train_step(jcfg, jopt, n_micro)
@@ -63,14 +65,15 @@ def jax_steps(arch: str, steps: int, n_micro: int = 1):
     with jax_run_mode(arch):
         if arch != "whisper-large-v3":
             step = jax.jit(step)
-        for b in jax_batches(arch, steps):
+        for b in jax_batches(arch, steps, seq=seq, cut=cut):
             params, state, metrics = step(params, state, {k: jnp.asarray(v) for k, v in b.items()})
             out.append((jax.device_get(params), {k: float(v) for k, v in metrics.items()}))
     return tuple(out)
 
 
-def port_state(arch: str, device="cpu"):
+def port_state(arch: str, device="cpu", cut=None, mode: str = "f32"):
     """(cfg, params tree, AdamW state) of the port on the same float32 init."""
-    cfg = get_config(arch, smoke=True)
-    params = as_tree(carry.model_params(cfg, jax.device_get(jax_params(arch, "f32")), device))
+    cfg = configs(arch, cut)[1]
+    params = as_tree(carry.model_params(cfg, jax.device_get(jax_params(arch, mode, cut=cut)),
+                                        device))
     return cfg, params, adamw_init(params, opt_cfgs()[1])

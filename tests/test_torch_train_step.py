@@ -34,7 +34,7 @@ from repro_torch.runtime.train import batch_tensors, make_train_step
 from repro_torch.tree import flatten
 from test_torch_models_parity import jax_params
 from test_torch_train_common import (
-    FAMILIES, jax_batches, jax_steps, opt_cfgs, port_state,
+    FAMILIES, S, jax_batches, jax_steps, opt_cfgs, port_state,
 )
 
 RTOL = DEFAULT_TOL["float32"][0]
@@ -56,14 +56,18 @@ def _assert_params(cfg, port, want, init, steps, label):
             assert rel <= 2e-2, f"{label} leaf {i}: update off by {rel} of its norm"
 
 
-def check_train_step_matches_jax(arch):
-    cfg, params, state = port_state(arch)
-    init = jax.device_get(jax_params(arch, "f32"))
+def check_train_step_matches_jax(arch, cut=None, steps=None, seq=S, mode="f32"):
+    """``steps`` train steps (Whisper's 1, the others' 2 by default) of
+    ``arch``'s SMOKE config, or its ``cut`` FULL config, from the float32
+    weights of ``mode``, against JAX's."""
+    cfg, params, state = port_state(arch, cut=cut, mode=mode)
+    init = jax.device_get(jax_params(arch, mode, cut=cut))
     whisper = cfg.is_encoder_decoder
-    steps = 1 if whisper else 2
+    steps = steps or (1 if whisper else 2)
     step = make_train_step(cfg, opt_cfgs()[1], 1)
-    for i, (batch, (want_params, want)) in enumerate(zip(jax_batches(arch, steps),
-                                                         jax_steps(arch, steps))):
+    batches = jax_batches(arch, steps, seq=seq, cut=cut)
+    for i, (batch, (want_params, want)) in enumerate(zip(
+            batches, jax_steps(arch, steps, cut=cut, seq=seq, mode=mode))):
         params, state, metrics = step(params, state, batch_tensors(batch, "cpu"))
         rel = {"loss": 1e-4 if whisper else RTOL, "grad_norm": 0.2 if whisper else RTOL,
                "lr": RTOL}
