@@ -92,13 +92,15 @@ Phases, each of which fails the run:
    one batch from tempered weights (the loss must fall) and one profiled
    step; the gradient check at full width, 2 layers (Whisper 2 + 2), on
    qwen3-0.6b, granite-moe-1b-a400m (its kernel route on the plain route's
-   expert picks, ``MoeRouting``), qwen2-vl-2b and whisper-large-v3 (its
-   encoder's leaves, bf16 noise on both routes, within 0.2), and those four
+   expert picks, ``MoeRouting``), qwen2-vl-2b and whisper-large-v3, every
+   leaf within ``GRAD_TOL``, and those four
    uncut through the ``Trainer`` as the scans' families, at remat full
    (at none each passed 76 GB): qwen3-0.6b and granite-moe-1b-a400m at
    B=4, S=4096, qwen2-vl-2b at B=2, S=4096, whisper-large-v3 at B=4, 448
    decoder tokens; the restart drill again on recurrentgemma-2b at 3
-   layers;
+   layers.  The ``Trainer`` runs (timed) go first, then the checks that
+   read no time (gradients, restart drills, SMOKE steps), with the
+   obs-smoke stream run and the example (7) beside them;
 2b. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun.run_cell``
    on a (1, 1) mesh for tinyllama-1.1b uncut at the [train] cell (B=4,
    S=4096, bf16 parameters, float32 moments), one row a (micro, remat)
@@ -257,8 +259,9 @@ Phases, each of which fails the run:
    --fleet-workers 2 --drift-factor 2 --device-key``, then of 128 on its
    DB: each run 0 hot-path evaluations, 0 transitions over a non-zero
    number of observations held against a final, printed by class); run
-   earlier, beside the serving phases after tinyllama's (they check no
-   time), the CI obs-smoke job's streaming run
+   earlier, beside the [train] phase's checks that read no time (the
+   gradient checks, the restart drills, the SMOKE steps), the CI obs-smoke
+   job's streaming run
    (``[observe]``: ``launch.observe trace``, ``metrics`` and ``explain`` on
    its files exit 0, ``explain`` naming ``engine_prefill``,
    ``engine_decode`` and ``serve_scheduler``) and ``[example]``:
@@ -295,8 +298,8 @@ launches in the falcon-mamba-7b and recurrentgemma-2b ``[train]`` runs,
 the time of the point the Trainer tuned at that run's shape in float32, the
 bound, the plain backward's time, the forward's time beside it and every
 swept shape's fastest point.  A ``{"models": ...}``,
-a ``{"serve": ...}`` (with ``beside``: the obs-smoke and example
-records), a ``{"fleet": ...}`` and a ``{"train": ...}`` line before it hold
+a ``{"serve": ...}``, a ``{"fleet": ...}`` and a ``{"train": ...}`` (with
+``beside``: the obs-smoke and example records) line before it hold
 the model, serve, fleet and train phases' records.  The last line is
 ``{"ok": true, "device": {...}}``.  The script exits non-zero, and prints
 no result, without a CUDA card or without the repository beside it.
@@ -412,10 +415,10 @@ KERNEL_ENTRIES = {"flash_attention": ("flash_fwd",), "ssm_scan": ("ssm_kernel",)
 SERVE_BATCH = 4
 SERVE_BLOCKS = 8
 # (arch, depth or None, with a BackgroundTuner): the four uncut families run
-# with none, as the tinyllama engine's control run (their tuner's last job,
-# a whole-model trial, held a run 3-24 s after it ended, and its trials
-# slowed the serving thread; the tuned path is tinyllama's, falcon's and
-# recurrentgemma's)
+# with none, a cut of their contract for the run's time limit: on an H100
+# their tuner added 18-32 s an engine (its trials slowed the serving
+# thread, and its last job, a whole-model trial, ran on 3-24 s after the
+# run); the tuned path is tinyllama's, falcon's and recurrentgemma's
 SERVE_ENGINES = (("falcon-mamba-7b", 2, True), ("recurrentgemma-2b", 3, True),
                  ("qwen3-0.6b", None, False), ("granite-moe-1b-a400m", None, False),
                  ("qwen2-vl-2b", None, False), ("whisper-large-v3", None, False))
@@ -433,6 +436,65 @@ SERVE_CHAOS = dict(step_fault_rate=0.2, squeeze_rate=0.2, squeeze_hold=3, delay_
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
+
+
+def prepare(torch) -> None:
+    """The port's package on the path, and TF32 off: every check holds a
+    float32 result to a float32 (or float64) plain version."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def build_all() -> None:
+    """Every kernel source built from the checkout (all at once)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    for name in _build.sources():
+        _build.library(name)
+    print(f"[build] {sorted(_build.sources())} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds:.1f} s)")
+
+
+def kernel_counters() -> dict:
+    """{kernel: launch counter} of the kernels the model zoo reaches."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.rglru_scan import rglru_scan as rg_mod
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm_mod
+
+    return {"flash_attention": fa_mod.counter, "ssm_scan": ssm_mod.counter,
+            "rglru_scan": rg_mod.counter}
+
+
+def alone(torch) -> tuple:
+    """For one phase run on its own, from the repository's root, e.g.
+
+        python3 -c "import torch, chip_smoke as cs; d, a, c, e = cs.alone(torch);
+                    cs.train_grads(torch, d, e, cs.TRAIN_GRADS_FAMILIES); cs.done(e)"
+
+    the card's line, every source built and an empty default TuningDB, as
+    :func:`run` sets them up; returns (device, the card's ArchSpec, the
+    model zoo's kernel counters, an empty list of failed checks)."""
+    if not torch.cuda.is_available():
+        raise SystemExit(fail("no CUDA device (torch.cuda.is_available() is false)"))
+    prepare(torch)
+    from repro_torch.core import REGISTRY, TuningDB, detect
+
+    print(card_line())
+    device = torch.device("cuda:0")
+    build_all()
+    REGISTRY.set_default_db(TuningDB())
+    return device, detect(device), kernel_counters(), []
+
+
+def done(errors) -> None:
+    """A phase run on its own ends here: its failed checks printed, and the
+    exit code their number."""
+    for e in errors:
+        print(f"[error] {e}", file=sys.stderr)
+    print(f"chip_smoke: {len(errors)} failed checks")
+    raise SystemExit(min(len(errors), 1))
 
 
 def card_line() -> str:
@@ -1916,27 +1978,33 @@ def serve_smoke(torch, device, counters, errors) -> dict:
     return out
 
 
+def serve_engine(torch, arch, depth, tuner, device, arch_spec, counters, errors) -> dict:
+    """One of ``SERVE_ENGINES``: ``arch`` at ``depth`` layers (None: all)
+    through the StreamingEngine on the first 8 requests of the bursty
+    trace, against the one-at-a-time oracle; returns its record."""
+    from repro_torch.data import bursty_open_loop_trace
+
+    t0 = time.perf_counter()
+    cfg, params = serve_setup(torch, arch, depth, device)
+    reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4, burst_gap_s=0.05)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    oracle = serve_oracle(cfg, params, reqs, max_len)
+    rec, _, _ = serve_engine_run(torch, f"{arch} (depth {cfg.n_layers}) StreamingEngine",
+                                 cfg, params, reqs, max_len, arch_spec, counters, errors,
+                                 oracle, tuner=tuner)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[time] serve {arch}: {time.perf_counter() - t0:.1f} s (init and the oracle "
+          f"included)")
+    return rec
+
+
 def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
     """The [serve] phases; returns their records.  Near-ties may part at
     most ``NEAR_TIE_SHARE`` of all the requests they compare."""
-    from repro_torch.data import bursty_open_loop_trace
-
     records = serve_tinyllama(torch, device, arch_spec, counters, errors)
-    beside = cli_phases_beside(errors)
-    for arch, depth, tuner in SERVE_ENGINES:
-        t0 = time.perf_counter()
-        cfg, params = serve_setup(torch, arch, depth, device)
-        reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4, burst_gap_s=0.05)
-        max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
-        oracle = serve_oracle(cfg, params, reqs, max_len)
-        rec, _, _ = serve_engine_run(torch, f"{arch} (depth {cfg.n_layers}) StreamingEngine",
-                                     cfg, params, reqs, max_len, arch_spec, counters, errors,
-                                     oracle, tuner=tuner)
-        records.append(rec)
-        del params
-        torch.cuda.empty_cache()
-        print(f"[time] serve {arch}: {time.perf_counter() - t0:.1f} s (init and the oracle "
-              f"included)")
+    records += [serve_engine(torch, *engine, device, arch_spec, counters, errors)
+                for engine in SERVE_ENGINES]
     smoke = serve_smoke(torch, device, counters, errors)
     tallies = [r["oracle"] for r in records] + [v.get("oracle", v) for v in smoke.values()]
     compared = sum(sum(t.values()) for t in tallies)
@@ -1945,8 +2013,7 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
           f"{NEAR_TIE_SHARE:.1%}), each within {NEAR_TIE_ULPS} bf16 ulps on both paths")
     if near > NEAR_TIE_SHARE * compared:
         errors.append(f"serve: {near} of {compared} requests part at near-ties")
-    return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared,
-            "beside": beside()}
+    return {"runs": records, "smoke": smoke, "near_ties": near, "compared": compared}
 
 
 # ---------------------------------------------------------------------------
@@ -1960,9 +2027,9 @@ def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
 # in bf16), which its [train] phase launches, and qwen2-vl-2b's at its
 # [train] phase's S (12|2, hd 128: a group of 6, kv_split 1, 2, 3 and 6)
 FLASH_BWD = dict(B=1, S=4096, H=32, KV=4, hd=64)
+FLASH_BWD_GROUP6 = dict(B=1, S=4096, H=12, KV=2, hd=128)
 FLASH_BWD_SHAPES = (FLASH_BWD, dict(FLASH_BWD, B=4), dict(FLASH_BWD, S=2000), FLASH_HD128,
-                    dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256,
-                    dict(B=1, S=4096, H=12, KV=2, hd=128))
+                    dict(B=1, S=2048, H=8, KV=2, hd=36), FLASH_HD256, FLASH_BWD_GROUP6)
 
 
 def bwd_rows(outs) -> tuple:
@@ -1993,8 +2060,9 @@ def by_batch_row(torch, fn, args) -> tuple:
     return tuple(torch.cat(parts) for parts in zip(*rows))
 
 
-def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -> dict:
-    """At each of FLASH_BWD_SHAPES, in bf16 and float32: the forward kernel
+def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors,
+                    shapes=FLASH_BWD_SHAPES) -> dict:
+    """At each of ``shapes``, in bf16 and float32: the forward kernel
     with its lse (o equal to the call without it, lse against the plain
     version's), then every emitted point of ``flash_attention_bwd`` on that
     o and lse against ``attention_bwd_plain`` run on the same inputs in
@@ -2006,7 +2074,7 @@ def flash_bwd_phase(torch, fa_mod, fa_ref, fa_ops, arch, timer, optin, errors) -
     gen = torch.Generator(device=device).manual_seed(SEED + 19)
     cases = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        for shape in FLASH_BWD_SHAPES:
+        for shape in shapes:
             B, S, H, KV, hd = (shape[k] for k in ("B", "S", "H", "KV", "hd"))
             tag = f"({B},{S},{H}|{KV},{hd})"
             q, k, v = fa_ref.make_inputs(gen, dtype=dtype, device=device, **shape)
@@ -2246,12 +2314,6 @@ TRAIN_MODEL_STEPS = 10
 TRAIN_MODEL_OVERFIT = 4
 # the worst gradient leaf's ||g - r|| / ||r||, kernel route against plain versions
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
-# Whisper's encoder leaves, in either dtype: the encoder runs in bf16 as the
-# JAX model keeps it (ROADMAP §C), so its gradient is bf16 noise on both
-# routes; the JAX step's own grad_norm reads 3.577 jitted and 3.927 op by op
-# (9.8% apart), and this bound is twice that spread, as
-# tests/test_torch_train_step.py holds Whisper's grad_norm
-ENCODER_GRAD_TOL = 0.2
 # train SMOKE card vs CPU: the loss's relative error, and each leaf's update
 # ||Δcard - Δcpu|| / ||Δcpu|| (as tests/test_torch_train_step.py).  Every
 # gradient of Whisper runs through its bf16 encoder (the decoder reads it
@@ -2331,12 +2393,17 @@ class MoeRouting:
     a token whose 8th and 9th router logits lie that close picks another
     expert, which moves a whole token's share of an expert's gradient.
     Replayed, both routes run the same graph, and the gradient check sees
-    the kernels.  ``parted``/``picked`` count the dispatches' tokens of the
-    last replayed run (a recompute's too) whose own picks differed, and all
-    of them.  For any other family it does nothing (``on`` False)."""
+    the kernels.  Picks are kept by (layer, group): a layer's forward
+    dispatches its ``moe_groups`` groups in order, and a recompute runs
+    them again; a run that dispatches a layer's groups part way, or a
+    replay that leaves a recorded group unread, raises.  ``parted``/
+    ``picked`` count the dispatches' tokens of the last replayed run (a
+    recompute's too) whose own picks differed, and all of them.  For any
+    other family it does nothing (``on`` False)."""
 
     def __init__(self, cfg):
         self.on = cfg.family == "moe"
+        self.groups = max(1, cfg.moe_groups)
         self.picks, self.names = {}, {}
         self.replaying, self.parted, self.picked = False, 0, 0
 
@@ -2355,17 +2422,25 @@ class MoeRouting:
         self._moe, self._saved = moe, (moe._dispatch_one_group, moe.top_k)
         dispatch, top_k = self._saved
         self.parted = self.picked = 0
+        self.calls, self.read = {}, set()
 
         def dispatching(xf, router, *args, **kwargs):
-            self._layer = self.names[router.data_ptr()]
+            layer = self.names[router.data_ptr()]
+            n = self.calls.get(layer, 0)
+            self.calls[layer] = n + 1
+            self._key = (layer, n % self.groups)
             return dispatch(xf, router, *args, **kwargs)
 
         def picking(logits, k):
             vals, sel = top_k(logits, k)
             if not self.replaying:
-                self.picks.setdefault(self._layer, sel)
+                self.picks.setdefault(self._key, sel)
                 return vals, sel
-            want = self.picks[self._layer]
+            want = self.picks.get(self._key)
+            if want is None or want.shape != sel.shape:
+                raise RuntimeError(f"MoE routing: no recorded picks of shape {tuple(sel.shape)} "
+                                   f"for {self._key}")
+            self.read.add(self._key)
             self.parted += int((sel.sort(-1).values != want.sort(-1).values).any(-1).sum())
             self.picked += sel.shape[0]
             return logits.gather(-1, want), want
@@ -2374,9 +2449,17 @@ class MoeRouting:
         return self
 
     def __exit__(self, *exc):
-        if self.on:
-            self._moe._dispatch_one_group, self._moe.top_k = self._saved
-            self.replaying = True
+        if not self.on:
+            return False
+        self._moe._dispatch_one_group, self._moe.top_k = self._saved
+        if exc[0] is None:
+            part = {layer: n for layer, n in self.calls.items() if n % self.groups}
+            unread = set(self.picks) - self.read if self.replaying else set()
+            if part or unread:
+                raise RuntimeError(f"MoE routing: layers dispatched part of their "
+                                   f"{self.groups} groups {part}; recorded picks never "
+                                   f"replayed {sorted(unread)}")
+        self.replaying = True
         return False
 
 
@@ -2428,33 +2511,28 @@ def train_grads(torch, device, errors, archs=((TRAIN["arch"], TRAIN_GRADS["layer
             ref_loss, ref = refs[dtype_name]
             rel = [(float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)), n)
                    for g, r, n in zip(grads, ref, names)]
-            worst, name = max(r for r in rel if not r[1].startswith("enc_"))
-            enc = max((r for r in rel if r[1].startswith("enc_")), default=(0.0, None))
+            worst, name = max(rel)
             loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
             want = step_launches(cfg, remat)
             print(f"[train] grads {arch} {dtype_name} params ({layers} layers, remat {remat}): "
                   f"loss {float(loss):.6f} vs plain {float(ref_loss):.6f} (rel {loss_rel:.2e}); "
                   f"worst leaf {name} {worst:.3e} (tol {GRAD_TOL[dtype_name]}); "
-                  + (f"worst encoder leaf {enc[1]} {enc[0]:.3e} (tol {ENCODER_GRAD_TOL}); "
-                     if enc[1] else "")
-                  + f"launches (forward, backward) {counts} (expect {want}), plain calls on "
+                  f"launches (forward, backward) {counts} (expect {want}), plain calls on "
                   f"the kernel route {plain}"
                   + (f"; MoE tokens whose own expert picks part from the plain route's "
                      f"{routing.parted} of {routing.picked} (replayed)" if routing.on else ""))
             key = f"{dtype_name} {remat}" if arch == TRAIN["arch"] else f"{arch} {dtype_name} {remat}"
             out[key] = {"loss": float(loss), "plain_loss": float(ref_loss), "worst_leaf": name,
                         "worst_leaf_rel": worst, "launches": counts}
-            if enc[1]:
-                out[key].update(worst_encoder_leaf=enc[1], worst_encoder_leaf_rel=enc[0])
             if routing.on:
                 out[key].update(moe_parted=routing.parted, moe_picked=routing.picked)
             if arch == TRAIN["arch"]:
                 out[key].update(flash_launches=counts["flash_attention"][0],
                                 flash_bwd_launches=counts["flash_attention"][1])
             if (worst > GRAD_TOL[dtype_name] or loss_rel > GRAD_TOL[dtype_name]
-                    or enc[0] > ENCODER_GRAD_TOL or counts != want or plain):
+                    or counts != want or plain):
                 errors.append(f"train grads {arch} {dtype_name} {remat}: worst leaf {name} "
-                              f"{worst}, encoder leaf {enc}, loss {loss_rel}, launches {counts} "
+                              f"{worst}, loss {loss_rel}, launches {counts} "
                               f"(expect {want}), plain {plain}")
             del grads, ref, tree, leaves
             if remat == "dots":
@@ -2868,28 +2946,41 @@ def train_smoke(torch, device, errors) -> dict:
     return out
 
 
-def train_phases(torch, device, arch_spec, errors) -> dict:
-    """tinyllama's gradient check and its B=4 step first, while the card's
-    memory is empty; then the scans' families; each phase's time."""
-    phases = [("grads", lambda: train_grads(torch, device, errors)),
-              ("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors)),
-              ("grads_scans", lambda: train_grads(torch, device, errors, TRAIN_GRADS_SCANS)),
-              ("grads_families", lambda: train_grads(torch, device, errors,
-                                                     TRAIN_GRADS_FAMILIES))]
+def train_phases(torch, device, arch_spec, errors) -> tuple:
+    """tinyllama's B=4 step first, while the card's memory is empty, then
+    the other timed runs (``TRAIN_MODELS``); then the checks that read no
+    time (the gradient checks, the restart drills, the SMOKE steps), with
+    the obs-smoke stream run and the training example beside them
+    (:func:`cli_phases_beside`); each phase's time.  Returns (the records,
+    the two CLIs' records)."""
+    timed = [("tinyllama", lambda: train_tinyllama(torch, device, arch_spec, errors))]
     for run in TRAIN_MODELS:
-        phases.append((run["arch"], lambda run=run: train_model(
+        timed.append((run["arch"], lambda run=run: train_model(
             torch, device, arch_spec, errors, **run)))
-    phases += [("restart", lambda: train_restart(torch, device, errors)),
+    untimed = [("grads", lambda: train_grads(torch, device, errors)),
+               ("grads_scans", lambda: train_grads(torch, device, errors, TRAIN_GRADS_SCANS)),
+               ("grads_families", lambda: train_grads(torch, device, errors,
+                                                      TRAIN_GRADS_FAMILIES)),
+               ("restart", lambda: train_restart(torch, device, errors)),
                ("restart_hybrid", lambda: train_restart(torch, device, errors,
                                                         TRAIN_RESTART_HYBRID)),
                ("smoke", lambda: train_smoke(torch, device, errors))]
     out = {}
-    for name, phase in phases:
-        t0 = time.perf_counter()
-        out[name] = phase()
-        torch.cuda.empty_cache()
-        print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
-    return out
+
+    def run_all(phases):
+        for name, phase in phases:
+            t0 = time.perf_counter()
+            out[name] = phase()
+            torch.cuda.empty_cache()
+            print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
+
+    run_all(timed)
+    join = cli_phases_beside(errors)
+    try:
+        run_all(untimed)
+    finally:
+        beside = join()
+    return out, beside
 
 
 # -- [dryrun]: the dry-run's memory prediction held to the card's --------------
@@ -3438,10 +3529,12 @@ def obs_smoke_phase(errors, tmp: Path) -> dict:
 def cli_phases_beside(errors):
     """``[observe]`` and ``[example]`` (``obs_smoke_phase``,
     ``example_phase``), each CLI a process of its own on a thread of its
-    own, started beside the serving phases that check tokens, launches and
-    evaluations but no time (the stream run keeps a virtual clock; the
-    timed drift runs stay alone in the fleet phases).  Returns a function
-    that waits for both and gives their records."""
+    own, started beside the [train] phase's checks that read no time (the
+    gradient checks, the restart drills, the SMOKE steps): no time read or
+    tuned while they run is printed or kept, and their own times (the
+    stream run's metrics, the example's steps a second) are those of a
+    shared card.  Returns a function that waits for both and gives their
+    records."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     out = {}
     threads = [threading.Thread(target=lambda: out.update(stream=obs_smoke_phase(errors, tmp))),
@@ -3456,7 +3549,7 @@ def cli_phases_beside(errors):
         for t in threads:
             t.join()
         shutil.rmtree(tmp, ignore_errors=True)
-        print(f"[time] the obs-smoke stream run and the example beside serving: "
+        print(f"[time] the obs-smoke stream run and the example beside the train checks: "
               f"{time.perf_counter() - t0:.1f} s")
         return out
 
@@ -3475,7 +3568,7 @@ def example_phase(errors, tmp: Path) -> dict:
     steps_s = parsed(r"\(([\d.]+) steps/s on", res.stdout)
     step_ms = parsed(r"median step time: ([\d.]+) ms", res.stdout)
     print(f"[example] torch_train_lm: loss drop {drop}%, median step {step_ms} ms, "
-          f"{steps_s} steps/s, {secs:.1f} s in all")
+          f"{steps_s} steps/s, {secs:.1f} s in all (on a card shared with the train checks)")
     if res.returncode == 0 and (drop is None or drop < EXAMPLE_MIN_DROP * 100):
         errors.append(f"example: loss drop {drop}%")
     return dict(rc=res.returncode, drop_pct=drop, step_ms=step_ms, steps_s=steps_s,
@@ -3556,9 +3649,7 @@ def run() -> int:
         return fail("torch is not installed")
     if not torch.cuda.is_available():
         return fail("no CUDA device (torch.cuda.is_available() is false)")
-    sys.path.insert(0, str(ROOT / "src"))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    prepare(torch)
 
     import torch.nn.functional as F
 
@@ -3586,11 +3677,7 @@ def run() -> int:
     print(f"[arch] {arch}")
 
     dryrun_worker = start_dryrun_worker()  # imports the port while the kernels build
-    t0 = time.perf_counter()
-    for name in _build.sources():
-        _build.library(name)
-    print(f"[build] {sorted(_build.sources())} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s)")
+    build_all()
     logs = sorted(_build.build_dir().glob("*/*.log"), key=lambda p: p.stat().st_mtime)
     for log in logs[-len(_build.sources()):]:
         if log.stem in ("flash_attention", "flash_attention_sm90", "ssm_scan", "rglru_scan",
@@ -3739,7 +3826,7 @@ def run() -> int:
     # -- the training slice first, while the card's memory is its own: the
     # joint search's remat-none step peaks at 68.6 GB of the 80 -----------
     t0 = time.perf_counter()
-    train = train_phases(torch, device, arch, errors)
+    train, beside = train_phases(torch, device, arch, errors)
     print(f"[time] train phases: {time.perf_counter() - t0:.1f} s")
     if errors:
         for e in errors:
@@ -4253,8 +4340,7 @@ def run() -> int:
     REGISTRY.set_default_db(TuningDB(db_path))
     tuned_fps = {st.bp.fingerprint() for st, _, _ in states.values()}
     tuned_fps |= {b4_state.bp.fingerprint(), hd256_state.bp.fingerprint()}
-    model_counters = {"flash_attention": fa_mod.counter, "ssm_scan": ssm_mod.counter,
-                      "rglru_scan": rg_mod.counter}
+    model_counters = kernel_counters()
     t0 = time.perf_counter()
     models = [model_phase(torch, name, depth, steps, device, arch, model_counters, tuned_fps,
                           errors)
@@ -4287,7 +4373,7 @@ def run() -> int:
         return fail(f"{len(errors)} fleet check(s) failed")
     print(json.dumps({"fleet": fleet}, default=str))
 
-    print(json.dumps({"train": train}, default=str))
+    print(json.dumps({"train": train, "beside": beside}, default=str))
     print(json.dumps({"dryrun": dryrun}, default=str))
 
     # -- the kernels line --------------------------------------------------
