@@ -27,20 +27,21 @@ runs for all five ported kernels at real sizes:
   recalled from its TuningDB, the Seism3D region at 256³ likewise, and the
   Fig. 12 degree switch on it;
 * the model zoo's serving entry points (``repro_torch.models``: prefill,
-  then greedy decode) on random bf16 weights from the seed, at full width:
-  tinyllama-1.1b at full depth (22 layers, flash at hd 64), falcon-mamba-7b
-  at 2 layers (``ssm_scan`` with its final state) and recurrentgemma-2b at
-  3 layers (``rglru_scan``, flash at hd 256), qwen3-0.6b (per-head
-  qk_norm, 16|8 heads at hd 128), granite-moe-1b-a400m (32 experts top-8),
-  qwen2-vl-2b (12|2 heads, M-RoPE, 256 vision positions), whisper-large-v3
-  (32 + 32 layers, 1500 frames, a 448-token decoder prompt) and
-  qwen2.5-32b (40|8 heads; 65.5 GB of weights) uncut, B=1, a 2048-token
-  prompt, sharing the kernel phases' TuningDB; and every arch at its SMOKE
-  config;
+  then greedy decode) on random bf16 weights from the seed, at full width
+  and full depth: tinyllama-1.1b (22 layers, flash at hd 64),
+  falcon-mamba-7b (64 layers, ``ssm_scan`` with its final state; 14.5 GB
+  of weights), recurrentgemma-2b (26 layers: ``rglru_scan`` in 18, flash
+  at hd 256 in 8), qwen3-0.6b (per-head qk_norm, 16|8 heads at hd 128),
+  granite-moe-1b-a400m (32 experts top-8), qwen2-vl-2b (12|2 heads,
+  M-RoPE, 256 vision positions), whisper-large-v3 (32 + 32 layers, 1500
+  frames, a 448-token decoder prompt) and qwen2.5-32b (40|8 heads; 65.5
+  GB of weights), B=1, a 2048-token prompt, sharing the kernel phases'
+  TuningDB; and every arch at its SMOKE config;
 * the serving slice (``repro_torch.runtime``) on the same models (but
-  qwen2.5-32b): the static ``Server`` and the continuous-batching
-  ``StreamingEngine``, each run with its own TuningDB and
-  ``BackgroundTuner``;
+  qwen2.5-32b), uncut: the static ``Server`` and the continuous-batching
+  ``StreamingEngine``, each run with its own TuningDB, and with a
+  ``BackgroundTuner`` but for the four families' engines after the
+  recurrent ones (``SERVE_ENGINES``);
 * the training slice (``repro_torch.runtime.Trainer``), run first while
   the card's memory is empty: tinyllama-1.1b uncut, bf16, B=4, S=4096,
   causal attention forward and backward on the flash kernels; then the
@@ -100,7 +101,10 @@ Phases, each of which fails the run:
    decoder tokens; the restart drill again on recurrentgemma-2b at 3
    layers.  The ``Trainer`` runs (timed) go first, then the checks that
    read no time (gradients, restart drills, SMOKE steps), with the
-   obs-smoke stream run and the example (7) beside them;
+   obs-smoke stream run, the example and the serve CLI's two runs (7), and
+   the serve phases' one-at-a-time oracles (6; ``oracle_worker``, a
+   process of its own), beside them; the families' ``Trainer`` runs time
+   ``TRAIN_MODEL_STEPS`` = 5 steps (10 before a trim for the run's time);
 2b. the dry-run (``[dryrun]`` lines): ``repro_torch.launch.dryrun.run_cell``
    on a (1, 1) mesh for tinyllama-1.1b uncut at the [train] cell (B=4,
    S=4096, bf16 parameters, float32 moments), one row a (micro, remat)
@@ -196,7 +200,17 @@ Phases, each of which fails the run:
    prompt[:513], Whisper's [:447] and [:448], within
    ``tests/test_models.py``'s rtol 0.1, atol 0.08; the VLM's positions and
    vision embeddings, Whisper's frames, cut alike),
-   both also reported, unchecked, at the JAX init; then every arch at
+   both also reported, unchecked, at the JAX init (falcon-mamba-7b has no
+   wq/wk: at its 64 layers its one run is on its token embedding and
+   blocks' out_proj tempered, ``temper``); the two recurrent families'
+   also on a model of 2 (falcon-mamba-7b, at the JAX init) and 3
+   (recurrentgemma-2b) layers drawn on its own from the seed, checked
+   (``MODEL_CHECK_DEPTH``), and falcon-mamba-7b's decode after prefill
+   there also on the 64-layer phase's prompt and on two more seeds'
+   draws, in bf16 (reported) and on float32 weights of the same values
+   (checked; ``MODEL_WITNESS_SEEDS``); the card's allocated and reserved
+   memory before each model's init, after it and after its phase; then
+   every arch at
    SMOKE, tempered: prefill and 4 decode steps on the card against the
    port's CPU run on the same weights (worst row within 4·2⁻⁸);
 6. serving (``[serve]`` lines), bf16 tempered weights, each run with the
@@ -208,15 +222,22 @@ Phases, each of which fails the run:
    evaluations of any kind, every class recalled) and ``joint_tune`` twice
    (the second recalls with 0), then the ``StreamingEngine`` (8 blocks,
    ``bursty_open_loop_trace(cfg, 16, seed=0, burst_size=4,
-   burst_gap_s=0.05)``), whose tuner then drains its kernel and degree
-   classes for up to 60 s (the scheduler's are dropped first), the same
-   trace with no tuner (the control), and again on the drained DB with no
-   tuner (0 evaluations; every class that landed is recalled, flash's and
-   a degree class's among them); falcon-mamba-7b (2 layers) and
-   recurrentgemma-2b (3 layers) at full width, qwen3-0.6b,
-   granite-moe-1b-a400m, qwen2-vl-2b and whisper-large-v3 uncut (these four
-   with no tuner), through the engine on 8 requests; every arch at SMOKE
-   through the engine on the card against
+   burst_gap_s=0.05)``), whose tuner then drops the scheduler's classes
+   and drains its kernel and degree classes until flash's and a degree
+   class have landed (at most 60 s), the same trace
+   with no tuner (the control), and again on the drained DB with no tuner
+   (0 evaluations; every class that landed is recalled, flash's and a
+   degree class's among them); falcon-mamba-7b (64 layers, tempered as in
+   the [model] phase; and 2 layers, at the JAX init),
+   recurrentgemma-2b (26), qwen3-0.6b, granite-moe-1b-a400m, qwen2-vl-2b
+   and whisper-large-v3 uncut through the engine on 8 requests, the
+   recurrent families' with their ``BackgroundTuner`` (the four others
+   with none, for the run's time limit: ``SERVE_ENGINES``): when the run
+   ends the tuner drops its queued scheduler classes (whole-model shadow
+   replays) and tunes what else is queued until each kernel of the model
+   has landed a measured class (at most 20 s), then stops (its seconds
+   printed); every arch
+   at SMOKE through the engine on the card against
    the port's engine on the CPU; tinyllama's SMOKE config on
    ``adversarial_trace`` under a seeded ``ChaosInjector`` with a
    ``TickTimer``.  Each run prints its requests, tokens and tok/s, TTFT
@@ -227,7 +248,9 @@ Phases, each of which fails the run:
    route) and plain calls (0, on any thread), each prefill kernel call of
    the serving thread against its plain version, the drain contract
    (engine), and each request's tokens against the one-at-a-time oracle
-   (``Server(batch_size=1)``; for the static Server each prompt padded to
+   (``Server(batch_size=1)``, at the kernels' default points, on the
+   serve phases' own weights and traces, made beside the [train] checks
+   by ``oracle_worker``; for the static Server each prompt padded to
    its group's length, as the Server feeds it): equal, or parted at a
    near-tie, where both runs' own logits of the two tokens (recorded at
    each greedy pick) lie within 2 bf16 ulps (bf16-rounded logits tie, and
@@ -254,14 +277,18 @@ Phases, each of which fails the run:
    called 64 times with every call monitored (0 transitions, and 0
    switches of the straggler selector beside the watch), then its
    winner slowed to 4 launches (demoted, re-tuned with every point measured
-   again, canaried, the other one-launch candidate promoted); the serve CLI at tinyllama-1.1b's full width (the
-   static Server on a mixed trace of 64 with ``--background-tune
-   --fleet-workers 2 --drift-factor 2 --device-key``, then of 128 on its
-   DB: each run 0 hot-path evaluations, 0 transitions over a non-zero
-   number of observations held against a final, printed by class); run
+   again, canaried, the other one-launch candidate promoted); run
    earlier, beside the [train] phase's checks that read no time (the
-   gradient checks, the restart drills, the SMOKE steps), the CI obs-smoke
-   job's streaming run
+   gradient checks, the restart drills, the SMOKE steps), the serve CLI at
+   tinyllama-1.1b's full width (the static Server on a mixed trace of 64
+   with ``--background-tune --fleet-workers 2 --drift-factor 2
+   --device-key``, then of 128 on its DB: each run 0 hot-path
+   evaluations, 0 transitions over a non-zero number of observations held
+   against a final, printed by class; it used to run alone after the
+   [fleet] phases: beside the checks its tuner's trials, the finals it
+   records and the times its drift watch holds to them are taken on a
+   card the checks, the oracles, the stream run and the example share),
+   the CI obs-smoke job's streaming run
    (``[observe]``: ``launch.observe trace``, ``metrics`` and ``explain`` on
    its files exit 0, ``explain`` naming ``engine_prefill``,
    ``engine_decode`` and ``serve_scheduler``) and ``[example]``:
@@ -306,11 +333,14 @@ no result, without a CUDA card or without the repository beside it.
 """
 from __future__ import annotations
 
+import atexit
+import copy
 import itertools
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -391,8 +421,8 @@ SUM_ROW_TOL = 1e-4
 # decode steps) at full width, B=1, a 2048-token prompt (the VLM's first 256
 # positions its vision embeddings); qwen2.5-32b last, its 65.5 GB of bf16
 # weights on a card the other phases have handed back
-MODELS = (("tinyllama-1.1b", None, 32), ("falcon-mamba-7b", 2, 16),
-          ("recurrentgemma-2b", 3, 16), ("qwen3-0.6b", None, 32),
+MODELS = (("tinyllama-1.1b", None, 32), ("falcon-mamba-7b", None, 16),
+          ("recurrentgemma-2b", None, 16), ("qwen3-0.6b", None, 32),
           ("granite-moe-1b-a400m", None, 32), ("qwen2-vl-2b", None, 32),
           ("whisper-large-v3", None, 32), ("qwen2.5-32b", None, 16))
 MODEL_S = 2048
@@ -400,6 +430,18 @@ MODEL_S = 2048
 # encoder reads its 1500 frames)
 MODEL_PROMPT = {"whisper-large-v3": 448}
 MODEL_CHECK_S = 512  # decode after prefill: prompt[:512] + one step vs prompt[:513]
+# the end-to-end check (kernel route vs plain versions, decode after
+# prefill) of the two recurrent families also runs on a model of 2 and 3
+# layers drawn from the seed on its own, as it ran before they ran uncut;
+# falcon-mamba-7b's there at the JAX init, as before, and decode after
+# prefill also on the 64-layer phase's prompt (on an H100, 0.109 off
+# against the rule's atol 0.08: the same weights, its first runs) and on
+# the draws of MODEL_WITNESS_SEEDS, in bf16 (reported) and on float32
+# weights of the same values (checked): the bf16 gap is the rounding of
+# both packages (``tests/test_torch_models_fullwidth_recurrent.py`` holds
+# it to the JAX package's on the CPU)
+MODEL_CHECK_DEPTH = {"falcon-mamba-7b": 2, "recurrentgemma-2b": 3}
+MODEL_WITNESS_SEEDS = (1, 2)
 SMOKE_STEPS = 4      # decode steps of each SMOKE config, card against CPU
 # C3: head dims off the kernels' 16-byte rule, run padded (S=2048, 8|2 heads)
 C3_HEAD_DIMS = (("bfloat16", (12, 36, 100)), ("float32", (6, 50)))
@@ -408,20 +450,29 @@ C3_SHAPE = dict(B=1, S=2048, H=8, KV=2)
 KERNEL_ENTRIES = {"flash_attention": ("flash_fwd",), "ssm_scan": ("ssm_kernel",),
                   "rglru_scan": ("rglru_kernel",)}
 # the serving slice: tinyllama-1.1b uncut through the Server (batch 4) and
-# the StreamingEngine (8 blocks); falcon-mamba-7b and recurrentgemma-2b at
-# full width, 2 of 64 and 3 of 26 layers, and qwen3-0.6b,
-# granite-moe-1b-a400m, qwen2-vl-2b and whisper-large-v3 uncut, through the
-# engine
+# the StreamingEngine (8 blocks); falcon-mamba-7b (64 layers),
+# recurrentgemma-2b (26), qwen3-0.6b, granite-moe-1b-a400m, qwen2-vl-2b and
+# whisper-large-v3 uncut through the engine
 SERVE_BATCH = 4
 SERVE_BLOCKS = 8
-# (arch, depth or None, with a BackgroundTuner): the four uncut families run
-# with none, a cut of their contract for the run's time limit: on an H100
-# their tuner added 18-32 s an engine (its trials slowed the serving
-# thread, and its last job, a whole-model trial, ran on 3-24 s after the
-# run); the tuned path is tinyllama's, falcon's and recurrentgemma's
-SERVE_ENGINES = (("falcon-mamba-7b", 2, True), ("recurrentgemma-2b", 3, True),
-                 ("qwen3-0.6b", None, False), ("granite-moe-1b-a400m", None, False),
-                 ("qwen2-vl-2b", None, False), ("whisper-large-v3", None, False))
+# (arch, depth or None, with a BackgroundTuner): every engine uncut (a
+# Mamba model's blocks tempered there, :func:`temper`), and falcon-mamba-7b
+# again at 2 layers on the JAX init, as it ran before it ran uncut.  The
+# four families' engines run with no tuner, a cut of their contract for
+# the run's time limit: on an H100 with their tuner they took 52.1, 56.1,
+# 51.2 and 58.7 s (qwen3-0.6b, granite-moe-1b-a400m, qwen2-vl-2b,
+# whisper-large-v3), the tuner's stop 6.0-27.5 s of it (the scheduler's
+# first class, 24 points of two whole-model shadow replays each, outlasted
+# every run), and the run passed 1400 s
+SERVE_ENGINES = (("falcon-mamba-7b", None, True), ("falcon-mamba-7b", 2, True),
+                 ("recurrentgemma-2b", None, True), ("qwen3-0.6b", None, False),
+                 ("granite-moe-1b-a400m", None, False), ("qwen2-vl-2b", None, False),
+                 ("whisper-large-v3", None, False))
+# when an engine's run ends, its tuner drops the queued scheduler classes
+# (each a whole-model shadow replay of every knob point), then tunes the
+# queued kernel and degree classes until each kernel of the model has
+# landed a measured class, for at most this long
+SERVE_ENGINE_DRAIN_S = 20.0
 SERVE_DRAIN_S = 60.0  # the Server's background tuner must drain within this
 # a request may part from its oracle only where both runs' own logits of the
 # two tokens lie within 2 bf16 ulps; at most half of a run's requests, and
@@ -1031,20 +1082,40 @@ def step_profile(torch, fn) -> dict:
             "top": [(key[:80], t) for key, t in rows[:10]]}
 
 
-def temper(torch, tm, params) -> None:
+def temper(torch, tm, params, ssm: bool = False) -> int:
     """Draw the attention projections at the fan-in of d_model, in place:
     the JAX init rules take a (d, heads, hd) projection's fan-in as its
     second-to-last dim (the heads), so its scores grow with d / heads
     (std ~180 in tinyllama-1.1b's first layer) and the model is chaotic:
     a one-ulp bf16 change flips which key a softmax picks.  wq and wk are
     scaled by sqrt(heads / d_model), which gives scores of about unit
-    scale; every other weight is as drawn."""
+    scale.  With ``ssm`` (a Mamba model at its published depth) also the
+    token embedding, drawn at std 0.02 (``embed_spec``), is scaled to unit
+    std and each block's out_proj by 0.25 / sqrt(n_layers): on the JAX init
+    the blocks' outputs (rms ~1 each) make the residual stream, RMSNorm
+    makes each block blind to their scale, and a layer's bf16 rounding
+    grows with depth (falcon-mamba-7b's 64-layer logits lie 0.756, worst
+    row, from the same weights in float32); tempered, the embedding holds
+    the stream at unit scale, and the blocks move the last logits by ~15%
+    (a 64-layer model of width 1024 on the CPU, its logits with and
+    without the blocks' outputs).  Every other weight is as drawn.  Returns how
+    many blocks it tempered (0: the weights are the JAX init's)."""
+    tempered = 0
     with torch.no_grad():
+        mamba = [m for m in params.modules()
+                 if ssm and isinstance(m, tm.Params) and "A_log" in m and "out_proj" in m]
+        for module in mamba:
+            module["out_proj"].mul_(0.25 / math.sqrt(len(mamba)))
+        if mamba:
+            params["embed"].div_(0.02)
+        tempered += len(mamba)
         for module in params.modules():
             if isinstance(module, tm.Params) and "wq" in module and "wk" in module:
                 for name in ("wq", "wk"):
                     w = module[name]
                     w.mul_(math.sqrt(w.shape[1] / w.shape[0]))
+                tempered += 1
+    return tempered
 
 
 def card_memory(torch) -> dict:
@@ -1189,10 +1260,14 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
     the model zoo's entry points on the kernel route, each kernel's
     launches and the evaluations it spent tuning, each kernel call of a
     prefill against its plain version on the same inputs; then, on the
-    same weights with the attention projections tempered (:func:`temper`),
-    the kernel route's last logits against the plain versions' and decode
-    after prefill (with the JAX init's weights both are reported, not
-    checked: the model is chaotic there).  Returns the phase's record."""
+    same weights tempered (:func:`temper`: the attention projections, and
+    a Mamba model's blocks at its published depth), the kernel route's
+    last logits against the plain versions' and decode after prefill
+    (with the JAX init's weights both are reported, not checked: the model
+    is chaotic there), and for a recurrent family the same on a model of
+    ``MODEL_CHECK_DEPTH`` layers, a Mamba model's also on more draws and
+    in float32.  Prints the card's memory before and after the init.
+    Returns the phase's record."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
     from repro_torch.core import autotuned
@@ -1212,6 +1287,8 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
     whole = tm.make_concrete_batch(gen, cfg, "prefill", 1, S + 1, device)["batch"]
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    print(f"[model] {label}: after init, {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated "
+          f"({torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)")
     batch = prefix(whole, S)
     cap = S + steps
 
@@ -1282,40 +1359,133 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
         errors.append(f"{label}: decode logits not finite")
     ours_ms, device_ms, top = kernel_share(torch, prefill)
 
-    def end_to_end(gate: bool) -> tuple:
-        """The kernel route's last logits against the plain versions' on
-        the card, and decode after prefill (prompt[:S] + one step against
-        prefill of prompt[:S+1])."""
-        what = "tempered" if gate else "JAX init"
-        ours, _ = prefill()
-        for c in counters.values():
-            c.reset()
-        with tm.plain_versions():
-            theirs, _ = prefill()
-        plain_calls = {name: c.plain_calls for name, c in counters.items()}
-        vs_plain = worst_row(torch, ours, theirs)
+    def decode_after_prefill(params, cfg, whole) -> tuple:
+        """(prompt[:s] + one decode step, prefill of prompt[:s+1]) logits."""
         s = min(MODEL_CHECK_S, S - 1)
         full, _ = tm.prefill_fn(params, prefix(whole, s + 1), cfg)
         _, short = tm.prefill_fn(params, prefix(whole, s), cfg, capacity=s + 1)
         step, _ = tm.decode_fn(params, position(whole, s), short, cfg)
-        gap = (step.float() - full.float()).abs()
-        dap_ok = bool((gap <= 0.08 + 0.1 * full.float().abs()).all())
+        return step.float(), full.float()
+
+    def within_rule(step, full) -> bool:
+        """``tests/test_models.py``'s decode-after-prefill rule."""
+        return bool(((step - full).abs() <= 0.08 + 0.1 * full.abs()).all())
+
+    def end_to_end(what: str, params, cfg, whole) -> tuple:
+        """The kernel route's last logits against the plain versions' on
+        the card, and decode after prefill (prompt[:S] + one step against
+        prefill of prompt[:S+1]), on ``params`` of ``cfg``; checked unless
+        ``what`` is the JAX init of a model that tempering changes."""
+        gate = what != "JAX init"
+        where = f"{arch} (depth {cfg.n_layers})"
+        batch = prefix(whole, S)
+        ours, _ = tm.prefill_fn(params, batch, cfg, capacity=cap)
+        for c in counters.values():
+            c.reset()
+        with tm.plain_versions():
+            theirs, _ = tm.prefill_fn(params, batch, cfg, capacity=cap)
+        plain_calls = {name: c.plain_calls for name, c in counters.items()}
+        vs_plain = worst_row(torch, ours, theirs)
+        step, full = decode_after_prefill(params, cfg, whole)
+        gap = (step - full).abs()
+        dap_ok = within_rule(step, full)
         dap_row = worst_row(torch, step, full)
-        print(f"[model] {label}, {what} weights: kernel route vs plain versions, last logits "
+        within = vs_plain <= ROW_TOL["bfloat16"] and dap_ok
+        print(f"[model] {where}, {what} weights: kernel route vs plain versions, last logits "
               f"worst row {vs_plain:.3e} (tol {ROW_TOL['bfloat16']}); decode after prefill at "
-              f"S={s}: max abs {float(gap.max()):.3e}, worst row {dap_row:.3e}, within "
-              f"(rtol 0.1, atol 0.08): {dap_ok}; plain calls {plain_calls}"
-              + ("" if gate else " (reported, not checked)"))
-        if gate and (vs_plain > ROW_TOL["bfloat16"] or plain_calls != expected):
-            errors.append(f"{label}: kernel route off the plain versions by {vs_plain} "
-                          f"(plain calls {plain_calls})")
+              f"S={min(MODEL_CHECK_S, S - 1)}: max abs {float(gap.max()):.3e}, worst row "
+              f"{dap_row:.3e}, within (rtol 0.1, atol 0.08): {dap_ok}; plain calls "
+              f"{plain_calls}" + ("" if gate else f" (reported, not checked; within the "
+                                                  f"rule: {within})"))
+        if plain_calls != model_kernels(cfg):
+            errors.append(f"{where}: plain calls {plain_calls} under plain_versions, expected "
+                          f"{model_kernels(cfg)}")
+        if gate and vs_plain > ROW_TOL["bfloat16"]:
+            errors.append(f"{where}: kernel route off the plain versions by {vs_plain}")
         if gate and not dap_ok:
-            errors.append(f"{label}: decode after prefill off prefill by {float(gap.max())}")
+            errors.append(f"{where}: decode after prefill off prefill by {float(gap.max())}")
         return vs_plain, dap_row
 
-    raw = end_to_end(gate=False)
-    temper(torch, tm, params)
-    tempered = end_to_end(gate=True)
+    def checks(params, cfg, whole) -> tuple:
+        """end_to_end at the JAX init (reported: the model is chaotic
+        there), then on weights tempered by :func:`temper` (checked; a
+        Mamba model's blocks too at its published depth); a model that
+        tempering leaves as drawn (a Mamba model cut in depth) has its one
+        run, checked, at the JAX init, and a Mamba model at its published
+        depth its one run on tempered weights.  Returns (the JAX init's
+        run or None, the checked run)."""
+        attention = any(isinstance(m, tm.Params) and "wq" in m for m in params.modules())
+        raw = end_to_end("JAX init", params, cfg, whole) if attention else None
+        full_depth = cfg.n_layers == get_config(arch).n_layers
+        tempered = temper(torch, tm, params, ssm=full_depth)
+        checked = end_to_end("tempered" if tempered else
+                             "JAX init (nothing to temper at this depth)", params, cfg, whole)
+        return (raw if tempered else checked), checked
+
+    def dap_witness(cut_cfg, draws) -> list:
+        """Decode after prefill on JAX-init draws of a model cut in depth,
+        in bf16 and on float32 weights of the same values: the float32 run
+        checked against the rule (it keeps the conv cache in bf16, as the
+        JAX package does), the bf16 gap reported beside how far each bf16
+        side lies from float32."""
+        seen = []
+        for name, draw, whole in draws:
+            step, full = decode_after_prefill(draw, cut_cfg, whole)
+            wide = copy.deepcopy(draw).float()
+            step32, full32 = decode_after_prefill(wide, cut_cfg, whole)
+            del wide
+            row = {"draw": name, "bf16_max_abs": float((step - full).abs().max()),
+                   "bf16_within": within_rule(step, full),
+                   "f32_max_abs": float((step32 - full32).abs().max()),
+                   "f32_within": within_rule(step32, full32),
+                   "prefill_bf16_vs_f32_max_abs": float((full - full32).abs().max()),
+                   "step_bf16_vs_f32_max_abs": float((step - step32).abs().max())}
+            print(f"[model] {arch} (depth {cut_cfg.n_layers}), {name}: decode after prefill, "
+                  f"max abs bf16 {row['bf16_max_abs']:.3e} (within the rule: "
+                  f"{row['bf16_within']}; reported), float32 weights {row['f32_max_abs']:.3e} "
+                  f"(within: {row['f32_within']}; checked); bf16 off float32: prefill "
+                  f"{row['prefill_bf16_vs_f32_max_abs']:.3e}, the step "
+                  f"{row['step_bf16_vs_f32_max_abs']:.3e}")
+            if not row["f32_within"]:
+                errors.append(f"{arch} (depth {cut_cfg.n_layers}), {name}: float32 decode after "
+                              f"prefill off prefill by {row['f32_max_abs']}")
+            seen.append(row)
+        return seen
+
+    def draw(seed: int, cfg) -> tuple:
+        """(params, a prompt of S + 1 tokens) drawn from ``seed``."""
+        gen = torch.Generator(device=device).manual_seed(seed)
+        drawn = tm.init_params(cfg, gen, device)
+        return drawn, tm.make_concrete_batch(gen, cfg, "prefill", 1, S + 1, device)["batch"]
+
+    # a recurrent family is also checked on a model of MODEL_CHECK_DEPTH
+    # layers drawn on its own from the seed (the check as it ran before the
+    # family ran uncut); a Mamba model's draw takes the embeddings, then
+    # layer after layer, so its weights are the full draw's first layers
+    # and only its prompt (the generator's next draw) differs
+    check_depth = MODEL_CHECK_DEPTH.get(arch) if depth is None else None
+    at_depth, witness_rows = None, None
+    if check_depth is not None:
+        cut_cfg = cfg.with_(n_layers=check_depth)
+        cut_params, cut_whole = draw(SEED, cut_cfg)
+        first_layers = cfg.family == "ssm" and all(
+            torch.equal(a, b) for a, b in zip(cut_params.parameters(), params.parameters()))
+    raw, checked = checks(params, cfg, whole)
+    if check_depth is not None:
+        at_depth = checks(cut_params, cut_cfg, cut_whole)[1]
+        if cfg.family == "ssm":
+            # its cut-depth check runs at the JAX init: decode after prefill
+            # also on the full model's prompt and on other seeds' draws, in
+            # bf16 and on float32 weights
+            if not first_layers:
+                errors.append(f"{arch}: the {check_depth}-layer draw is not the full draw's "
+                              f"first layers")
+            draws = [("seed 0, its own prompt", cut_params, cut_whole),
+                     (f"seed 0, the {cfg.n_layers}-layer phase's prompt", cut_params, whole)]
+            draws += [(f"seed {seed}", *draw(seed, cut_cfg)) for seed in MODEL_WITNESS_SEEDS]
+            witness_rows = dap_witness(cut_cfg, draws)
+            del draws
+        del cut_params, cut_whole
 
     flops = tm.analytic_step_flops(cfg, "prefill", 1, S)
     prefill_bound = flops / arch_spec.peak_flops * 1e3
@@ -1334,12 +1504,16 @@ def model_phase(torch, arch, depth, steps, device, arch_spec, counters, tuned_fp
             "prefill_flops": flops, "decode_ms_per_token": decode_ms,
             "decode_bound_ms": decode_bound, "decode_bytes": dbytes, "launches": launches,
             "decode_launches": decode_launches, "evaluations": evaluations,
-            "per_call": per_call, "vs_plain_worst_row": tempered[0],
-            "decode_after_prefill_worst_row": tempered[1], "jax_init_vs_plain_worst_row": raw[0],
-            "jax_init_decode_after_prefill_worst_row": raw[1],
+            "per_call": per_call, "vs_plain_worst_row": checked[0],
+            "decode_after_prefill_worst_row": checked[1],
+            "jax_init_vs_plain_worst_row": raw and raw[0],
+            "jax_init_decode_after_prefill_worst_row": raw and raw[1], "check_depth": check_depth,
+            "check_depth_vs_plain_worst_row": at_depth and at_depth[0],
+            "check_depth_decode_after_prefill_worst_row": at_depth and at_depth[1],
+            "check_depth_decode_after_prefill_draws": witness_rows,
             "kernel_ms": ours_ms, "device_ms": device_ms, "kernel_share": share,
             "top_device_ms": top, "init_s": init_s, "cold_prefill_s": cold_s,
-            "allocated_before_gb": held["allocated_gb"]}
+            "allocated_before_gb": held["allocated_gb"], "reserved_before_gb": held["reserved_gb"]}
 
 
 def smoke_sweep(torch, device, errors) -> dict:
@@ -1385,7 +1559,9 @@ def smoke_sweep(torch, device, errors) -> dict:
 
 
 def serve_setup(torch, arch, depth, device):
-    """(cfg, tempered bf16 params on ``device``) of one full-width model."""
+    """(cfg, tempered bf16 params on ``device``) of one full-width model:
+    :func:`temper`'s wq and wk, and a Mamba model's blocks where it runs at
+    its published depth (``depth`` None)."""
     from repro_torch import models as tm
     from repro_torch.configs import get_config
 
@@ -1393,7 +1569,7 @@ def serve_setup(torch, arch, depth, device):
     if depth is not None:
         cfg = cfg.with_(n_layers=depth)
     params = tm.init_params(cfg, torch.Generator(device=device).manual_seed(SEED), device)
-    temper(torch, tm, params)
+    temper(torch, tm, params, ssm=depth is None)
     return cfg, params
 
 
@@ -1627,20 +1803,38 @@ class ServeRun:
         self.pending = self.tuner.pending if self.tuner is not None else 0
         return False
 
-    def stop_tuner(self, drain_s: float, drop_first=None) -> dict:
+    def stop_tuner(self, drain_s: float, drop_first=None, enough=None) -> dict:
         """Drop the queued jobs whose label ``drop_first`` accepts, let the
-        tuner go on for ``drain_s`` seconds, drop what it has not started,
-        wait for the job it runs; what it did."""
+        tuner go on for ``drain_s`` seconds (or until ``enough(tuner)``),
+        drop what it has not started, wait for the job it runs; what it
+        did."""
         t0 = time.perf_counter()
         skipped = self.tuner.cancel_pending(drop_first) if drop_first is not None else []
-        drained_in = self.tuner.drain(timeout=drain_s)
+        if enough is None:
+            drained_in = self.tuner.drain(timeout=drain_s)
+        else:
+            while True:
+                left = t0 + drain_s - time.perf_counter()
+                drained_in = self.tuner.drain(timeout=max(0.0, min(0.25, left)))
+                if drained_in or enough(self.tuner) or left <= 0:
+                    break
         dropped = skipped + self.tuner.cancel_pending()
         self.tuner.stop(timeout=300)
-        print(f"[time] {self.label}: the tuner stopped {time.perf_counter() - t0:.2f} s "
-              f"after the run (drained: {drained_in}; {len(skipped)} dropped first)")
+        stop_s = time.perf_counter() - t0
+        by_kernel = {}  # kernel -> [classes tuned, evaluations, the classes' seq]
+        for _, st in self.tuner.completed:
+            entry = by_kernel.setdefault(st.bp["kernel"], [0, 0, []])
+            entry[0] += 1
+            entry[1] += st.cost_evaluations
+            if "seq" in st.bp.asdict():
+                entry[2].append(st.bp["seq"])
+        print(f"[time] {self.label}: the tuner stopped {stop_s:.2f} s after the run (drained: "
+              f"{drained_in}; {len(skipped)} dropped first); tuned by kernel (classes, "
+              f"evaluations, seq): {by_kernel}")
         return {"pending_at_end": self.pending, "drained": drained_in,
                 "dropped": len(dropped), "tuned": len(self.tuner.completed),
                 "background_evaluations": self.tuner.background_evaluations,
+                "by_kernel": by_kernel, "stop_s": stop_s,
                 "errors": [f"{label}: {e!r}" for label, e in self.tuner.errors]}
 
     def check(self, cfg, errors, expect=None) -> dict:
@@ -1706,21 +1900,95 @@ def serve_report(label, stats_line, run, tuner, classes, hot, want, got, want_ro
     return verdicts(label, want, got, want_rows, got_rows, errors)
 
 
-def serve_tinyllama(torch, device, arch_spec, counters, errors) -> list:
+def serve_traces(arch, cfg) -> tuple:
+    """(run -> (its requests, the static Server's batch or None), the
+    pool's row length) of ``arch``'s serve runs: tinyllama-1.1b's Server
+    on a mixed trace of 8 ("static") and engine on a bursty trace of 16
+    ("stream"), or the first 8 requests of the bursty trace ("engine"),
+    what ``SERVE_ENGINES`` serve."""
+    from repro_torch.data import bursty_open_loop_trace, mixed_traffic_trace
+
+    if arch == "tinyllama-1.1b":
+        runs = {"static": (mixed_traffic_trace(cfg, 8, seed=SEED), SERVE_BATCH),
+                "stream": (bursty_open_loop_trace(cfg, 16, seed=SEED, burst_size=4,
+                                                  burst_gap_s=0.05), None)}
+    else:
+        runs = {"engine": (bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4,
+                                                  burst_gap_s=0.05), None)}
+    return runs, max(len(r.prompt) + r.max_new_tokens for reqs, _ in runs.values() for r in reqs)
+
+
+# the models whose serve runs are checked against a one-at-a-time oracle
+SERVE_MODELS = (("tinyllama-1.1b", None),) + tuple((a, d) for a, d, _ in SERVE_ENGINES)
+
+
+def oracle_path(oracles: Path, arch, depth, run: str) -> Path:
+    return oracles / f"oracle_{arch}_{depth}_{run}.pt"
+
+
+def oracle_of(oracles: Path, arch, depth, run: str) -> tuple:
+    """(rid -> tokens, rid -> logits rows) of serve run ``run`` of ``arch``
+    at ``depth``, as :func:`write_oracles` wrote it under ``oracles``."""
+    import torch
+
+    saved = torch.load(oracle_path(oracles, arch, depth, run))
+    return saved["tokens"], saved["rows"]
+
+
+def write_oracles(torch, oracles: Path, device, models=SERVE_MODELS) -> None:
+    """Every serve run's one-at-a-time oracle (:func:`serve_oracle`) of
+    ``models``, on the card, under ``oracles`` for :func:`oracle_of`: the
+    weights of :func:`serve_setup` and the traces of :func:`serve_traces`,
+    which the serve phases use too, the kernels at their default points
+    (the oracle's Server tunes nothing), so its tokens and logits are those
+    the serve phases would compute.  It reads no time."""
+    t0 = time.perf_counter()
+    for arch, depth in models:
+        cfg, params = serve_setup(torch, arch, depth, device)
+        runs, max_len = serve_traces(arch, cfg)
+        for run, (reqs, batch) in runs.items():
+            tokens, rows = serve_oracle(cfg, params, reqs, max_len, batch)
+            torch.save({"tokens": tokens,
+                        "rows": {rid: [r.cpu() for r in v] for rid, v in rows.items()}},
+                       oracle_path(oracles, arch, depth, run))
+        del params
+        torch.cuda.empty_cache()
+    print(f"oracles: the serve runs of {len(models)} models in {time.perf_counter() - t0:.1f} s")
+
+
+def oracle_worker(out_dir: str) -> None:
+    """:func:`write_oracles` in a process of its own (:func:`oracle_phase`,
+    beside the [train] checks)."""
+    import torch
+
+    prepare(torch)
+    build_all()
+    write_oracles(torch, Path(out_dir), torch.device("cuda:0"))
+
+
+def oracles_here(torch, device, models=SERVE_MODELS) -> Path:
+    """:func:`write_oracles` in this process, under a new temporary
+    directory: for serve phases run on their own."""
+    oracles = Path(tempfile.mkdtemp(prefix="chip_smoke_oracles_"))
+    atexit.register(shutil.rmtree, oracles, True)
+    write_oracles(torch, oracles, device, models)
+    return oracles
+
+
+def serve_tinyllama(torch, device, arch_spec, counters, errors, oracles: Path) -> list:
     """tinyllama-1.1b uncut: the Server on a mixed trace (then again on the
     same DB, then joint_tune twice) and the StreamingEngine on a bursty
     trace with its tuner, with none, and on the first run's DB once its
-    tuner has drained; every request against the oracle."""
+    tuner has drained; every request against the oracle (from
+    ``oracles``, :func:`oracle_of`)."""
     from repro_torch import models as tm
-    from repro_torch.data import bursty_open_loop_trace, mixed_traffic_trace
     from repro_torch.runtime import Server
 
     cfg, params = serve_setup(torch, "tinyllama-1.1b", None, device)
-    stream = bursty_open_loop_trace(cfg, 16, seed=SEED, burst_size=4, burst_gap_s=0.05)
-    static = mixed_traffic_trace(cfg, 8, seed=SEED)
-    max_len = max(len(r.prompt) + r.max_new_tokens for r in stream + static)
+    runs, max_len = serve_traces("tinyllama-1.1b", cfg)
+    (static, _), (stream, _) = runs["static"], runs["stream"]
     records = []
-    oracle, oracle_rows = serve_oracle(cfg, params, static, max_len, batch=SERVE_BATCH)
+    oracle, oracle_rows = oracle_of(oracles, "tinyllama-1.1b", None, "static")
 
     # the Server, batch 4: the tuner drains before the second pass
     label = "tinyllama-1.1b Server"
@@ -1806,10 +2074,18 @@ def serve_tinyllama(torch, device, arch_spec, counters, errors) -> list:
     # classes: the scheduler's shadow replays would take minutes), with no
     # tuner (the control), and on the drained DB with no tuner (the tuned path)
     label = "tinyllama-1.1b StreamingEngine"
-    stream_oracle = serve_oracle(cfg, params, stream, max_len)
+
+    def enough(bg) -> bool:
+        """flash's classes and a degree class landed: what the tuned DB's
+        run must recall."""
+        kinds = {st.bp["kernel"] for _, st in bg.completed}
+        return "flash_attention" in kinds and bool({"engine_prefill", "engine_decode"} & kinds)
+
+    stream_oracle = oracle_of(oracles, "tinyllama-1.1b", None, "stream")
     rec, _, run = serve_engine_run(torch, label, cfg, params, stream, max_len, arch_spec,
                                    counters, errors, stream_oracle, drain_s=SERVE_DRAIN_S,
-                                   drop_first=lambda name: name.startswith("stream/"))
+                                   drop_first=lambda name: name.startswith("stream/"),
+                                   enough=enough)
     records.append(rec)
     landed = {st.bp.fingerprint() for _, st in run.tuner.completed}
     rec, _, _ = serve_engine_run(torch, f"{label}, no tuner", cfg, params, stream, max_len,
@@ -1844,11 +2120,14 @@ def serve_tinyllama(torch, device, arch_spec, counters, errors) -> list:
 
 
 def serve_engine_run(torch, label, cfg, params, reqs, max_len, arch_spec, counters, errors,
-                     oracle, db=None, tuner=True, drain_s=0.0, drop_first=None) -> tuple:
+                     oracle, db=None, tuner=True, drain_s=0.0, drop_first=None,
+                     enough=None) -> tuple:
     """One StreamingEngine run on the card on its own DB (or ``db``), with
-    a BackgroundTuner unless ``tuner`` is False: the stats, each decode step
-    beside its byte bound, the drain contract and the check against
-    ``oracle`` (tokens, rows); returns (its record, the engine, the run)."""
+    a BackgroundTuner unless ``tuner`` is False (stopped as
+    :meth:`ServeRun.stop_tuner` says): the stats, each decode step beside
+    its byte bound, the drain contract and the check against ``oracle``
+    (tokens, rows);
+    returns (its record, the engine, the run)."""
     from repro_torch import models as tm
     from repro_torch.obs import Tracer
     from repro_torch.runtime import StreamingEngine
@@ -1861,7 +2140,7 @@ def serve_engine_run(torch, label, cfg, params, reqs, max_len, arch_spec, counte
     rows = witness(engine_rows, run.logits.records, eng.tracer.events())
     if run.tuner is not None:
         landed = len(run.tuner.tuned_labels)
-        info = run.stop_tuner(drain_s, drop_first)
+        info = run.stop_tuner(drain_s, drop_first, enough)
         info["landed_in_run"] = landed
     else:
         info = {"tuner": None}
@@ -1978,35 +2257,64 @@ def serve_smoke(torch, device, counters, errors) -> dict:
     return out
 
 
-def serve_engine(torch, arch, depth, tuner, device, arch_spec, counters, errors) -> dict:
+def serve_engine(torch, arch, depth, tuner, device, arch_spec, counters, errors,
+                 oracles: Path) -> dict:
     """One of ``SERVE_ENGINES``: ``arch`` at ``depth`` layers (None: all)
-    through the StreamingEngine on the first 8 requests of the bursty
-    trace, against the one-at-a-time oracle; returns its record."""
-    from repro_torch.data import bursty_open_loop_trace
-
+    through the StreamingEngine on its trace (:func:`serve_traces`),
+    against the one-at-a-time oracle (from ``oracles``, :func:`oracle_of`),
+    its tuner stopped once each kernel of the model has landed a measured
+    class; returns its record."""
     t0 = time.perf_counter()
     cfg, params = serve_setup(torch, arch, depth, device)
-    reqs = bursty_open_loop_trace(cfg, 8, seed=SEED, burst_size=4, burst_gap_s=0.05)
-    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs)
-    oracle = serve_oracle(cfg, params, reqs, max_len)
-    rec, _, _ = serve_engine_run(torch, f"{arch} (depth {cfg.n_layers}) StreamingEngine",
-                                 cfg, params, reqs, max_len, arch_spec, counters, errors,
-                                 oracle, tuner=tuner)
+    runs, max_len = serve_traces(arch, cfg)
+    reqs = runs["engine"][0]
+    oracle = oracle_of(oracles, arch, depth, "engine")
+    setup_s = time.perf_counter() - t0
+    label = f"{arch} (depth {cfg.n_layers}) StreamingEngine"
+    need = {k for k, n in model_kernels(cfg).items() if n}
+
+    def enough(bg) -> bool:
+        """Each kernel of the model has landed a class it measured."""
+        return need <= {st.bp["kernel"] for _, st in bg.completed if st.cost_evaluations}
+
+    rec, _, run = serve_engine_run(
+        torch, label, cfg, params, reqs, max_len, arch_spec, counters, errors, oracle,
+        tuner=tuner, drain_s=SERVE_ENGINE_DRAIN_S,
+        drop_first=lambda name: name.startswith("stream/"), enough=enough)
+    if tuner:
+        by_kernel = rec["tuner"]["by_kernel"]
+        untuned = sorted(k for k in need if by_kernel.get(k, [0, 0])[1] == 0)
+        if untuned:
+            errors.append(f"serve {label}: no background evaluation of {untuned} "
+                          f"(tuned {by_kernel})")
     del params
     torch.cuda.empty_cache()
-    print(f"[time] serve {arch}: {time.perf_counter() - t0:.1f} s (init and the oracle "
-          f"included)")
+    stop_s = rec["tuner"].get("stop_s", 0.0)
+    print(f"[time] serve {arch} (depth {cfg.n_layers}): {time.perf_counter() - t0:.1f} s: init "
+          f"and the oracle {setup_s:.1f} s, the run {run.wall_s:.1f} s, the tuner's stop "
+          f"{stop_s:.1f} s")
     return rec
 
 
-def serve_phases(torch, device, arch_spec, counters, errors) -> dict:
-    """The [serve] phases; returns their records.  Near-ties may part at
+def serve_phases(torch, device, arch_spec, counters, errors, oracles=None) -> dict:
+    """The [serve] phases (their oracles from ``oracles``, where
+    :func:`oracle_worker` wrote them, or made here first by
+    :func:`oracles_here`); returns their records.  Near-ties may part at
     most ``NEAR_TIE_SHARE`` of all the requests they compare."""
-    records = serve_tinyllama(torch, device, arch_spec, counters, errors)
-    records += [serve_engine(torch, *engine, device, arch_spec, counters, errors)
+    if oracles is None:
+        oracles = oracles_here(torch, device)
+    t0 = time.perf_counter()
+    records = serve_tinyllama(torch, device, arch_spec, counters, errors, oracles)
+    print(f"[time] serve tinyllama-1.1b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records += [serve_engine(torch, *engine, device, arch_spec, counters, errors, oracles)
                 for engine in SERVE_ENGINES]
+    print(f"[time] serve engines: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     smoke = serve_smoke(torch, device, counters, errors)
-    tallies = [r["oracle"] for r in records] + [v.get("oracle", v) for v in smoke.values()]
+    print(f"[time] serve smoke and chaos: {time.perf_counter() - t0:.1f} s")
+    tallies = ([r["oracle"] for r in records]
+               + [v.get("oracle", v) for v in smoke.values()])
     compared = sum(sum(t.values()) for t in tallies)
     near = sum(t["near-tie"] for t in tallies)
     print(f"[serve] near-ties: {near} of {compared} requests compared (at most "
@@ -2279,7 +2587,9 @@ TRAIN = dict(arch="tinyllama-1.1b", B=4, S=4096, steps=10, micro=(1, 2, 4),
              remat=("none", "full"), overfit=10)
 TRAIN_GRADS = dict(layers=2, B=1, S=2048)
 # the scans' families at full width in the gradient check: falcon-mamba-7b at
-# 2 of 64 layers, recurrentgemma-2b at 3 of 26 (one (rec, rec, attn) group)
+# 2 of 64 layers, recurrentgemma-2b at 3 of 26 (one (rec, rec, attn) group):
+# the plain backwards are loops over S (``[model]`` and ``[serve]`` run both
+# uncut, ``[train]`` recurrentgemma-2b uncut and falcon-mamba-7b at 8 layers)
 TRAIN_GRADS_SCANS = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 3))
 # the dense-GQA, MoE, VLM and encoder-decoder families at full width, 2 layers
 # (Whisper 2 + 2)
@@ -2310,7 +2620,7 @@ TRAIN_MODELS = (dict(arch="recurrentgemma-2b", layers=None, B=1, S=2048),
                 dict(arch="granite-moe-1b-a400m", layers=None, B=4, S=4096, remat="full"),
                 dict(arch="qwen2-vl-2b", layers=None, B=2, S=4096, remat="full"),
                 dict(arch="whisper-large-v3", layers=None, B=4, S=448, remat="full"))
-TRAIN_MODEL_STEPS = 10
+TRAIN_MODEL_STEPS = 5  # it was 10: a trim for the run's time limit
 TRAIN_MODEL_OVERFIT = 4
 # the worst gradient leaf's ||g - r|| / ||r||, kernel route against plain versions
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
@@ -2946,7 +3256,7 @@ def train_smoke(torch, device, errors) -> dict:
     return out
 
 
-def train_phases(torch, device, arch_spec, errors) -> tuple:
+def train_phases(torch, device, arch_spec, errors, oracles=None) -> tuple:
     """tinyllama's B=4 step first, while the card's memory is empty, then
     the other timed runs (``TRAIN_MODELS``); then the checks that read no
     time (the gradient checks, the restart drills, the SMOKE steps), with
@@ -2975,7 +3285,7 @@ def train_phases(torch, device, arch_spec, errors) -> tuple:
             print(f"[time] train {name}: {time.perf_counter() - t0:.1f} s")
 
     run_all(timed)
-    join = cli_phases_beside(errors)
+    join = cli_phases_beside(errors, oracles)
     try:
         run_all(untimed)
     finally:
@@ -3460,7 +3770,8 @@ def drift_drill(torch, device, errors) -> dict:
 
 def serve_cli_phase(errors, tmp: Path) -> dict:
     """``[drift]``: the serve CLI at tinyllama-1.1b's full width, the
-    static Server with the fleet's flags (timed: it runs alone)."""
+    static Server with the fleet's flags, a tuning run and a run on its DB
+    (beside the [train] checks: :func:`cli_phases_beside`)."""
     out = {}
     db = tmp / "serve_db.json"
     # first the tuning run, then a run on its DB: every class recalled, the
@@ -3526,34 +3837,52 @@ def obs_smoke_phase(errors, tmp: Path) -> dict:
     return dict(rc=res.returncode, seconds=secs, observe=obs)
 
 
-def cli_phases_beside(errors):
-    """``[observe]`` and ``[example]`` (``obs_smoke_phase``,
-    ``example_phase``), each CLI a process of its own on a thread of its
-    own, started beside the [train] phase's checks that read no time (the
-    gradient checks, the restart drills, the SMOKE steps): no time read or
-    tuned while they run is printed or kept, and their own times (the
-    stream run's metrics, the example's steps a second) are those of a
-    shared card.  Returns a function that waits for both and gives their
-    records."""
+def cli_phases_beside(errors, oracles=None):
+    """``[observe]``, ``[example]`` and the serve CLI's ``[drift]`` runs
+    (``obs_smoke_phase``, ``example_phase``, ``serve_cli_phase``), each on
+    a thread of its own, its CLIs processes of their own, started beside
+    the [train] phase's checks, which read no time (the gradient checks,
+    the restart drills, the SMOKE steps), and with ``oracles`` the serve
+    oracles' process (:func:`oracle_phase`).  What these runs time is
+    timed on a card they share with the checks and with each other: the
+    stream run's metrics, the example's steps a second, the serve CLI's
+    tok/s, its tuner's trials, the finals they record and the times its
+    drift watch holds to them.  Returns a function that waits for them all
+    and gives their records."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     out = {}
     threads = [threading.Thread(target=lambda: out.update(stream=obs_smoke_phase(errors, tmp))),
-               threading.Thread(target=lambda: out.update(example=example_phase(errors, tmp)))]
+               threading.Thread(target=lambda: out.update(example=example_phase(errors, tmp))),
+               threading.Thread(target=lambda: out.update(serve_cli=serve_cli_phase(errors,
+                                                                                    tmp)))]
+    if oracles is not None:
+        threads.append(threading.Thread(
+            target=lambda: out.update(oracles=oracle_phase(errors, oracles))))
     for t in threads:
         t.start()
     t0 = time.perf_counter()
 
     def join() -> dict:
-        import shutil
-
         for t in threads:
             t.join()
         shutil.rmtree(tmp, ignore_errors=True)
-        print(f"[time] the obs-smoke stream run and the example beside the train checks: "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"[time] the obs-smoke stream run, the example, the serve CLI and the serve "
+              f"oracles beside the train checks: {time.perf_counter() - t0:.1f} s")
         return out
 
     return join
+
+
+def oracle_phase(errors, oracles: Path) -> dict:
+    """:func:`oracle_worker` in a process of its own, writing under
+    ``oracles``."""
+    t0 = time.perf_counter()
+    res = cli(["-c", f"import chip_smoke; chip_smoke.oracle_worker({str(oracles)!r})"], 900)
+    secs = time.perf_counter() - t0
+    cli_ok("[serve] oracles", res, errors)
+    print(f"[serve] oracles of the serve runs, beside the train checks: exit {res.returncode}, "
+          f"{secs:.1f} s")
+    return dict(rc=res.returncode, seconds=secs)
 
 
 def example_phase(errors, tmp: Path) -> dict:
@@ -3584,8 +3913,7 @@ def fleet_phases(torch, device, errors) -> dict:
                 ("fleet", lambda: fleet_kernels(torch, device, errors)),
                 ("service", lambda: service_phase(torch, device, errors)),
                 ("drift", lambda: drift_drill(torch, device, errors)),
-                ("fleet_cli", lambda: fleet_cli(errors)),
-                ("serve_cli", lambda: serve_cli_phase(errors, Path(tmp)))):
+                ("fleet_cli", lambda: fleet_cli(errors))):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             out[name] = phase()
@@ -3826,7 +4154,10 @@ def run() -> int:
     # -- the training slice first, while the card's memory is its own: the
     # joint search's remat-none step peaks at 68.6 GB of the 80 -----------
     t0 = time.perf_counter()
-    train, beside = train_phases(torch, device, arch, errors)
+    # the serve phases' oracles are made beside the [train] checks
+    oracles = Path(tempfile.mkdtemp(prefix="chip_smoke_oracles_"))
+    atexit.register(shutil.rmtree, oracles, True)
+    train, beside = train_phases(torch, device, arch, errors, oracles)
     print(f"[time] train phases: {time.perf_counter() - t0:.1f} s")
     if errors:
         for e in errors:
@@ -4342,10 +4673,20 @@ def run() -> int:
     tuned_fps |= {b4_state.bp.fingerprint(), hd256_state.bp.fingerprint()}
     model_counters = kernel_counters()
     t0 = time.perf_counter()
-    models = [model_phase(torch, name, depth, steps, device, arch, model_counters, tuned_fps,
-                          errors)
-              for name, depth, steps in MODELS]
+    models = []
+    for name, depth, steps in MODELS:
+        t1 = time.perf_counter()
+        models.append(model_phase(torch, name, depth, steps, device, arch, model_counters,
+                                  tuned_fps, errors))
+        held = card_memory(torch)
+        models[-1].update(allocated_after_gb=held["allocated_gb"],
+                          reserved_after_gb=held["reserved_gb"])
+        print(f"[model] {name}: after the phase, {held['allocated_gb']:.3f} GB allocated on "
+              f"the card ({held['reserved_gb']:.3f} GB reserved)")
+        print(f"[time] model {name}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     smoke = smoke_sweep(torch, device, errors)
+    print(f"[time] model smoke: {time.perf_counter() - t1:.1f} s")
     print(f"[time] model phases: {time.perf_counter() - t0:.1f} s")
     if errors:
         for e in errors:
@@ -4355,7 +4696,7 @@ def run() -> int:
 
     # -- the serving slice: Server and StreamingEngine on the kernels -------
     t0 = time.perf_counter()
-    serve = serve_phases(torch, device, arch, model_counters, errors)
+    serve = serve_phases(torch, device, arch, model_counters, errors, oracles)
     print(f"[time] serve phases: {time.perf_counter() - t0:.1f} s")
     if errors:
         for e in errors:
